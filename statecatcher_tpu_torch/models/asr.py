@@ -1,0 +1,117 @@
+"""ASRModel: input projection, frame stacking, masking policy, encoder.
+
+Port of ``statecatcher_tpu/models/asr.py`` for the LucyRNN encoder (the
+7-gate ``variant="triton"``): the optional input projection, ``stack_order``
+trim-and-fold, zero-input masking of padded frames, and the cast of the
+carried state to ``carry_dtype``.  The stateful contract is the JAX
+package's: ``logits, new_state = model(feats, state, frame_mask)``.
+
+Other encoders and ``variant="native"`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from statecatcher_tpu_torch import resolve_device
+from statecatcher_tpu_torch.config import ModelConfig
+from statecatcher_tpu_torch.models.layers import Dense, torch_dtype
+from statecatcher_tpu_torch.models.lucyrnn import LucyRNNEncoder
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for configurations this port lacks."""
+    if cfg.encoder != "lucyrnn":
+        raise NotImplementedError(
+            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1); "
+            "only 'lucyrnn' is")
+    if cfg.lucyrnn.variant != "triton":
+        raise NotImplementedError(
+            f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported yet "
+            "(ROADMAP.md queue 1); only the 7-gate 'triton' variant is")
+
+
+class ASRModel(nn.Module):
+    """Input projection → frame stacking → LucyRNN encoder (→ vocab logits).
+
+    Parameters are initialised on the CPU from ``generator`` (a fresh one
+    seeded 0 when None) and then moved to ``device``.
+    """
+
+    def __init__(self, cfg: ModelConfig, feat_dim: int, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.feat_dim = feat_dim
+        self.dtype = torch_dtype(cfg.dtype)
+        param_dtype = torch_dtype(cfg.param_dtype)
+        in_dim = feat_dim
+        if cfg.input_proj_dim > 0:
+            self.proj = Dense(feat_dim, cfg.input_proj_dim, dtype=self.dtype,
+                              param_dtype=param_dtype, generator=generator)
+            in_dim = cfg.input_proj_dim
+        else:
+            self.proj = None
+        in_dim *= max(1, cfg.stack_order)
+        lcfg = dataclasses.replace(cfg.lucyrnn, hidden_dim=cfg.hidden_size,
+                                   num_layers=cfg.num_layers)
+        self.encoder = LucyRNNEncoder(in_dim, cfg.vocab_size, lcfg, dtype=self.dtype,
+                                      param_dtype=param_dtype, generator=generator)
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.output_proj.weight.device
+
+    def init_state(self, batch_size: int) -> dict:
+        return init_carry(self.cfg, batch_size, device=self.device)
+
+    def forward(self, feats, state=None, frame_mask=None):
+        cfg = self.cfg
+        x = feats.to(self.dtype)
+        if self.proj is not None:
+            x = self.proj(x)
+        if cfg.stack_order > 1:
+            # trim T to a multiple of the stack, fold consecutive frames into
+            # features; frame_mask is already at the stacked rate
+            s = cfg.stack_order
+            B, T, F = x.shape
+            Tt = T - (T % s)
+            x = x[:, :Tt].reshape(B, Tt // s, F * s)
+        if frame_mask is not None:
+            # zero-input masking (reference model.py:374-377)
+            x = x * frame_mask[..., None].to(x.dtype)
+        logits, new_state = self.encoder(x, state, frame_mask)
+        cdt = carry_dtype(cfg)
+        return logits, {k: v.to(cdt) for k, v in new_state.items()}
+
+
+def carry_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Dtype of the inter-segment carry (``cfg.carry_dtype``; "auto" → the
+    activation dtype)."""
+    return torch_dtype(cfg.dtype if cfg.carry_dtype == "auto" else cfg.carry_dtype)
+
+
+def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> dict:
+    """Zero carry for a LucyRNN config: {"h", "s"} of (B, tracks, L, D)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = carry_dtype(cfg)
+    shape = (batch_size, cfg.lucyrnn.num_tracks, cfg.num_layers, cfg.hidden_size)
+    return {"h": torch.zeros(shape, dtype=dtype, device=dev),
+            "s": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def build_model(cfg: ModelConfig, feat_dim: int, device="cuda",
+                generator: Optional[torch.Generator] = None) -> ASRModel:
+    """ASRModel for ``cfg`` on ``device``."""
+    return ASRModel(cfg, feat_dim, device=device, generator=generator)

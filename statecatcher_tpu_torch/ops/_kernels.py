@@ -1,0 +1,103 @@
+"""Builds and loads the port's CUDA kernels (``ops/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface, loaded with ``ctypes`` (pointers and the stream are
+``c_void_p``).  Libraries go to ``build/kernels/`` at the repository root,
+named by a hash of the source and flags, so an edited source is rebuilt and
+an unchanged one is reused.  Nothing is built when this module is imported:
+the first launch builds, and ``build_all`` builds every source at once, one
+``nvcc`` process each, started together.
+
+A missing ``nvcc`` or a failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures of each library's entry points: name → (restype, argtypes)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "lucy_fused_lm_fwd": {
+        "lucy_fused_lm_fwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    },
+}
+
+# ptxas -v output and wall time of each build this process ran: name → dict
+BUILD_LOG: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+                       "kernels of statecatcher_tpu_torch cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start one nvcc build; returns (process, tmp path, final path, t0), or
+    None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out, t0 = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)          # atomic: a concurrent process never loads half a file
+    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+
+
+def build_all() -> dict[str, dict]:
+    """Build every kernel source not yet built, all nvcc processes at once."""
+    started = {name: _start(name) for name in SIGNATURES}
+    for name, st in started.items():
+        if st is not None:
+            _finish(name, st)
+    return BUILD_LOG
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    st = _start(name)
+    if st is not None:
+        _finish(name, st)
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn_name, (restype, argtypes) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
