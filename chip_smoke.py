@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-It builds every CUDA kernel of the serving path from ``statecatcher_tpu_torch/
-ops/csrc`` and drives the flagship LucyRNN-CTC model (4 × 512, vocab 1024,
-80 MFCC, float32, seeded random weights) through the port's entry points:
+It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
+csrc`` (one nvcc per source, all started together) and drives the flagship
+LucyRNN-CTC model (4 × 512, vocab 1024, 80 MFCC, float32, seeded random
+weights) through the port's entry points:
 
-  0. the card's facts, the kernel build (time, ``ptxas -v`` registers/spills);
-  1. kernel: ``lucy_cell_fused_lm`` against its plain version on the card at
-     the batched shape (f32 and bf16) and the streaming shape, with times
-     (CUDA events) beside the byte bound;
-  2. batched: ``SpeechModel`` over 3 carried 16 s segments at B=32 (the last
-     one with a partial sample mask through ``compute_frame_mask``), the
+  0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills);
+  1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
+     batched shape (f32 and bf16) and the streaming shape, with times (CUDA
+     events) beside the byte bound;
+  2. batched: ``SpeechModel`` over 3 carried 16 s segments at B=32, the
      kernel path held against the plain path on the card;
-  3. streaming: ``StreamingRecognizer`` on three ~10 s streams fed in random
-     pieces, held against an offline one-shot decode of the same frames;
-  4. the ``kernels`` JSON line, with each kernel's launch count on the main
-     path (phases 2 and 3; each counter is set to 0 just before a phase and
+  3. streaming: ``StreamingRecognizer`` on three ~10 s streams, held against
+     an offline one-shot decode of the same frames;
+  4. kernels K2, K3, K4: the cell's backward and the CTC α/β lattice against
+     their plain versions at the training shapes (and a ragged shape, and
+     one with S > 1024 states), with times, bounds, plain times and, for the
+     lattice, ``F.ctc_loss`` as the library yardstick;
+  5. train step: ``make_segment_scan_step`` over one group of 4 carried 16 s
+     segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
+     the kernel path held against the plain path;
+  6. throughput at bench.py's shape (B=96, K=24, 16 s, bf16): one warm and
+     one timed group (printed only, not a benchmark);
+  7. CLI: ``python -m statecatcher_tpu_torch.cli`` trains a few dispatches on
+     a generated WAV+VTT fixture and writes a checkpoint; a second run
+     resumes from its cursor;
+  8. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3 and 5; each counter is set to 0 just before a phase and
      read just after it, so comparison launches are not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
@@ -27,8 +39,11 @@ standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -41,10 +56,28 @@ from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
 from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask, num_frames
 from statecatcher_tpu_torch.models import lucyrnn
 from statecatcher_tpu_torch.models.speech import build_speech_model
-from statecatcher_tpu_torch.ops import _kernels
-from statecatcher_tpu_torch.ops.lucy_fused_lm import lucy_cell_fused_lm, lucy_cell_fused_lm_ref
+from statecatcher_tpu_torch.models.asr import init_carry
+from statecatcher_tpu_torch.ops import _kernels, ctc_lattice, lucy_fused_lm
+from statecatcher_tpu_torch.ops.ctc_lattice import (
+    ctc_alpha,
+    ctc_alpha_ref,
+    ctc_beta,
+    ctc_beta_ref,
+    ctc_nll_pallas,
+    emit_log_probs,
+    expand_labels,
+    nll_from_alpha,
+    skip_allowed,
+)
+from statecatcher_tpu_torch.ops.lucy_fused_lm import (
+    lucy_cell_fused_lm,
+    lucy_cell_fused_lm_bwd,
+    lucy_cell_fused_lm_bwd_ref,
+    lucy_cell_fused_lm_ref,
+)
 from statecatcher_tpu_torch.streaming import StreamingRecognizer
 from statecatcher_tpu_torch.testing import levenshtein, randomize_, synth_audio
+from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
 
 SEED = 0
 FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vocab 1024, mfcc 80, f32
@@ -55,6 +88,14 @@ F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the
 # alpha 8, h_pre 4, kv 5, s-step 3, tanh 2, h-step 4 (sqrt, divide, exp,
 # tanh one each).
 CELL_OPS_PER_ELEMENT = 58
+# K2 per (b, t, d): the chain recomputed in rsqrt form (~50, five rsqrt and
+# three sigmoids), tanh and the two adjoint steps (~10), the closed-form
+# chain adjoint (~65), the d_bias sums (7): ~132 counted from the source.
+CELL_BWD_OPS_PER_ELEMENT = 132
+# K3/K4 per (b, t, s): three exp, one log and ~12 adds/compares/selects.
+LATTICE_OPS_PER_STATE = 16
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "chip_smoke")                 # ignored by git
 
 
 def log(msg: str) -> None:
@@ -282,6 +323,383 @@ def phase_streaming(model, cfg, dev) -> int:
     return launches
 
 
+def bytes_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the f32
+    peak, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conditioned_cell_inputs(gen, B, T, D, dtype, dev):
+    """``cell_inputs`` with the k and v biases offset by ±2 and h_pre by ±1,
+    as ``testing.randomize_`` does for the model: away from the gate chain's
+    singular points (k = v = 0, h_pre = 0), where its derivatives blow up
+    and round-off would be amplified without bound."""
+    gates, bias, h0, s0 = cell_inputs(gen, B, T, D, dtype, dev)
+    sign = lambda n: torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    bias[2 * D:4 * D] += 2.0 * sign(2 * D)
+    bias[4 * D:5 * D] += sign(D)
+    return gates, bias, h0, s0
+
+
+def check_grads(got, want, names, rtol, scale_tol) -> float:
+    """Raise unless every |Δ| ≤ rtol·|want| + scale_tol·max|want|; returns the
+    largest absolute error."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        bad = int((d > rtol * b.abs() + scale_tol * b.abs().max()).sum())
+        if bad or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: {bad} elements off (max |Δ| {d.max().item():.3e} at "
+                                 f"scale {b.abs().max().item():.3e})")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def phase_cell_bwd(dev) -> dict:
+    """Phase 4a: K2 against its plain version; the batched shapes with the
+    model path's null g_s, and a ragged shape with a real g_s."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = {}
+    cases = [("batched f32", 32, 1598, 512, torch.float32, False),
+             ("batched bf16", 32, 1598, 512, torch.bfloat16, False),
+             ("ragged f32 with g_s", 3, 45, 100, torch.float32, True)]
+    names = ("d_gates", "dh0", "ds0", "d_bias")
+    for label, B, T, D, dtype, with_gs in cases:
+        gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, dtype, dev)
+        with torch.inference_mode():
+            h_all, s_all = lucy_cell_fused_lm(gates, bias, h0, s0)
+            g_h = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+            g_s = 0.1 * torch.randn((B, T, D), generator=gen, device=dev).to(dtype) if with_gs else None
+            args = (gates, bias, h0, s0, h_all, s_all, g_h, g_s)
+            got = lucy_cell_fused_lm_bwd(*args)
+            torch.cuda.synchronize()
+            want = lucy_cell_fused_lm_bwd_ref(*args)
+            if dtype == torch.float32:
+                # f32 round-off of two operation orders over T recurrence steps
+                err = check_grads(got, want, names, 1e-4, 1e-6)
+            else:
+                # bf16 d_gates: a bf16 rounding step of values that differ by
+                # f32 round-off; the f32 sums dh0, ds0, d_bias to 1e-3
+                err = check_grads(got[:1], want[:1], names[:1], 2e-2, 1e-3)
+                err = max(err, check_grads(got[1:], want[1:], names[1:], 1e-3, 1e-4))
+            small = B * T <= 1000
+            ms = cuda_ms(lambda: lucy_cell_fused_lm_bwd(*args), 200 if small else 20, graph=small)
+            plain_ms = cuda_ms(lambda: lucy_cell_fused_lm_bwd_ref(*args), 2, warmup=1)
+        es = torch.finfo(dtype).bits // 8
+        planes = 7 + 2 + 1 + (1 if with_gs else 0) + 7
+        nbytes = planes * B * T * D * es + 7 * D * 4 + 2 * B * D * 4 * 2 + B * 7 * D * 4
+        bound, bound_by = bytes_bound_ms(nbytes, CELL_BWD_OPS_PER_ELEMENT * B * T * D)
+        log(f"[K2] {label} (B={B}, T={T}, D={D}, {planes} planes): max|Δ| {err:.3e}  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound:.4f} ms ({bound_by}, "
+            f"{bound / ms:.1%} of it)  library_ms: none")
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def lattice_inputs(gen, B, T, U, V, dev):
+    """Log-probs, labels and lengths: row 1 has a shorter input, row 2 no
+    labels (padded with blank, as the training loop pads)."""
+    lp = torch.log_softmax(torch.randn((B, T, V), generator=gen, device=dev), dim=-1)
+    labels = torch.randint(1, V, (B, U), generator=gen, device=dev, dtype=torch.int32)
+    in_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    label_lens = torch.full((B,), U, dtype=torch.int32, device=dev)
+    in_lens[1] = T - T // 7
+    label_lens[1] = U - U // 4
+    label_lens[2] = 0
+    labels[2] = 0
+    return lp, labels, in_lens, label_lens
+
+
+def check_lattice(got, want, atol) -> float:
+    """Raise unless the dead states (≤ −1e29) agree and every live value is
+    within ``atol`` + 2e-6 of its size; returns the largest live error."""
+    live = want > -1e29
+    if not torch.equal(live, got > -1e29):
+        raise AssertionError("lattice kernel and plain version disagree on dead states")
+    d = (got - want)[live].abs()
+    bad = int((d > atol + 2e-6 * want[live].abs()).sum())
+    if bad:
+        raise AssertionError(f"lattice: {bad} values off, max |Δ| {d.max().item():.3e}")
+    return d.max().item()
+
+
+def phase_lattice(dev) -> dict:
+    """Phase 4b: K3 and K4 against their plain versions, and F.ctc_loss."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {}
+    for label, B, T, U, V in (("training", 32, 1598, 128, 1024), ("S>1024", 3, 700, 600, 64)):
+        lp, labels, in_lens, label_lens = lattice_inputs(gen, B, T, U, V, dev)
+        ext = expand_labels(labels, 0)
+        skip = skip_allowed(ext, 0)
+        emit = emit_log_probs(lp, ext).contiguous()
+        S = emit.shape[2]
+        with torch.inference_mode():
+            a, b = ctc_alpha(emit, skip, in_lens), ctc_beta(emit, skip, in_lens, label_lens)
+            torch.cuda.synchronize()
+            a_ref, b_ref = ctc_alpha_ref(emit, skip, in_lens), ctc_beta_ref(emit, skip, in_lens,
+                                                                             label_lens)
+            # f32 log-sum-exp chains of up to T steps, in two operation orders
+            err_a, err_b = check_lattice(a, a_ref, 2e-5), check_lattice(b, b_ref, 2e-5)
+            ms_a = cuda_ms(lambda: ctc_alpha(emit, skip, in_lens), 20)
+            ms_b = cuda_ms(lambda: ctc_beta(emit, skip, in_lens, label_lens), 20)
+            plain_a = cuda_ms(lambda: ctc_alpha_ref(emit, skip, in_lens), 2, warmup=1)
+            plain_b = cuda_ms(lambda: ctc_beta_ref(emit, skip, in_lens, label_lens), 2, warmup=1)
+            # the library's CTC on the same inputs: forward, and the NLL check
+            lp_tb = lp.transpose(0, 1)
+            lib = lambda: F.ctc_loss(lp_tb, labels, in_lens, label_lens, blank=0,
+                                     reduction="none", zero_infinity=True)
+            ours = lambda: nll_from_alpha(ctc_alpha(emit_log_probs(lp, ext).contiguous(), skip,
+                                                    in_lens), in_lens, label_lens)
+            d_nll = (ours() - lib()).abs().max().item()
+            lib_fwd, ours_fwd = cuda_ms(lib, 10), cuda_ms(ours, 10)
+
+        def fwd_bwd(fn):
+            x = lp.detach().requires_grad_()
+            return lambda: fn(x).sum().backward()
+
+        lib_fb = cuda_ms(fwd_bwd(lambda x: F.ctc_loss(x.transpose(0, 1), labels, in_lens,
+                                                      label_lens, blank=0, reduction="none",
+                                                      zero_infinity=True)), 10)
+        ours_fb = cuda_ms(fwd_bwd(lambda x: ctc_nll_pallas(x, in_lens, labels, label_lens)), 10)
+        nbytes = 2 * B * T * S * 4 + B * S + 2 * B * 4
+        bound, bound_by = bytes_bound_ms(nbytes, LATTICE_OPS_PER_STATE * B * T * S)
+        log(f"[K3/K4] {label} (B={B}, T={T}, U={U}, S={S}): α max|Δ| {err_a:.3e}, β max|Δ| "
+            f"{err_b:.3e}; K3 {ms_a:.4f} ms, K4 {ms_b:.4f} ms (plain {plain_a:.2f} / "
+            f"{plain_b:.2f} ms), bound {bound:.4f} ms each ({bound_by})")
+        log(f"[K3/K4] {label}: NLL forward (gather + K3 + read-out) {ours_fwd:.4f} ms vs "
+            f"F.ctc_loss {lib_fwd:.4f} ms (max |Δ nll| {d_nll:.3e}); forward+backward (+ K4 + γ "
+            f"+ scatter) {ours_fb:.4f} ms vs F.ctc_loss {lib_fb:.4f} ms")
+        if d_nll > 1e-3 * (1.0 + U):
+            raise AssertionError(f"NLL differs from F.ctc_loss by {d_nll:.3e}")
+        out[label] = {
+            "alpha": {"max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound,
+                      "bound_by": bound_by, "library_ms": lib_fwd},
+            "beta": {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib_fb},
+        }
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel of the training path (K1, K2, K3, K4) to its plain
+    version on the card, so the kernel path can be held against the plain
+    path on the same inputs."""
+    saved = (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
+             ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta)
+    lucy_fused_lm._fwd_kernel = lambda g, b, h, s: lucy_cell_fused_lm_ref(g, b, h, s)
+    lucy_fused_lm._bwd_kernel = lucy_cell_fused_lm_bwd_ref
+    ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta = ctc_alpha_ref, ctc_beta_ref
+    try:
+        yield
+    finally:
+        (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
+         ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta) = saved
+
+
+def train_group(rng, K, B, S, U, V, dev, int16=True):
+    """One segment group as the training loop ships it: int16 audio, prefix
+    lengths (one partial), U random tokens per row, the last row invalid."""
+    audio = np.stack([synth_audio(rng, B, S) for _ in range(K)])
+    if int16:
+        audio = np.clip(np.rint(audio * 32767.0), -32768, 32767).astype(np.int16)
+    lens = np.full((K, B), S, np.int32)
+    lens[-1, 0] = S // 2                                      # one partial sample mask
+    tokens = rng.integers(1, V, (K, B, U)).astype(np.int32)
+    tok_lens = np.full((K, B), U, np.int32)
+    row_valid = np.ones((K, B), bool)
+    row_valid[:, B - 1] = False
+    return [torch.from_numpy(x).to(dev) for x in (audio, lens, tokens, tok_lens, row_valid)]
+
+
+def snapshot(state) -> dict:
+    return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128) -> dict:
+    """Phase 5: one group of K=4 carried 16 s segments at B=32 through
+    ``make_segment_scan_step``, kernel path against plain path.
+
+    The learning rate is 1e-6 here: at the default 3e-4, Adam's first,
+    sign-like steps turn f32 round-off in near-zero gradient components into
+    lr-sized parameter differences between the two paths, and the later
+    segments' grad norms then differ by up to 2 % (measured on the card)."""
+    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6"])
+    V = cfg.model.vocab_size
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
+    state = init_train_state(model, cfg)
+    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, V, dev)
+    seg_valid = np.ones(K, bool)
+    p0, opt0 = snapshot(state), state.state_dict()
+
+    counters = (lucy_cell_fused_lm, lucy_cell_fused_lm_bwd, ctc_alpha, ctc_beta)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, carry, outs = step(state, init_carry(cfg.model, B, device=dev), *group, seg_valid)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    p_kernel = snapshot(state)
+
+    state.load_state_dict(opt0)
+    with plain_kernels():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, carry_p, outs_p = step(state, init_carry(cfg.model, B, device=dev), *group, seg_valid)
+        torch.cuda.synchronize()
+        sec_p = time.perf_counter() - t0
+    p_plain = snapshot(state)
+
+    loss, loss_p = outs.loss.cpu().numpy(), outs_p.loss.cpu().numpy()
+    gn, gn_p = outs.grad_norm.cpu().numpy(), outs_p.grad_norm.cpu().numpy()
+    if not (np.isfinite(loss).all() and np.isfinite(gn).all()):
+        raise AssertionError(f"non-finite loss {loss} or grad norm {gn}")
+    # f32 round-off of two operation orders, carried through up to K updates:
+    # losses to 1e-4, grad norms to 1e-3 (relative)
+    d_loss = np.abs(loss - loss_p) / np.abs(loss_p)
+    d_gn = np.abs(gn - gn_p) / np.abs(gn_p)
+    if d_loss.max() > 1e-4 or d_gn.max() > 1e-3:
+        raise AssertionError(f"kernel vs plain: loss rel {d_loss}, grad norm rel {d_gn}")
+    for name in ("h", "s"):
+        dc = (carry[name] - carry_p[name]).abs().max().item()
+        cs = carry_p[name].abs().max().item()
+        if dc > 1e-3 * cs or not torch.isfinite(carry[name]).all():
+            raise AssertionError(f"carry {name}: max|Δ| {dc:.3e} > 1e-3·{cs:.3e}")
+    # parameters after K Adam updates.  Adam moves every parameter by ~lr per
+    # update whatever its gradient's size, so a component whose gradient is
+    # near zero takes the sign of its round-off and may differ by 2·lr per
+    # update between the paths.  Held: the updates agree as a whole (their
+    # difference under 1 % of their norm), and at most 0.1 % of the elements
+    # differ by more than 0.1·lr·K.
+    lr = cfg.train.optim.lr
+    flat = lambda d: torch.cat([v.flatten().float() for v in d.values()])
+    p0_, pk, pp = flat(p0), flat(p_kernel), flat(p_plain)
+    worst_dp = (pk - pp).abs().max().item()
+    rel_upd = ((pk - pp).norm() / (pk - p0_).norm()).item()
+    frac_off = ((pk - pp).abs() > 0.1 * lr * K).float().mean().item()
+    moved = (pk - p0_).abs().max().item()
+    if rel_upd > 1e-2 or frac_off > 1e-3:
+        raise AssertionError(f"parameters: updates differ by {rel_upd:.3e} of their norm, "
+                             f"{frac_off:.3e} of elements by more than 0.1·lr·K")
+    log(f"[train] K={K} × {S / 16000:g} s at B={B}, U={U}: kernel path {sec:.3f} s ({sec / K * 1e3:.1f} ms "
+        f"per segment, {K * B * S / 16000 / sec:.0f} audio-s/s), plain path {sec_p:.3f} s; losses "
+        f"{np.array2string(loss, precision=5)} vs {np.array2string(loss_p, precision=5)} (max rel "
+        f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
+        f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
+        f"{frac_off:.2e} of elements beyond 0.1·lr·K")
+    log(f"[train] launches on the group: K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+        f"K4 {launches[3]}")
+    want = [cfg.model.num_layers * K, cfg.model.num_layers * K, K, K]
+    if launches != want:
+        raise AssertionError(f"launches K1, K2, K3, K4 = {launches}; want {want}")
+    return dict(zip(("K1", "K2", "K3", "K4"), launches))
+
+
+def phase_throughput(cfg, dev, K=24, B=96, S=16 * 16000, U=128) -> None:
+    """Phase 6: bench.py's shape (B=96, K=24, 16 s, bf16, U=128), one warm
+    and one timed group on the kernel path."""
+    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16"])
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    state = init_train_state(model, cfg)
+    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+    rng = np.random.default_rng(SEED + 7)
+    groups = [train_group(rng, K, B, S, U, cfg.model.vocab_size, dev) for _ in range(2)]
+    carry = init_carry(cfg.model, B, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for g in groups:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, carry, outs = step(state, carry, *g, np.ones(K, bool))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if not torch.isfinite(outs.loss).all():
+        raise AssertionError("throughput run: non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[throughput] B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
+        f"{secs[1]:.3f} s = {K * B * S / 16000 / secs[1]:.0f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
+        f"segment); peak memory {peak:.2f} GiB")
+
+
+def write_cli_fixture(root: str, n: int = 4, seconds: float = 48.0, cue: float = 4.0) -> str:
+    """n 16 kHz recordings of ~48 s (tones in noise) with ~4 s VTT cues."""
+    from statecatcher_tpu_torch.data.audio import write_wav_bytes
+
+    words = ["hello", "world", "stream", "state", "carry", "segment", "audio", "model"]
+    rng = np.random.default_rng(SEED + 8)
+    d = os.path.join(root, "data")
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        with open(os.path.join(d, f"rec{i}.wav"), "wb") as f:
+            f.write(write_wav_bytes(synth_audio(rng, 1, int(seconds * 16000))[0], 16000))
+        lines, t = ["WEBVTT", ""], 0.0
+        while t + cue <= seconds:
+            stamp = lambda x: f"00:{int(x // 60):02d}:{x % 60:06.3f}"
+            lines += [f"{stamp(t)} --> {stamp(t + cue)}", " ".join(rng.choice(words, 4)), ""]
+            t += cue
+        with open(os.path.join(d, f"rec{i}.vtt"), "w") as f:
+            f.write("\n".join(lines))
+    return d
+
+
+def run_cli(args: list[str]) -> dict:
+    proc = subprocess.run([sys.executable, "-m", "statecatcher_tpu_torch.cli", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    summary = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    losses = summary["loss_history"]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"CLI losses not finite: {losses}")
+    return summary
+
+
+def phase_cli(extra=(), seconds=48.0, target=16) -> None:
+    """Phase 7: the CLI trains 2 dispatches on a generated fixture, then a
+    second run resumes from the checkpoint's cursor and trains one more."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
+    common = ["--model.encoder", "lucyrnn", "--data.source", "local", "--data.local_dir", data,
+              "--data.target_duration", str(target), "--data.batch_size", "4",
+              "--data.num_workers", "4", "--train.segments_per_dispatch", "1",
+              "--train.log_every_n", "2", *extra]
+    t0 = time.perf_counter()
+    first = run_cli(common + ["--train.steps", "2", "--train.model_dir",
+                              os.path.join(WORK, "run1")])
+    meta = json.load(open(os.path.join(first["run_dir"], "ckpt", "2", "meta.json")))
+    if meta["cursor"] != {"batches_done": 0, "seg_idx": 2}:
+        raise AssertionError(f"checkpoint cursor {meta['cursor']}")
+    second = run_cli(common + ["--train.steps", "3", "--train.resume_from", first["run_dir"],
+                               "--train.model_dir", os.path.join(WORK, "run2")])
+    if second["global_step"] != 3 or len(second["loss_history"]) != 1:
+        raise AssertionError(f"resumed run: step {second['global_step']}, "
+                             f"losses {second['loss_history']}")
+    log(f"[cli] 4 recordings × {seconds:g} s, {target} s segments, vocab from the char tokenizer: losses "
+        f"{[round(x, 4) for x in first['loss_history']]}, checkpoint cursor {meta['cursor']}; "
+        f"resumed at step 2, loss {second['loss_history'][0]:.4f}, global_step 3 "
+        f"({time.perf_counter() - t0:.1f} s for both runs)")
+
+
+def kernel_entry(name, source, replaces, launches, m) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m.get("library_ms")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs one CUDA card",
@@ -324,22 +742,30 @@ def main() -> int:
 
     n_batched = phase_batched(model, cfg, dev)
     n_stream = phase_streaming(model, cfg, dev)
+    k2 = phase_cell_bwd(dev)
+    lattice = phase_lattice(dev)
+    del model
+    n_train = phase_train_step(cfg, dev)
+    phase_throughput(cfg, dev)
+    phase_cli()
 
-    main_shape = k1["batched f32"]
-    log(f"[kernels] lucy_cell_fused_lm launches: batched {n_batched}, streaming {n_stream}")
-    log(json.dumps({"kernels": [{
-        "name": "lucy_cell_fused_lm",
-        "route": "cuda",
-        "source": "statecatcher_tpu_torch/ops/csrc/lucy_fused_lm_fwd.cu",
-        "replaces": "statecatcher_tpu/ops/lucy_fused_lm.py:156",
-        "launches": n_batched + n_stream,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-    }]}))
+    csrc = "statecatcher_tpu_torch/ops/csrc/"
+    log(f"[kernels] launches: K1 batched {n_batched}, streaming {n_stream}, train {n_train['K1']}; "
+        f"K2 {n_train['K2']}, K3 {n_train['K3']}, K4 {n_train['K4']} (train)")
+    log(json.dumps({"kernels": [
+        kernel_entry("lucy_cell_fused_lm", csrc + "lucy_fused_lm_fwd.cu",
+                     "statecatcher_tpu/ops/lucy_fused_lm.py:156",
+                     n_batched + n_stream + n_train["K1"], k1["batched f32"]),
+        kernel_entry("lucy_cell_fused_lm_bwd", csrc + "lucy_fused_lm_bwd.cu",
+                     "statecatcher_tpu/ops/lucy_fused_lm.py:248", n_train["K2"],
+                     k2["batched f32"]),
+        kernel_entry("ctc_alpha", csrc + "ctc_lattice.cu",
+                     "statecatcher_tpu/ops/ctc_pallas.py:58", n_train["K3"],
+                     lattice["training"]["alpha"]),
+        kernel_entry("ctc_beta", csrc + "ctc_lattice.cu",
+                     "statecatcher_tpu/ops/ctc_pallas.py:92", n_train["K4"],
+                     lattice["training"]["beta"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

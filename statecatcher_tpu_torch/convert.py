@@ -86,5 +86,5 @@ def torch_to_flax(state_dict: dict[str, torch.Tensor], cfg: ModelConfig) -> dict
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")   # a copy, not a view
     return {"params": {"asr": tree} if prefix else tree}

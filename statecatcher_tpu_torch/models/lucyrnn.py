@@ -14,9 +14,10 @@ multi-track merge projection, zero-init output projection; carried state per
 track/layer is (h = last output, s = final scan state), batch-major
 ``(B, tracks, L, D)``.
 
-On the card every layer's recurrence runs in the fused CUDA cell kernel
-(``ops/lucy_fused_lm.py``) for any hidden size; on the CPU it runs the plain
-version.  Options whose kernels are not ported yet raise on the card.
+On the card every layer's recurrence runs in the fused CUDA cell kernels
+(``ops/lucy_fused_lm.py``: K1 forward, K2 backward) for any hidden size; on
+the CPU it runs their plain versions.  Options whose kernels are not ported
+yet raise on the card.
 """
 
 from __future__ import annotations
@@ -76,10 +77,11 @@ def lucy_cell_parallel(
 
     With ``frame_mask``, masked steps leave (h, s) unchanged (CPU only until
     the masked kernels are ported)."""
-    route = cell_route(impl, gates.is_cuda, frame_mask is not None)
+    cell_route(impl, gates.is_cuda, frame_mask is not None)        # raises if unported
     if bias is None:
         bias = torch.zeros(gates.shape[-1], dtype=torch.float32, device=gates.device)
-    if route == "kernel":
+    if frame_mask is None:
+        # differentiable through K1/K2 on the card, their plain versions on the CPU
         h_all, s_all = lucy_cell_fused_lm(gates, bias, h0, s0)
     else:
         h_all, s_all = lucy_cell_fused_lm_ref(gates, bias, h0, s0, frame_mask)

@@ -33,6 +33,13 @@ SIGNATURES = {
     "lucy_fused_lm_fwd": {
         "lucy_fused_lm_fwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },
+    "lucy_fused_lm_bwd": {
+        "lucy_fused_lm_bwd": (_I, [_I] + [_P] * 12 + [_I, _I, _I, _P]),
+    },
+    "ctc_lattice": {
+        "ctc_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "ctc_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    },
 }
 
 # ptxas -v output and wall time of each build this process ran: name → dict

@@ -1,0 +1,98 @@
+"""Where one training segment's device time goes, from a ``torch.profiler``
+trace.
+
+    python -m statecatcher_tpu_torch.profile_train [--batch 32] [--dtype float32] [--out DIR]
+
+Builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC) with seeded
+random weights on the card and traces one 16 s training segment of
+``make_segment_scan_step`` (U=128 random tokens, int16 audio as the loop
+ships it) after a warm-up segment.  It prints the host wall time, the
+device's busy time (the sum of its kernels and copies, which run on one
+stream) and idle share, the device time by kernel name, largest first, and
+the same grouped by the port's kernels (K1..K4), the GEMMs and the rest.
+With ``--out`` it also writes the chrome trace there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from statecatcher_tpu_torch.config import Config
+from statecatcher_tpu_torch.models.asr import init_carry
+from statecatcher_tpu_torch.models.speech import build_speech_model
+from statecatcher_tpu_torch.profile_serving import _report
+from statecatcher_tpu_torch.testing import randomize_, synth_audio
+from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
+
+# kernel-name fragments → the group they are reported under
+GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
+          ("K2 lucy_fused_lm_bwd", "lucy_fused_lm_bwd"),
+          ("K3 ctc_alpha", "ctc_alpha"),
+          ("K4 ctc_beta", "ctc_beta"),
+          ("GEMMs", "gemm"), ("GEMMs", "cutlass"), ("GEMMs", "xmma"), ("GEMMs", "nvjet"))
+
+
+def _groups(prof) -> None:
+    from torch.autograd import DeviceType
+
+    by: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        group = next((g for g, frag in GROUPS if frag in ev.name.lower()), "other")
+        by[group] = by.get(group, 0.0) + ev.time_range.elapsed_us()
+    total = sum(by.values())
+    for g, us in sorted(by.items(), key=lambda kv: -kv[1]):
+        print(f"[groups] {us / 1e3:9.3f} ms {us / total:6.1%}  {g}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}")
+    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn", "--model.dtype", args.dtype])
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(0))
+    randomize_(model, 1)
+    state = init_train_state(model, cfg)
+    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+    B, S, U = args.batch, 16 * 16000, 128
+    rng = np.random.default_rng(5)
+
+    def segment():
+        audio = np.clip(np.rint(synth_audio(rng, B, S) * 32767.0), -32768, 32767)
+        return [torch.from_numpy(x).to(dev) for x in (
+            audio.astype(np.int16)[None], np.full((1, B), S, np.int32),
+            rng.integers(1, cfg.model.vocab_size, (1, B, U)).astype(np.int32),
+            np.full((1, B), U, np.int32), np.ones((1, B), bool))]
+
+    carry = init_carry(cfg.model, B, device=dev)
+    state, carry, _ = step(state, carry, *segment(), np.ones(1, bool))        # warm-up
+    group = segment()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, carry, *group, np.ones(1, bool))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"train segment B={B} 16 s {args.dtype}", prof, wall, top=16)
+    _groups(prof)
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.out / "train_segment.json"))
+
+
+if __name__ == "__main__":
+    main()

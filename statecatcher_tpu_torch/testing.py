@@ -29,7 +29,8 @@ def synth_audio(rng: np.random.Generator, B: int, S: int) -> np.ndarray:
     return (tone + rng.uniform(-0.2, 0.2, (B, S))).astype(np.float32)
 
 
-def randomize_(model: torch.nn.Module, seed: int, offset_gate_biases: bool = True) -> None:
+def randomize_(model: torch.nn.Module, seed: int, offset_gate_biases: bool = True,
+               gate_weight_scale: float = 1.0) -> None:
     """Seeded random weights everywhere: the output projection is zero at
     init, and greedy decoding of zero logits emits nothing.
 
@@ -41,6 +42,12 @@ def randomize_(model: torch.nn.Module, seed: int, offset_gate_biases: bool = Tru
     round-off then changes the greedy output of a whole frame often enough
     that no comparison of two f32 runs can tell a fault from round-off
     (``python -m statecatcher_tpu_torch.testing`` measures it).
+
+    ``gate_weight_scale`` scales every gate projection matrix.  Training
+    checks use 0.1: the gradient near those singular points is still
+    amplified (q⁻³ for kv), and at scale 1 the features spread the gate
+    inputs over them (a grad norm moved by 13 % between two f32 orders of
+    the same sums); at 0.1 every gate input stays near its offset bias.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -54,6 +61,8 @@ def randomize_(model: torch.nn.Module, seed: int, offset_gate_biases: bool = Tru
                 value = noise * (0.5 / p.shape[1] ** 0.5)
             else:
                 value = p.detach().cpu().double() + 0.1 * noise
+            if name.endswith("gate_proj.weight"):
+                value = value * gate_weight_scale
             if offset_gate_biases and name.endswith("gate_proj.bias"):
                 D = p.shape[0] // 7
                 value[2 * D:4 * D] += 2.0 * signs(2 * D)      # k, v
