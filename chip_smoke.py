@@ -23,14 +23,33 @@ weights) through the port's entry points:
   5. train step: ``make_segment_scan_step`` over one group of 4 carried 16 s
      segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
      the kernel path held against the plain path;
-  6. throughput at bench.py's shape (B=96, K=24, 16 s, bf16): one warm and
-     one timed group (printed only, not a benchmark);
+  6. throughput at bench.py's shape (B=96, 16 s, bf16, U=128) but K=8 of
+     its 24 segments, to keep the whole run near 5 minutes: one warm and one
+     timed group (printed only, not a benchmark);
   7. CLI: ``python -m statecatcher_tpu_torch.cli`` trains a few dispatches on
      a generated WAV+VTT fixture and writes a checkpoint; a second run
      resumes from its cursor;
-  8. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3 and 5; each counter is set to 0 just before a phase and
-     read just after it, so comparison launches are not counted).
+  8. kernels K6a, K6b, K7a, K7b: the fused RNN-T joint (forward, backward)
+     and the transducer α/β lattice against their plain versions at the
+     RNN-T training shape (B=32, T=1598, U=48, J=64, V=1024; f32, and bf16
+     enc/pred for K6), a ragged shape (blank_id 5) and U=128, with times,
+     bounds and plain times;
+  9. RNN-T train step: ``make_segment_scan_step`` with ``--train.mode
+     rnnt`` over one group of 4 carried 16 s segments at B=32, U=48 (the
+     auto band resolves to the exact loss), the kernel path held against
+     the plain path;
+ 10. RNN-T streaming: ``StreamingRecognizer(decoder="rnnt")`` on three ~10 s
+     streams, held against an offline greedy decode of the same frames
+     (equal) and of a one-shot encoding (1 % edit distance), with the joiner
+     conditioned so that blank ends many frames and the emissions per frame
+     vary (checked on the offline decode);
+ 11. RNN-T throughput at B=96, K=4 × 16 s, bf16, U=64 with
+     ``--train.rnnt_band 0`` (bench.py's RNN-T row made exact; printed
+     only);
+ 12. CLI with ``--train.mode rnnt --train.rnnt_band 0``: two dispatches;
+ 13. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 9 and 10; each counter is set to 0 just before a phase
+     and read just after it, so comparison launches are not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -57,7 +76,7 @@ from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask
 from statecatcher_tpu_torch.models import lucyrnn
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.models.asr import init_carry
-from statecatcher_tpu_torch.ops import _kernels, ctc_lattice, lucy_fused_lm
+from statecatcher_tpu_torch.ops import _kernels, ctc_lattice, lucy_fused_lm, rnnt_joint, rnnt_lattice
 from statecatcher_tpu_torch.ops.ctc_lattice import (
     ctc_alpha,
     ctc_alpha_ref,
@@ -75,6 +94,19 @@ from statecatcher_tpu_torch.ops.lucy_fused_lm import (
     lucy_cell_fused_lm_bwd_ref,
     lucy_cell_fused_lm_ref,
 )
+from statecatcher_tpu_torch.ops.rnnt_joint import (
+    joint_blank_emit_bwd_ref,
+    joint_blank_emit_ref,
+    rnnt_joint_bwd,
+    rnnt_joint_fwd,
+)
+from statecatcher_tpu_torch.ops.rnnt_lattice import (
+    rnnt_alpha,
+    rnnt_alpha_ref,
+    rnnt_beta,
+    rnnt_beta_ref,
+)
+from statecatcher_tpu_torch.rnnt_decode import rnnt_greedy_decode, rnnt_state_to_lists
 from statecatcher_tpu_torch.streaming import StreamingRecognizer
 from statecatcher_tpu_torch.testing import levenshtein, randomize_, synth_audio
 from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
@@ -83,6 +115,7 @@ SEED = 0
 FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vocab 1024, mfcc 80, f32
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
 # Operations per (b, t, d) element of the fused cell, counted from the kernel
 # source: 7 bias adds, rms_rz 6, rms_kv² 5, its sqrt 1, z 5, decay 8,
 # alpha 8, h_pre 4, kv 5, s-step 3, tanh 2, h-step 4 (sqrt, divide, exp,
@@ -94,8 +127,23 @@ CELL_OPS_PER_ELEMENT = 58
 CELL_BWD_OPS_PER_ELEMENT = 132
 # K3/K4 per (b, t, s): three exp, one log and ~12 adds/compares/selects.
 LATTICE_OPS_PER_STATE = 16
+# K7a/K7b per (b, t, u): the chain's own logaddexp (exp, log1p, ~6
+# adds/compares and selects): ~10.  The kernel's log-step scan does five warp
+# shuffle rounds and the cross-warp application, each such a logaddexp: that
+# is its design's overhead, not counted here.
+RNNT_LATTICE_OPS_PER_STATE = 10
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")                 # ignored by git
+
+
+def joint_ops(R: int, V: int, J: int, backward: bool) -> float:
+    """Operations of K6 over R rows and V columns.  K6a per (row, v): the
+    J-long contraction (2J), the bias add, and the logsumexp's compare, exp
+    and add (5).  K6b: the logits once more, as they are not saved (2J),
+    d_joint and d_K (2 · 2J), with the softmax, d_logits and d_bias (~10).
+    The kernel recomputes the logits a second time, in its d_K kernel: its
+    design's cost, not counted."""
+    return R * V * ((6 * J + 10) if backward else (2 * J + 5))
 
 
 def log(msg: str) -> None:
@@ -323,11 +371,11 @@ def phase_streaming(model, cfg, dev) -> int:
     return launches
 
 
-def bytes_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """The larger of bytes over the memory rate and operations over the f32
-    peak, and which one it is."""
+def bytes_bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the
+    inputs' peak (f32 by default), and which one it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -414,14 +462,14 @@ def lattice_inputs(gen, B, T, U, V, dev):
     return lp, labels, in_lens, label_lens
 
 
-def check_lattice(got, want, atol) -> float:
+def check_lattice(got, want, atol, rtol=2e-6) -> float:
     """Raise unless the dead states (≤ −1e29) agree and every live value is
-    within ``atol`` + 2e-6 of its size; returns the largest live error."""
+    within ``atol`` + ``rtol`` of its size; returns the largest live error."""
     live = want > -1e29
     if not torch.equal(live, got > -1e29):
         raise AssertionError("lattice kernel and plain version disagree on dead states")
     d = (got - want)[live].abs()
-    bad = int((d > atol + 2e-6 * want[live].abs()).sum())
+    bad = int((d > atol + rtol * want[live].abs()).sum())
     if bad:
         raise AssertionError(f"lattice: {bad} values off, max |Δ| {d.max().item():.3e}")
     return d.max().item()
@@ -488,19 +536,25 @@ def phase_lattice(dev) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel of the training path (K1, K2, K3, K4) to its plain
-    version on the card, so the kernel path can be held against the plain
-    path on the same inputs."""
+    """Route every kernel of the training paths (K1, K2, K3, K4, K6, K7) to
+    its plain version on the card, so the kernel path can be held against
+    the plain path on the same inputs."""
     saved = (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
-             ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta)
+             ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta,
+             rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd,
+             rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta)
     lucy_fused_lm._fwd_kernel = lambda g, b, h, s: lucy_cell_fused_lm_ref(g, b, h, s)
     lucy_fused_lm._bwd_kernel = lucy_cell_fused_lm_bwd_ref
     ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta = ctc_alpha_ref, ctc_beta_ref
+    rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd = joint_blank_emit_ref, joint_blank_emit_bwd_ref
+    rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta = rnnt_alpha_ref, rnnt_beta_ref
     try:
         yield
     finally:
         (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
-         ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta) = saved
+         ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta,
+         rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd,
+         rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta) = saved
 
 
 def train_group(rng, K, B, S, U, V, dev, int16=True):
@@ -522,17 +576,30 @@ def snapshot(state) -> dict:
     return {k: v.detach().clone() for k, v in state.params.items()}
 
 
-def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128) -> dict:
-    """Phase 5: one group of K=4 carried 16 s segments at B=32 through
-    ``make_segment_scan_step``, kernel path against plain path.
+# the kernels a training mode's step launches: name → (counter, launches
+# per segment in layers (True) or once (False))
+TRAIN_KERNELS = {
+    "ctc": {"K1": (lucy_cell_fused_lm, True), "K2": (lucy_cell_fused_lm_bwd, True),
+            "K3": (ctc_alpha, False), "K4": (ctc_beta, False)},
+    "rnnt": {"K1": (lucy_cell_fused_lm, True), "K2": (lucy_cell_fused_lm_bwd, True),
+             "K6a": (rnnt_joint_fwd, False), "K6b": (rnnt_joint_bwd, False),
+             "K7a": (rnnt_alpha, False), "K7b": (rnnt_beta, False)},
+}
+
+
+def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc") -> dict:
+    """Phases 5 and 9: one group of K=4 carried 16 s segments at B=32
+    through ``make_segment_scan_step`` in ``mode`` ("ctc" or "rnnt"), kernel
+    path against plain path.
 
     The learning rate is 1e-6 here: at the default 3e-4, Adam's first,
     sign-like steps turn f32 round-off in near-zero gradient components into
     lr-sized parameter differences between the two paths, and the later
     segments' grad norms then differ by up to 2 % (measured on the card)."""
-    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6"])
+    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6", "--train.mode", mode])
+    tag = "[train]" if mode == "ctc" else "[rnnt train]"
     V = cfg.model.vocab_size
-    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
     state = init_train_state(model, cfg)
@@ -541,7 +608,7 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128) -> dict:
     seg_valid = np.ones(K, bool)
     p0, opt0 = snapshot(state), state.state_dict()
 
-    counters = (lucy_cell_fused_lm, lucy_cell_fused_lm_bwd, ctc_alpha, ctc_beta)
+    counters = [c for c, _ in TRAIN_KERNELS[mode].values()]
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -592,25 +659,27 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128) -> dict:
     if rel_upd > 1e-2 or frac_off > 1e-3:
         raise AssertionError(f"parameters: updates differ by {rel_upd:.3e} of their norm, "
                              f"{frac_off:.3e} of elements by more than 0.1·lr·K")
-    log(f"[train] K={K} × {S / 16000:g} s at B={B}, U={U}: kernel path {sec:.3f} s ({sec / K * 1e3:.1f} ms "
+    log(f"{tag} K={K} × {S / 16000:g} s at B={B}, U={U}: kernel path {sec:.3f} s ({sec / K * 1e3:.1f} ms "
         f"per segment, {K * B * S / 16000 / sec:.0f} audio-s/s), plain path {sec_p:.3f} s; losses "
         f"{np.array2string(loss, precision=5)} vs {np.array2string(loss_p, precision=5)} (max rel "
         f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
         f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
         f"{frac_off:.2e} of elements beyond 0.1·lr·K")
-    log(f"[train] launches on the group: K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
-        f"K4 {launches[3]}")
-    want = [cfg.model.num_layers * K, cfg.model.num_layers * K, K, K]
+    names = list(TRAIN_KERNELS[mode])
+    log(f"{tag} launches on the group: " + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
+    want = [(cfg.model.num_layers if per_layer else 1) * K
+            for _, per_layer in TRAIN_KERNELS[mode].values()]
     if launches != want:
-        raise AssertionError(f"launches K1, K2, K3, K4 = {launches}; want {want}")
-    return dict(zip(("K1", "K2", "K3", "K4"), launches))
+        raise AssertionError(f"launches {names} = {launches}; want {want}")
+    return dict(zip(names, launches))
 
 
-def phase_throughput(cfg, dev, K=24, B=96, S=16 * 16000, U=128) -> None:
-    """Phase 6: bench.py's shape (B=96, K=24, 16 s, bf16, U=128), one warm
-    and one timed group on the kernel path."""
-    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16"])
-    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc", extra=()) -> None:
+    """Phases 6 and 11: bench.py's shape (B=96, 16 s, bf16; CTC: U=128;
+    RNN-T: U=64, exact loss) at K segments, one warm and one timed group on
+    the kernel path."""
+    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode, *extra])
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1)
     state = init_train_state(model, cfg)
@@ -629,7 +698,7 @@ def phase_throughput(cfg, dev, K=24, B=96, S=16 * 16000, U=128) -> None:
     if not torch.isfinite(outs.loss).all():
         raise AssertionError("throughput run: non-finite loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[throughput] B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
+    log(f"[throughput] {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U} {' '.join(extra)}: warm group {secs[0]:.3f} s, timed group "
         f"{secs[1]:.3f} s = {K * B * S / 16000 / secs[1]:.0f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
         f"segment); peak memory {peak:.2f} GiB")
 
@@ -693,6 +762,299 @@ def phase_cli(extra=(), seconds=48.0, target=16) -> None:
         f"({time.perf_counter() - t0:.1f} s for both runs)")
 
 
+def joint_inputs(gen, B, T, U, J, V, dev, dtype, blank_id):
+    """Projections as the joiner gives them (O(1)), a kernel with O(1)
+    logits, labels that avoid the blank, and cotangents of the lattice's
+    size (occupancies ≤ 1)."""
+    enc = torch.randn((B, T, J), generator=gen, device=dev).to(dtype)
+    pred = torch.randn((B, U + 1, J), generator=gen, device=dev).to(dtype)
+    k = torch.randn((J, V), generator=gen, device=dev) / J ** 0.5
+    b = 0.1 * torch.randn(V, generator=gen, device=dev)
+    labels = torch.randint(0, V - 1, (B, U), generator=gen, device=dev, dtype=torch.int32)
+    labels += (labels >= blank_id).to(torch.int32)
+    g_blank = torch.rand((B, T, U + 1), generator=gen, device=dev) / (U + 1)
+    g_emit = torch.rand((B, T, U), generator=gen, device=dev) / (U + 1)
+    return enc, pred, k, b, labels, g_blank, g_emit
+
+
+def check_close(got, want, names, rtol, atol) -> float:
+    """Raise unless every |Δ| ≤ atol + rtol·|want|; returns the largest."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        d = (a.float() - b.float()).abs()
+        bad = int((d > atol + rtol * b.float().abs()).sum())
+        if bad or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: {bad} elements off, max |Δ| {d.max().item():.3e}")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def phase_rnnt_kernels(dev) -> dict:
+    """Phase 8: K6a/K6b and K7a/K7b against their plain versions, with
+    times, bounds and plain times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    joint_cases = [("training f32", 32, 1598, 48, 64, 1024, 0, torch.float32),
+                   ("training bf16", 32, 1598, 48, 64, 1024, 0, torch.bfloat16),
+                   ("ragged f32", 3, 45, 11, 40, 150, 5, torch.float32),
+                   ("U=128 f32", 8, 400, 128, 64, 1024, 0, torch.float32)]
+    for label, B, T, U, J, V, blank_id, dtype in joint_cases:
+        enc, pred, k, b, labels, g_blank, g_emit = joint_inputs(gen, B, T, U, J, V, dev, dtype,
+                                                                blank_id)
+        with torch.inference_mode():
+            fwd = rnnt_joint_fwd(enc, pred, k, b, labels, blank_id)
+            torch.cuda.synchronize()
+            fwd_ref = joint_blank_emit_ref(enc, pred, k, b, labels, blank_id)
+            lse = fwd_ref[2]
+            bwd_args = (enc, pred, k, b, labels, lse, g_blank, g_emit, blank_id)
+            bwd = rnnt_joint_bwd(*bwd_args)
+            torch.cuda.synchronize()
+            bwd_ref = joint_blank_emit_bwd_ref(*bwd_args)
+            if dtype == torch.float32:
+                # f32 contractions of J terms in two orders: 1e-5; gradients
+                # are f32 sums over up to B·T·(U+1) = 2.5M rows in two orders,
+                # whose round-off grows like √rows ulps of the sum's scale:
+                # 1e-4 relative plus 1e-4 of each output's largest value
+                err_f = check_close(fwd, fwd_ref, ("blank", "emit", "lse"), 1e-5, 1e-5)
+                err_b = check_grads(bwd, bwd_ref, ("d_enc", "d_pred", "d_kernel", "d_bias"),
+                                    1e-4, 1e-4)
+            else:
+                # the same bf16-rounded operands; a value whose f32 round-off
+                # straddles a bf16 rounding boundary rounds one step apart
+                err_f = check_close(fwd, fwd_ref, ("blank", "emit", "lse"), 2e-3, 2e-3)
+                err_b = check_grads(bwd, bwd_ref, ("d_enc", "d_pred", "d_kernel", "d_bias"),
+                                    1e-2, 1e-3)
+            small = B * T * (U + 1) < 100_000
+            ms_f = cuda_ms(lambda: rnnt_joint_fwd(enc, pred, k, b, labels, blank_id),
+                           100 if small else 5, graph=small)
+            ms_b = cuda_ms(lambda: rnnt_joint_bwd(*bwd_args), 100 if small else 3)
+            plain_f = cuda_ms(lambda: joint_blank_emit_ref(enc, pred, k, b, labels, blank_id), 2,
+                              warmup=1)
+            plain_b = cuda_ms(lambda: joint_blank_emit_bwd_ref(*bwd_args), 2, warmup=1)
+        R, es = B * T * (U + 1), torch.finfo(dtype).bits // 8
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        inputs = (B * T + B * (U + 1)) * J * es + (J + 1) * V * 4 + B * U * 4
+        bound_f, by_f = bytes_bound_ms(inputs + (3 * R - B * T) * 4, joint_ops(R, V, J, False),
+                                       peak)
+        bound_b, by_b = bytes_bound_ms(inputs + (3 * R - B * T) * 4 + (B * T + B * (U + 1)) * J * 4
+                                       + (J + 1) * V * 4, joint_ops(R, V, J, True), peak)
+        log(f"[K6] {label} (B={B}, T={T}, U={U}, J={J}, V={V}, blank {blank_id}): fwd max|Δ| "
+            f"{err_f:.3e}, bwd max|Δ| {err_b:.3e}; K6a {ms_f:.4f} ms (plain {plain_f:.2f}, bound "
+            f"{bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K6b {ms_b:.4f} ms (plain "
+            f"{plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, {bound_b / ms_b:.1%}); library_ms: none")
+        out["K6a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
+                               "bound_ms": bound_f, "bound_by": by_f}
+        out["K6b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                               "bound_ms": bound_b, "bound_by": by_b}
+
+    for label, B, T, U in (("training", 32, 1598, 48), ("ragged", 3, 45, 11),
+                           ("U=128", 32, 1598, 128)):
+        blank = torch.log_softmax(torch.randn((B, T, U + 1, 2), generator=gen, device=dev), -1)[..., 0]
+        emit = torch.log_softmax(torch.randn((B, T, U, 2), generator=gen, device=dev), -1)[..., 0]
+        blank, emit = blank.contiguous(), emit.contiguous()
+        t_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        u_lens = torch.full((B,), U, dtype=torch.int32, device=dev)
+        t_lens[1] = T - T // 7
+        u_lens[1] = U - U // 4
+        u_lens[2] = 0
+        with torch.inference_mode():
+            a, bt = rnnt_alpha(blank, emit, t_lens), rnnt_beta(blank, emit, t_lens, u_lens)
+            torch.cuda.synchronize()
+            a_ref, b_ref = rnnt_alpha_ref(blank, emit, t_lens), rnnt_beta_ref(blank, emit, t_lens,
+                                                                                u_lens)
+            # f32 chains of T frames of log-sum-exp scans in two operation
+            # orders (warp shuffles, then warps in turn; one log-step scan):
+            # the round-off of values ~T·log 2 grows like √T ulps of them
+            err_a = check_lattice(a, a_ref, 2e-5, 1e-5)
+            err_b = check_lattice(bt, b_ref, 2e-5, 1e-5)
+            ms_a = cuda_ms(lambda: rnnt_alpha(blank, emit, t_lens), 20)
+            ms_b = cuda_ms(lambda: rnnt_beta(blank, emit, t_lens, u_lens), 20)
+            plain_a = cuda_ms(lambda: rnnt_alpha_ref(blank, emit, t_lens), 2, warmup=1)
+            plain_b = cuda_ms(lambda: rnnt_beta_ref(blank, emit, t_lens, u_lens), 2, warmup=1)
+        U1 = U + 1
+        nbytes = B * T * (2 * U1 + U) * 4 + 2 * B * 4
+        bound, bound_by = bytes_bound_ms(nbytes, RNNT_LATTICE_OPS_PER_STATE * B * T * U1)
+        log(f"[K7] {label} (B={B}, T={T}, U={U}): α max|Δ| {err_a:.3e}, β max|Δ| {err_b:.3e}; "
+            f"K7a {ms_a:.4f} ms, K7b {ms_b:.4f} ms (plain {plain_a:.2f} / {plain_b:.2f} ms), bound "
+            f"{bound:.4f} ms each ({bound_by}); library_ms: none")
+        out["K7a " + label] = {"max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
+                               "bound_ms": bound, "bound_by": bound_by}
+        out["K7b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                               "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def rnnt_model(cfg, dev):
+    """The flagship in RNN-T mode with randomize_'s weights; the join kernel
+    is widened to N(0, 4/J) (randomize_ scales it by the vocab's width, which
+    leaves the logits within ~0.1 of each other).  Phase 10 conditions the
+    projections and the blank bias further (``condition_joiner``)."""
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "rnnt", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    with torch.no_grad():
+        jk = model.joiner.join_kernel
+        jk.mul_(2.0 * (jk.shape[1] / jk.shape[0]) ** 0.5 / 0.5)
+    return model.eval()
+
+
+def offline_rnnt(model, enc_p, dev):
+    """Offline greedy decode of join-space frames ``enc_p`` (1, T, J): the
+    tokens of one call over all frames, and each frame's number of
+    emissions from a frame-by-frame decode carrying the state (whose tokens
+    must be the same)."""
+    with torch.inference_mode():
+        tables = [t.float() for t in model.rnnt_decode_tables()]
+        T = enc_p.shape[1]
+        st = rnnt_greedy_decode(enc_p, *tables, torch.tensor([T], device=dev), blank_id=0,
+                                max_out=4 * T)
+        one, step, lens = torch.ones(1, dtype=torch.int32, device=dev), None, []
+        for t in range(T):
+            step = rnnt_greedy_decode(enc_p[:, t:t + 1], *tables, one, blank_id=0, max_out=4 * T,
+                                      init_state=step)
+            lens.append(step.out_len)
+        counts = torch.diff(torch.cat(lens), prepend=torch.zeros(1, dtype=torch.int32,
+                                                                   device=dev)).cpu().numpy()
+    tokens = rnnt_state_to_lists(st)[0]
+    if rnnt_state_to_lists(step)[0] != tokens:
+        raise AssertionError("the frame-by-frame offline decode differs from the one-shot one")
+    return tokens, counts
+
+
+def encode_rnnt(model, cfg, audio, dev):
+    """``audio``'s frames in the join space, encoded in one shot."""
+    with torch.inference_mode():
+        feats = compute_features(torch.from_numpy(audio[None]).to(dev), cfg.frontend)
+        enc_out, _ = model(feats, None, None)
+        return model.rnnt_project_encoder(enc_out).float()
+
+
+def condition_joiner(model, cfg, streams, dev, share: float = 0.6) -> float:
+    """Make the greedy decode of ``streams`` emit varied labels and end a
+    share of its frames with blank.  randomize_'s projections leave the join
+    space dominated by a constant: one label wins every decision, blank none, and
+    each frame emits max_symbols tokens.  Here the encoder projection is
+    centred over the streams' frames and scaled to a spread of 3 per unit, the
+    predictor's over the vocabulary to a spread of 1, and join_bias[blank] is
+    raised to the ``share`` quantile of the best label's margin over blank
+    (over the frames × 64 random contexts).  Returns that raise."""
+    joiner = model.joiner
+    with torch.inference_mode():
+        pred_table = model.rnnt_decode_tables()[0].float()
+    with torch.no_grad():
+        enc_p = torch.cat([encode_rnnt(model, cfg, a, dev)[0] for a in streams])
+        for proj, x, spread in ((joiner.enc_proj, enc_p, 3.0), (joiner.pred_proj, pred_table, 1.0)):
+            scale = spread / x.std(0)
+            proj.bias.copy_((proj.bias - x.mean(0)) * scale)
+            proj.weight.mul_(scale[:, None])
+    enc_p = torch.cat([encode_rnnt(model, cfg, a, dev)[0] for a in streams])
+    with torch.inference_mode():
+        pred_table, jk, jb = (t.float() for t in model.rnnt_decode_tables())
+        ctx = torch.randperm(pred_table.shape[0], generator=torch.Generator().manual_seed(SEED))
+        logits = torch.tanh(enc_p[:, None] + pred_table[ctx[:64].to(dev)][None]) @ jk + jb
+        others = logits.clone()
+        others[..., 0] = -torch.inf
+        margin = others.amax(-1) - logits[..., 0]
+        shift = torch.quantile(margin.flatten(), share).item()
+    with torch.no_grad():
+        joiner.join_bias[0] += shift
+    return shift
+
+
+def phase_rnnt_streaming(model, cfg, dev) -> int:
+    """Phase 10: three ~10 s streams through StreamingRecognizer(decoder=
+    "rnnt").  The streamed tokens must equal an offline greedy decode of the
+    same join-space frames (those the recognizer decoded, chunk by chunk),
+    and be within 1 % edit distance of the decode of a one-shot encoding of
+    the audio (the chunked encoder's round-off can flip a near-tie).  The
+    offline decode must end at least a fifth of its frames with blank at
+    once, emit 1 to 3 tokens in at least 1 % of them, and average at most 2
+    tokens per frame (of max_symbols 4), so that blank ends frames and the
+    emissions per frame vary across chunk and drain boundaries."""
+    rng = np.random.default_rng(SEED + 10)
+    streams = [synth_audio(rng, 1, 160000 + int(rng.integers(0, 8000)))[0] for _ in range(3)]
+    shift = condition_joiner(model, cfg, streams, dev)
+    log(f"[rnnt streaming] join_bias[blank] raised by {shift:.3f}")
+    warm = StreamingRecognizer(model, cfg, chunk_frames=32, decoder="rnnt", device=dev)
+    warm.accept_waveform(streams[0][:16000])                   # warm-up, not counted
+
+    latencies, results, decoded = [], [], []
+    lucy_cell_fused_lm.launches = 0
+    for audio in streams:
+        rec = StreamingRecognizer(model, cfg, chunk_frames=32, decoder="rnnt", device=dev)
+        step, advance, frames = rec._step_chunk, rec._advance_rnnt, []
+
+        def timed(chunk, step=step):
+            t0 = time.perf_counter()
+            step(chunk)
+            torch.cuda.synchronize()                            # the decode state is on the card
+            latencies.append(time.perf_counter() - t0)
+
+        def kept(enc_p, advance=advance, frames=frames):
+            frames.append(enc_p.clone())
+            advance(enc_p)
+
+        rec._step_chunk, rec._advance_rnnt = timed, kept
+        pos = 0
+        while pos < len(audio):
+            n = int(rng.integers(100, 8000))
+            rec.accept_waveform(audio[pos:pos + n])
+            pos += n
+        rec.finish()
+        results.append(rec.tokens)
+        decoded.append(torch.cat(frames, dim=1))
+    launches = lucy_cell_fused_lm.launches
+    if launches == 0:
+        raise AssertionError("the RNN-T streaming path launched no fused-cell kernel")
+
+    for k, (audio, toks, enc_p) in enumerate(zip(streams, results, decoded)):
+        want, counts = offline_rnnt(model, enc_p, dev)
+        one_shot = encode_rnnt(model, cfg, audio, dev)
+        if one_shot.shape != enc_p.shape:
+            raise AssertionError(f"stream {k}: {enc_p.shape[1]} frames streamed, "
+                                 f"{one_shot.shape[1]} in one shot")
+        whole, _ = offline_rnnt(model, one_shot, dev)
+        hist = np.bincount(counts, minlength=5)
+        dist = levenshtein(toks, whole)
+        log(f"[rnnt streaming] stream {k}: {len(audio) / 16000:.2f} s, {len(toks)} tokens "
+            f"streamed, {len(want)} offline on the same frames, {len(whole)} on the one-shot "
+            f"encoding (edit distance {dist}); frames by emissions 0-4: {hist.tolist()}, "
+            f"{len(want) / len(counts):.3f} tokens per frame")
+        if not want or toks != want:
+            raise AssertionError(f"stream {k}: streamed tokens differ from the offline decode "
+                                 f"of the same frames (edit distance {levenshtein(toks, want)})")
+        if dist > 0.01 * len(whole):
+            raise AssertionError(f"stream {k}: edit distance {dist} to the one-shot decode")
+        if hist[0] < 0.2 * len(counts) or hist[1:4].sum() < 0.01 * len(counts) \
+                or len(want) > 2 * len(counts):
+            raise AssertionError(f"stream {k}: the decode does not exercise blank (frames by "
+                                 f"emissions {hist.tolist()})")
+    lat = np.asarray(latencies) * 1e3
+    log(f"[rnnt streaming] {len(lat)} chunks of 32 frames (320 ms): latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; "
+        f"fused-cell launches {launches}")
+    return launches
+
+
+def phase_cli_rnnt(seconds=48.0, target=16) -> None:
+    """Phase 12: the CLI trains RNN-T (exact loss) for two dispatches on a
+    generated fixture."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
+    t0 = time.perf_counter()
+    summary = run_cli(["--model.encoder", "lucyrnn", "--data.source", "local",
+                       "--data.local_dir", data, "--data.target_duration", str(target),
+                       "--data.batch_size", "4", "--data.num_workers", "4",
+                       "--train.segments_per_dispatch", "1", "--train.log_every_n", "2",
+                       "--train.mode", "rnnt", "--train.rnnt_band", "0", "--train.steps", "2",
+                       "--train.model_dir", os.path.join(WORK, "rnnt")])
+    if summary["global_step"] != 2 or len(summary["loss_history"]) != 2:
+        raise AssertionError(f"RNN-T CLI run: step {summary['global_step']}, "
+                             f"losses {summary['loss_history']}")
+    log(f"[cli rnnt] 4 recordings × {seconds:g} s, {target} s segments: losses "
+        f"{[round(x, 4) for x in summary['loss_history']]} ({time.perf_counter() - t0:.1f} s)")
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -746,18 +1108,28 @@ def main() -> int:
     lattice = phase_lattice(dev)
     del model
     n_train = phase_train_step(cfg, dev)
-    phase_throughput(cfg, dev)
+    phase_throughput(cfg, dev, K=8)
     phase_cli()
 
+    rk = phase_rnnt_kernels(dev)
+    n_rtrain = phase_train_step(cfg, dev, U=48, mode="rnnt")
+    model = rnnt_model(cfg, dev)
+    n_rstream = phase_rnnt_streaming(model, cfg, dev)
+    del model
+    phase_throughput(cfg, dev, K=4, U=64, mode="rnnt", extra=("--train.rnnt_band", "0"))
+    phase_cli_rnnt()
+
     csrc = "statecatcher_tpu_torch/ops/csrc/"
-    log(f"[kernels] launches: K1 batched {n_batched}, streaming {n_stream}, train {n_train['K1']}; "
-        f"K2 {n_train['K2']}, K3 {n_train['K3']}, K4 {n_train['K4']} (train)")
+    n_k1 = n_batched + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
+    log(f"[kernels] launches: K1 batched {n_batched}, streaming {n_stream}, train {n_train['K1']}, "
+        f"rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}; K2 {n_train['K2']} + "
+        f"{n_rtrain['K2']}, K3 {n_train['K3']}, K4 {n_train['K4']} (train); K6a {n_rtrain['K6a']}, "
+        f"K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b {n_rtrain['K7b']} (rnnt train)")
     log(json.dumps({"kernels": [
         kernel_entry("lucy_cell_fused_lm", csrc + "lucy_fused_lm_fwd.cu",
-                     "statecatcher_tpu/ops/lucy_fused_lm.py:156",
-                     n_batched + n_stream + n_train["K1"], k1["batched f32"]),
+                     "statecatcher_tpu/ops/lucy_fused_lm.py:156", n_k1, k1["batched f32"]),
         kernel_entry("lucy_cell_fused_lm_bwd", csrc + "lucy_fused_lm_bwd.cu",
-                     "statecatcher_tpu/ops/lucy_fused_lm.py:248", n_train["K2"],
+                     "statecatcher_tpu/ops/lucy_fused_lm.py:248", n_train["K2"] + n_rtrain["K2"],
                      k2["batched f32"]),
         kernel_entry("ctc_alpha", csrc + "ctc_lattice.cu",
                      "statecatcher_tpu/ops/ctc_pallas.py:58", n_train["K3"],
@@ -765,6 +1137,18 @@ def main() -> int:
         kernel_entry("ctc_beta", csrc + "ctc_lattice.cu",
                      "statecatcher_tpu/ops/ctc_pallas.py:92", n_train["K4"],
                      lattice["training"]["beta"]),
+        kernel_entry("rnnt_joint_fwd", csrc + "rnnt_joint.cu",
+                     "statecatcher_tpu/ops/rnnt_pallas.py:72", n_rtrain["K6a"],
+                     rk["K6a training f32"]),
+        kernel_entry("rnnt_joint_bwd", csrc + "rnnt_joint.cu",
+                     "statecatcher_tpu/ops/rnnt_pallas.py:92", n_rtrain["K6b"],
+                     rk["K6b training f32"]),
+        kernel_entry("rnnt_alpha", csrc + "rnnt_lattice.cu",
+                     "statecatcher_tpu/ops/rnnt_dp_pallas.py:69", n_rtrain["K7a"],
+                     rk["K7a training"]),
+        kernel_entry("rnnt_beta", csrc + "rnnt_lattice.cu",
+                     "statecatcher_tpu/ops/rnnt_dp_pallas.py:93", n_rtrain["K7b"],
+                     rk["K7b training"]),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

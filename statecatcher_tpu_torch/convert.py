@@ -1,11 +1,13 @@
 """Weight bridge: flax params tree ⇄ PyTorch state_dict.
 
 Covers the trees of ``ASRModel`` and ``SpeechModel`` (the ASR module under
-``asr``) for the LucyRNN encoder.  Dense and GateProj kernels are (in, out)
-in flax and (out, in) here, so they are transposed; a LayerNorm's ``scale``
-is its ``weight``.  The flax side is plain numpy (``np.asarray`` of each
-leaf), so this module needs no JAX.  Both directions copy values exactly:
-flax → torch → flax is bit-identical.
+``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN encoder.  Dense
+and GateProj kernels are (in, out) in flax and (out, in) here, so they are
+transposed; a LayerNorm's ``scale`` is its ``weight``; an Embed's
+``embedding`` is its ``weight``; ``join_kernel`` stays (J, V).  The flax
+side is plain numpy (``np.asarray`` of each leaf), so this module needs no
+JAX.  Both directions copy values exactly: flax → torch → flax is
+bit-identical.
 """
 
 from __future__ import annotations
@@ -45,20 +47,40 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
     return out
 
 
+# The RNN-T joiner's leaves, relative to the top of a SpeechModel tree.
+# join_kernel keeps the JAX layout (J, V) on both sides.
+_JOINER = [
+    (("joiner", "embedding", "embedding"), "joiner.embedding.weight", False),
+    (("joiner", "enc_proj", "kernel"), "joiner.enc_proj.weight", True),
+    (("joiner", "enc_proj", "bias"), "joiner.enc_proj.bias", False),
+    (("joiner", "pred_proj", "kernel"), "joiner.pred_proj.weight", True),
+    (("joiner", "pred_proj", "bias"), "joiner.pred_proj.bias", False),
+    (("joiner", "join_kernel"), "joiner.join_kernel", False),
+    (("joiner", "join_bias"), "joiner.join_bias", False),
+]
+
+
 def _count_leaves(tree) -> int:
     if isinstance(tree, dict) or hasattr(tree, "items"):
         return sum(_count_leaves(v) for _, v in tree.items())
     return 1
 
 
+def _full_mapping(cfg: ModelConfig, speech: bool, rnnt: bool):
+    """The mapping of a whole tree: an ASRModel's (``speech`` False), or a
+    SpeechModel's with its leaves under ``asr`` (and ``joiner`` for RNN-T)."""
+    if not speech:
+        return _mapping(cfg)
+    out = [(("asr",) + path, "asr." + key, tr) for path, key, tr in _mapping(cfg)]
+    return out + (_JOINER if rnnt else [])
+
+
 def flax_to_torch(params: Any, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """flax params (``{"params": ...}`` or the inner tree, of an ASRModel or
-    a SpeechModel) → state_dict of CPU tensors for the port's model."""
+    a SpeechModel in either mode) → state_dict of CPU tensors for the port's
+    model."""
     tree = params["params"] if "params" in params else params
-    prefix = ""
-    if "asr" in tree:
-        tree, prefix = tree["asr"], "asr."
-    mapping = _mapping(cfg)
+    mapping = _full_mapping(cfg, "asr" in tree, "joiner" in tree)
     if _count_leaves(tree) != len(mapping):
         raise ValueError(f"flax tree has {_count_leaves(tree)} leaves, config "
                          f"{cfg} expects {len(mapping)}")
@@ -68,23 +90,23 @@ def flax_to_torch(params: Any, cfg: ModelConfig) -> dict[str, torch.Tensor]:
         for p in path:
             node = node[p]
         arr = np.asarray(node)
-        sd[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr.T if transposed else arr))
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr.T if transposed else arr))
     return sd
 
 
 def torch_to_flax(state_dict: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
-    """state_dict of an ASRModel or SpeechModel → ``{"params": tree}`` of
-    numpy arrays in the flax layout."""
-    prefix = "asr." if any(k.startswith("asr.") for k in state_dict) else ""
-    mapping = _mapping(cfg)
+    """state_dict of an ASRModel or SpeechModel (either mode) →
+    ``{"params": tree}`` of numpy arrays in the flax layout."""
+    mapping = _full_mapping(cfg, any(k.startswith("asr.") for k in state_dict),
+                            any(k.startswith("joiner.") for k in state_dict))
     if len(state_dict) != len(mapping):
         raise ValueError(f"state_dict has {len(state_dict)} entries, config "
                          f"{cfg} expects {len(mapping)}")
     tree: dict = {}
     for path, key, transposed in mapping:
-        arr = state_dict[prefix + key].detach().cpu().numpy()
+        arr = state_dict[key].detach().cpu().numpy()
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(arr.T if transposed else arr, order="C")   # a copy, not a view
-    return {"params": {"asr": tree} if prefix else tree}
+    return {"params": tree}

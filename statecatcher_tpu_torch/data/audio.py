@@ -16,6 +16,7 @@ from __future__ import annotations
 import shutil
 import struct
 import subprocess
+from typing import Optional
 
 import numpy as np
 
@@ -52,12 +53,13 @@ def decode_audio(data: bytes, target_sr: int) -> np.ndarray:
     (dataset.py:163-164).
     """
     if _is_wav(data):
-        # (the JAX package first tries its native C++ decoder here, with the
-        # same semantics; that fast path is not ported yet, ROADMAP.md queue 1)
+        # (the JAX package's default path here is its native C++ decoder,
+        # not ported; the output length is sized as that decoder sizes it)
         wav, sr, _ = read_wav_bytes(data)
         wav = to_mono(wav)
         if sr != target_sr:
-            wav = resample_linear(wav, sr, target_sr)
+            wav = resample_linear(wav, sr, target_sr,
+                                  n_out=resampled_count(len(wav), sr, target_sr))
         return wav
     if _FFMPEG is None:
         raise RuntimeError(
@@ -158,10 +160,25 @@ def to_mono(x: np.ndarray) -> np.ndarray:
     return x.astype(np.float32, copy=False)
 
 
-def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """Linear-interpolation resampler (fallback when ffmpeg is unavailable)."""
+def resampled_count(n: int, sr_in: int, sr_out: int) -> int:
+    """Samples of ``n`` resampled from ``sr_in`` to ``sr_out``, rounded half
+    away from zero (``llround``, as the JAX package's native decoder,
+    ``native/csrc/audio.cc:76-79``)."""
+    if sr_in == sr_out or n == 0:
+        return n
+    exact = n * sr_out / sr_in
+    whole = int(exact)
+    return whole + 1 if exact - whole >= 0.5 else whole
+
+
+def resample_linear(x: np.ndarray, sr_in: int, sr_out: int,
+                    n_out: Optional[int] = None) -> np.ndarray:
+    """Linear-interpolation resampler (fallback when ffmpeg is unavailable).
+    ``n_out`` defaults to the numpy fallback's length (Python's ``round``,
+    halves to even)."""
     if sr_in == sr_out or len(x) == 0:
         return x
-    n_out = int(round(len(x) * sr_out / sr_in))
+    if n_out is None:
+        n_out = int(round(len(x) * sr_out / sr_in))
     t_out = np.arange(n_out, dtype=np.float64) * (sr_in / sr_out)
     return np.interp(t_out, np.arange(len(x), dtype=np.float64), x).astype(np.float32)

@@ -59,6 +59,21 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a (num, features) table, looked up in ``dtype``;
+    initialised as flax's default (truncated normal, variance 1/features)."""
+
+    def __init__(self, num_embeddings: int, features: int, *, dtype: torch.dtype,
+                 param_dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features, dtype=param_dtype))
+        lecun_normal_(self.weight, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight.to(self.dtype)[ids.to(torch.int64)]
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics in at least float32, output in
     ``dtype``.  (flax takes the variance as E[x²]−E[x]², PyTorch in two

@@ -40,6 +40,14 @@ SIGNATURES = {
         "ctc_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "ctc_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },
+    "rnnt_lattice": {
+        "rnnt_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "rnnt_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    },
+    "rnnt_joint": {
+        "rnnt_joint_fwd": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+        "rnnt_joint_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
+    },
 }
 
 # ptxas -v output and wall time of each build this process ran: name → dict

@@ -19,9 +19,10 @@ median/MAD window; a flagged recording's remaining segments train with
 (parameters, optimizer state, carry, the cursor {batches_done, seg_idx} and
 the metrics window) from which a run resumes mid-recording-batch exactly.
 
-Not ported yet, and raising: the HTTP data source (``data/client.py``),
-multi-process and multi-device training (ROADMAP.md queue 1 item 8), the
-debug and profiler hooks (item 8), RNN-T mode (item 6).  Where the JAX
+Both training modes run (``train.mode`` "ctc" or "rnnt"; the step holds
+the difference).  Not ported yet, and raising: the HTTP data source
+(``data/client.py``), multi-process and multi-device training (ROADMAP.md
+queue 1 item 8), the debug and profiler hooks (item 8).  Where the JAX
 package reads ``jax.process_index()``/``process_count()`` this loop is
 rank 0 of 1.
 """
@@ -113,9 +114,6 @@ def build_tokenizer(cfg: Config):
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.train.mode != "ctc":
-        raise NotImplementedError(
-            f"train.mode={cfg.train.mode!r} is not ported yet (ROADMAP.md queue 1 item 6, RNN-T)")
     if cfg.mesh.data_parallel > 1 or cfg.mesh.model_parallel > 1:
         raise NotImplementedError(
             "data/model parallel meshes are not ported yet (ROADMAP.md queue 1 item 8, "

@@ -1,23 +1,30 @@
-"""The train step: frontend → encoder(state) → CTC loss → update.
+"""The train step: frontend → encoder(state) → CTC or RNN-T loss → update.
 
 Port of ``statecatcher_tpu/train/step.py`` (``_make_step_body``,
-``make_train_step``, ``make_segment_scan_step``, ``init_train_state``) for
-CTC mode.  One segment's step:
+``make_train_step``, ``make_segment_scan_step``, ``init_train_state``,
+``resolve_rnnt_band``).  One segment's step:
 
   * int16 audio is de-quantised on the device (÷ 32767.0); a (B,) sample
     mask is a prefix length (``frame_mask_from_lens``), a (B, S) one is
     pooled (``compute_frame_mask``); frame lengths are at least 1;
   * the carry is detached on entry (truncated BPTT across segments);
-  * loss = the ``row_valid``-masked mean of the per-row CTC loss; the
+  * CTC: loss = the ``row_valid``-masked mean of the per-row CTC loss; the
     per-utterance totals (per-row loss × max(tok_len, 1)) go out for the
     hallucination filter;
-  * on CUDA the encoder cells run K1 forward and K2 backward and the CTC
-    lattice K3 and K4 (with ``ctc_impl`` "auto" or "pallas");
+  * RNN-T (``train.mode="rnnt"``): the joiner projects the encoder output
+    and the blank-prefixed tokens; loss = the ``row_valid``-masked mean of
+    the per-utterance transducer NLL, which goes to the filter as it is
+    (``resolve_rnnt_impl`` picks the loss);
+  * on CUDA the encoder cells run K1 forward and K2 backward, the CTC
+    lattice K3 and K4 (with ``ctc_impl`` "auto" or "pallas"), and the
+    transducer the joint K6 and its lattice K7 (``rnnt_impl`` "auto" or
+    "pallas");
   * ``ok`` = finite loss and grad norm (and loss < ``skip_loss_above``) is
     decided on the device: a bad segment leaves the parameters, the
     optimizer state and the carry as they were, through ``torch.where``,
     with no host sync;
-  * greedy preds and keep-mask are computed on the device.
+  * greedy preds and keep-mask (CTC greedy of the encoder output, in both
+    modes, as the JAX package) are computed on the device.
 
 Unlike JAX's pure functions, the step updates the model's parameters and the
 optimizer state in place (``TrainState``), which saves a copy of each.
@@ -42,7 +49,10 @@ from statecatcher_tpu_torch.frontend import (
     frame_mask_from_lens,
     num_frames,
 )
+from statecatcher_tpu_torch.models.rnnt import make_prefix
 from statecatcher_tpu_torch.ops.ctc import ctc_loss_per_example
+from statecatcher_tpu_torch.ops.rnnt import rnnt_loss_fused
+from statecatcher_tpu_torch.ops.rnnt_joint import rnnt_loss_pallas
 from statecatcher_tpu_torch.train.optim import (
     build_optimizer,
     global_norm,
@@ -52,7 +62,8 @@ from statecatcher_tpu_torch.train.optim import (
 )
 
 __all__ = ["StepOutput", "TrainState", "build_optimizer", "init_train_state", "lr_schedule",
-           "make_segment_scan_step", "make_train_step"]
+           "make_segment_scan_step", "make_train_step", "resolve_rnnt_band",
+           "resolve_rnnt_impl"]
 
 
 class StepOutput(NamedTuple):
@@ -105,11 +116,45 @@ class TrainState:
 
 def init_train_state(model: torch.nn.Module, cfg: Config) -> TrainState:
     """The optimizer of ``cfg.train.optim`` over ``model``'s parameters (the
-    model's own initialisation stands for the JAX package's dummy forward)."""
-    if cfg.train.mode != "ctc":
-        raise NotImplementedError(
-            f"train.mode={cfg.train.mode!r} is not ported yet (ROADMAP.md queue 1 item 6, RNN-T)")
+    model's own initialisation stands for the JAX package's dummy forward;
+    in RNN-T mode the joiner's parameters are among them)."""
+    _check_mode(cfg)
     return TrainState(model, build_optimizer(cfg.train.optim))
+
+
+def _check_mode(cfg: Config) -> None:
+    if cfg.train.mode not in ("ctc", "rnnt"):
+        raise ValueError(f"train.mode must be 'ctc' or 'rnnt', got {cfg.train.mode!r}")
+
+
+def resolve_rnnt_band(requested: int, u_pad: int) -> int:
+    """Band width of the transducer loss at a padded label length: a
+    ``requested`` width ≥ 0 as it is (0 = exact); -1 (auto) is exact for
+    u_pad ≤ 48 and 32 above (the JAX package's measured crossover; the loop
+    buckets U to multiples of 16)."""
+    if requested >= 0:
+        return requested
+    return 32 if u_pad > 48 else 0
+
+
+def resolve_rnnt_impl(impl: str, band: int, on_cuda: bool) -> str:
+    """The transducer loss a step runs: "pallas" (K6 + K7; their plain
+    versions on the CPU) or "xla" (``rnnt_loss_fused``, autograd).
+
+    "auto" is "pallas" on the card and "xla" on the CPU, where the JAX
+    package resolves "auto" to "xla" too and so ignores the band.  A band
+    > 0 on the "pallas" path is the banded loss (K8), which is not ported:
+    it raises rather than run the exact loss, whose numbers differ."""
+    if impl == "auto":
+        impl = "pallas" if on_cuda else "xla"
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"Unknown RNN-T impl {impl!r}")
+    if impl == "pallas" and band > 0:
+        raise NotImplementedError(
+            f"the banded transducer loss (train.rnnt_band resolved to {band}; K8, "
+            "ops/rnnt_band.py) is not ported yet (ROADMAP.md queue 2, K8a/b): pass "
+            "--train.rnnt_band 0 for the exact loss, or --train.rnnt_impl xla")
+    return impl
 
 
 def _no_mesh(mesh_plan) -> None:
@@ -129,9 +174,8 @@ def _pred_shape(audio: torch.Tensor, cfg: Config) -> tuple[int, int]:
 
 def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
     """The single-segment step body shared by both step makers."""
-    if cfg.train.mode != "ctc":
-        raise NotImplementedError(
-            f"train.mode={cfg.train.mode!r} is not ported yet (ROADMAP.md queue 1 item 6, RNN-T)")
+    _check_mode(cfg)
+    rnnt = cfg.train.mode == "rnnt"
     fe = cfg.frontend
     stack_order = max(1, cfg.model.stack_order)
     skip_above = cfg.train.skip_loss_above
@@ -153,14 +197,30 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
 
         for p in state.params.values():
             p.grad = None
-        logits, new_state = state.model(feats, carry_in, frame_mask)
-        per = ctc_loss_per_example(logits, in_lens, tokens, tok_lens, blank_id=blank_id,
-                                   impl=ctc_impl)
-        valid = row_valid.to(per.dtype)
-        loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        if rnnt:
+            band = resolve_rnnt_band(cfg.train.rnnt_band, tokens.shape[-1])
+            impl = resolve_rnnt_impl(cfg.train.rnnt_impl, band, feats.is_cuda)
+            logits, new_state, proj = state.model(feats, carry_in, frame_mask,
+                                                  make_prefix(tokens, blank_id))
+            if impl == "pallas":
+                loss, per = rnnt_loss_pallas(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
+                                             row_valid=row_valid, return_per=True)
+            else:
+                loss, per = rnnt_loss_fused(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
+                                            row_valid=row_valid,
+                                            time_chunk=cfg.train.rnnt_time_chunk,
+                                            return_per=True)
+        else:
+            logits, new_state = state.model(feats, carry_in, frame_mask)
+            per = ctc_loss_per_example(logits, in_lens, tokens, tok_lens, blank_id=blank_id,
+                                       impl=ctc_impl)
+            valid = row_valid.to(per.dtype)
+            loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+            # the hallucination filter wants the TOTAL per-utterance NLL (the
+            # transducer's per-row NLL already is one)
+            per = per * torch.clamp(tok_lens, min=1).to(per.dtype)
         loss.backward()
-        # the hallucination filter wants the TOTAL per-utterance NLL
-        per_loss = (per.detach() * torch.clamp(tok_lens, min=1).to(per.dtype)).to(torch.float32)
+        per_loss = per.detach().to(torch.float32)
         grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
                  for k, p in state.params.items()}
         grad_norm = global_norm(grads)

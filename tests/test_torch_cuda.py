@@ -7,9 +7,11 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 (``--noconftest`` because tests/conftest.py imports JAX; ``-o addopts=``
 drops the ini file's ``-n auto``, which needs xdist.)
 
-Kernels held here: K1 and K2 (the fused cell's forward and backward) and
-K3 and K4 (the CTC α and β lattice), each against its plain version, and the
-autograd Functions' gradients on the card against the CPU.
+Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
+and K4 (the CTC α and β lattice), K6a and K6b (the fused RNN-T joint's
+forward and backward) and K7a and K7b (the transducer α and β lattice), each
+against its plain version, and the autograd Functions' gradients on the card
+against the CPU.
 
 Tolerances of the fused cell forward (f32, unit-normal gates):
   * h is bounded by 1: atol 2e-5.
@@ -37,6 +39,19 @@ from statecatcher_tpu_torch.ops.lucy_fused_lm import (
     lucy_cell_fused_lm_bwd,
     lucy_cell_fused_lm_bwd_ref,
     lucy_cell_fused_lm_ref,
+)
+from statecatcher_tpu_torch.ops.rnnt_joint import (
+    joint_blank_emit_bwd_ref,
+    joint_blank_emit_ref,
+    rnnt_joint_bwd,
+    rnnt_joint_fwd,
+    rnnt_loss_pallas,
+)
+from statecatcher_tpu_torch.ops.rnnt_lattice import (
+    rnnt_alpha,
+    rnnt_alpha_ref,
+    rnnt_beta,
+    rnnt_beta_ref,
 )
 
 
@@ -281,3 +296,151 @@ def test_frontend_on_card_runs_full_f32(cuda_device):
             compute_features(x.to(cuda_device), cfg)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def lattice_data(seed, B, T, U):
+    """Blank and emit log-prob lattices; row 0 has u_len 0, row 1 a short
+    input, the others full lengths."""
+    rng = np.random.default_rng(seed)
+    blank = torch.from_numpy((rng.standard_normal((B, T, U + 1)) - 1.5).astype(np.float32))
+    emit = torch.from_numpy((rng.standard_normal((B, T, U)) - 1.5).astype(np.float32))
+    t_lens = torch.full((B,), T, dtype=torch.int32)
+    u_lens = torch.full((B,), U, dtype=torch.int32)
+    u_lens[0] = 0
+    if B > 1:
+        t_lens[1] = max(T - T // 3, 1)
+        u_lens[1] = U // 2
+    return blank, emit, t_lens, u_lens
+
+
+def assert_lattice_close(got, want):
+    """The same dead states (≤ −1e29), and live values within 2e-5 + 2e-6 of
+    their size: f32 log-sum-exp chains in two operation orders (the kernel
+    scans within warps, the plain version over all columns)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    live = want > -1e29
+    assert np.array_equal(live, got > -1e29)
+    np.testing.assert_allclose(got[live], want[live], rtol=2e-6, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U", [(3, 45, 11), (4, 200, 40), (2, 33, 0), (3, 70, 128),
+                                   (2, 20, 1500)])
+def test_rnnt_lattice_kernels_match_plain(cuda_device, B, T, U):
+    """K7a/K7b against their plain versions: U+1 from 1 (no labels) through
+    one warp, several warps (129) and two 1024-column chunks (1501), with a
+    u_len = 0 row and a short row."""
+    blank, emit, t_lens, u_lens = lattice_data(50 + U, B, T, U)
+    want_a = rnnt_alpha_ref(blank, emit, t_lens)
+    want_b = rnnt_beta_ref(blank, emit, t_lens, u_lens)
+    on = [t.to(cuda_device) for t in (blank, emit, t_lens, u_lens)]
+    n = (rnnt_alpha.launches, rnnt_beta.launches)
+    got_a, got_b = rnnt_alpha(*on[:3]), rnnt_beta(*on)
+    torch.cuda.synchronize()
+    assert (rnnt_alpha.launches, rnnt_beta.launches) == (n[0] + 1, n[1] + 1)
+    assert_lattice_close(got_a, want_a)
+    assert_lattice_close(got_b, want_b)
+
+
+def joint_data(seed, B, T, U, J, V, dev, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32))
+    enc, pred = f(B, T, J).to(dev, dtype), f(B, U + 1, J).to(dev, dtype)
+    k, b = f(J, V, scale=0.1).to(dev), f(V, scale=0.1).to(dev)
+    labels = torch.from_numpy(rng.integers(0, V, (B, U)).astype(np.int32)).to(dev)
+    g_blank = f(B, T, U + 1, scale=0.1).to(dev)
+    g_emit = f(B, T, U, scale=0.1).to(dev)
+    return enc, pred, k, b, labels, g_blank, g_emit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,J,V,blank_id", [(3, 45, 11, 40, 150, 5), (2, 17, 0, 64, 100, 0),
+                                                (2, 30, 9, 64, 1024, 0), (1, 7, 3, 100, 70, 69)])
+def test_rnnt_joint_kernels_match_plain(cuda_device, B, T, U, J, V, blank_id):
+    """K6a/K6b against their plain versions in f32: ragged rows (B·T·(U+1)
+    not a multiple of the 128-row tile; T and U+1 not multiples of the
+    backward's 16 × 8 patch), ragged vocab tiles, U+1 = 1,
+    J = 100 (the 128-wide instance), blank_id ≠ 0.  Forward to 1e-5
+    (f32 contractions of 40-100 terms in two orders), gradients to 1e-4
+    relative plus 1e-5 of each output's largest value."""
+    enc, pred, k, b, labels, g_blank, g_emit = joint_data(60 + J, B, T, U, J, V, cuda_device)
+    n = (rnnt_joint_fwd.launches, rnnt_joint_bwd.launches)
+    got = rnnt_joint_fwd(enc, pred, k, b, labels, blank_id)
+    want = joint_blank_emit_ref(enc, pred, k, b, labels, blank_id)
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    lse = want[2]
+    got = rnnt_joint_bwd(enc, pred, k, b, labels, lse, g_blank, g_emit, blank_id)
+    want = joint_blank_emit_bwd_ref(enc, pred, k, b, labels, lse, g_blank, g_emit, blank_id)
+    torch.cuda.synchronize()
+    assert (rnnt_joint_fwd.launches, rnnt_joint_bwd.launches) == (n[0] + 1, n[1] + 1)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), got, want):
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-4, scale_tol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rnnt_joint_kernels_match_plain_bf16(cuda_device):
+    """bf16 enc/pred: both versions round the same operands to bf16 and sum
+    in f32.  A joint or d_logits value whose f32 round-off straddles a bf16
+    rounding boundary rounds one bf16 step apart, so the forward is held to
+    2e-3 and the gradients to 1e-2 relative plus 1e-3 of their scale."""
+    enc, pred, k, b, labels, g_blank, g_emit = joint_data(70, 3, 40, 12, 64, 256, cuda_device,
+                                                          torch.bfloat16)
+    got = rnnt_joint_fwd(enc, pred, k, b, labels, 0)
+    want = joint_blank_emit_ref(enc, pred, k, b, labels, 0)
+    assert got[0].dtype == torch.float32
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=2e-3, atol=2e-3,
+                                   err_msg=name)
+    got = rnnt_joint_bwd(enc, pred, k, b, labels, want[2], g_blank, g_emit, 0)
+    want = joint_blank_emit_bwd_ref(enc, pred, k, b, labels, want[2], g_blank, g_emit, 0)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), got, want):
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-2, scale_tol=1e-3)
+
+
+@pytest.mark.cuda
+def test_rnnt_loss_grads_on_card_match_cpu(cuda_device):
+    """The whole exact loss (K6 + K7 and their backward) on the card against
+    its plain versions on the CPU, with a row_valid=False row."""
+    B, T, U, J, V = 3, 37, 9, 64, 200
+    data = joint_data(80, B, T, U, J, V, "cpu")
+    t_lens = torch.tensor([T, T - 11, T - 3], dtype=torch.int32)
+    u_lens = torch.tensor([U, 0, U - 4], dtype=torch.int32)
+    row_valid = torch.tensor([True, True, False])
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xs = [t.clone().to(dev).requires_grad_() for t in data[:4]]
+        loss = rnnt_loss_pallas(*xs, data[4].to(dev), t_lens.to(dev), u_lens.to(dev),
+                                blank_id=0, row_valid=row_valid.to(dev))
+        loss.backward()
+        outs.append((loss.item(), [x.grad.cpu().numpy() for x in xs]))
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-5)
+    for name, a, c in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), outs[1][1], outs[0][1]):
+        assert_grad_close(a, c, name, rtol=1e-4, scale_tol=1e-5)
+    assert not outs[1][1][0][2].any()                        # the invalid row has no gradient
+
+
+@pytest.mark.cuda
+def test_rnnt_band_raises_on_card(cuda_device):
+    """A band > 0 on the card (the auto band above U = 48 included) raises
+    rather than run the exact loss in the banded loss's place."""
+    from statecatcher_tpu_torch.config import Config
+    from statecatcher_tpu_torch.models.asr import init_carry
+    from statecatcher_tpu_torch.models.speech import build_speech_model
+    from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
+
+    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn", "--model.hidden_size", "16",
+                                    "--model.num_layers", "1", "--model.vocab_size", "20",
+                                    "--train.mode", "rnnt"])
+    model = build_speech_model(cfg.model, 80, "rnnt", device=cuda_device)
+    step = make_segment_scan_step(model, cfg)
+    state = init_train_state(model, cfg)
+    K, B, S, U = 1, 2, 4000, 64                               # padded U above 48: band 32
+    batch = [torch.zeros((K, B, S), device=cuda_device),
+             torch.full((K, B), S, dtype=torch.int32, device=cuda_device),
+             torch.ones((K, B, U), dtype=torch.int32, device=cuda_device),
+             torch.full((K, B), U, dtype=torch.int32, device=cuda_device),
+             torch.ones((K, B), dtype=torch.bool, device=cuda_device)]
+    with pytest.raises(NotImplementedError, match="K8"):
+        step(state, init_carry(cfg.model, B, device=cuda_device), *batch, np.ones(K, bool))

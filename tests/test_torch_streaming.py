@@ -104,9 +104,11 @@ def test_streaming_matches_jax_recognizer(setup, feed):
 
 def test_unported_decoders_raise(setup):
     cfg, model, _, _ = setup
-    for decoder in ("beam", "rnnt"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            StreamingRecognizer(model, cfg, decoder=decoder, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        StreamingRecognizer(model, cfg, decoder="beam", device="cpu")
+    # "rnnt" is ported (tests/test_torch_rnnt_decode.py); it needs a joiner
+    with pytest.raises(ValueError, match="mode='rnnt'"):
+        StreamingRecognizer(model, cfg, decoder="rnnt", device="cpu")
     with pytest.raises(ValueError, match="multiple"):
         StreamingRecognizer(model, Config().apply_overrides(
             _OVERRIDES + ["--model.stack_order", "3"]), chunk_frames=16, device="cpu")

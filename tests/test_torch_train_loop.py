@@ -153,12 +153,11 @@ def test_wav_decode_matches_jax():
     got, want = audio.decode_audio_fast(wav, 16000), jaudio.decode_audio_fast(wav, 16000)
     assert got.dtype == want.dtype == np.int16                  # PCM16 passthrough
     np.testing.assert_array_equal(got, want)
-    # resampling: the JAX package's numpy path (its native C++ decoder, tried
-    # first there, is not ported and rounds the output length differently:
-    # 6173 against 6172 samples here — ROADMAP.md §3)
+    # resampling: the JAX package's default path (its native C++ decoder)
+    # sizes the output rounding halves away from zero, 6173 samples here
     got = audio.decode_audio(wav, 8000)
-    want = jaudio.resample_linear(jaudio.to_mono(jaudio.read_wav_bytes(wav)[0]), 16000, 8000)
-    assert got.dtype == np.float32 and len(got) == 6172
+    want = jaudio.decode_audio(wav, 8000)
+    assert got.dtype == want.dtype == np.float32 and len(got) == len(want) == 6173
     np.testing.assert_array_equal(got, want)
     a, b = audio.read_wav_bytes(wav), jaudio.read_wav_bytes(wav)
     np.testing.assert_array_equal(a[0], b[0])
