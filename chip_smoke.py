@@ -5,8 +5,8 @@
 
 It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
 csrc`` (one nvcc per source, all started together) and drives the flagship
-LucyRNN-CTC model (4 × 512, vocab 1024, 80 MFCC, float32, seeded random
-weights) through the port's entry points:
+LucyRNN (4 × 512, vocab 1024, 80 MFCC, float32, seeded random weights;
+RNN-T joiner 64) through the port's entry points:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills);
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
@@ -24,8 +24,8 @@ weights) through the port's entry points:
      segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
      the kernel path held against the plain path;
   6. throughput at bench.py's shape (B=96, 16 s, bf16, U=128) but K=8 of
-     its 24 segments, to keep the whole run near 5 minutes: one warm and one
-     timed group (printed only, not a benchmark);
+     its 24 segments: one warm and one timed group (printed only, not a
+     benchmark);
   7. CLI: ``python -m statecatcher_tpu_torch.cli`` trains a few dispatches on
      a generated WAV+VTT fixture and writes a checkpoint; a second run
      resumes from its cursor;
@@ -35,7 +35,7 @@ weights) through the port's entry points:
      enc/pred for K6), a ragged shape (blank_id 5) and U=128, with times,
      bounds and plain times;
   9. RNN-T train step: ``make_segment_scan_step`` with ``--train.mode
-     rnnt`` over one group of 4 carried 16 s segments at B=32, U=48 (the
+     rnnt`` over one group of 2 carried 16 s segments at B=32, U=48 (the
      auto band resolves to the exact loss), the kernel path held against
      the plain path;
  10. RNN-T streaming: ``StreamingRecognizer(decoder="rnnt")`` on three ~10 s
@@ -43,13 +43,28 @@ weights) through the port's entry points:
      (equal) and of a one-shot encoding (1 % edit distance), with the joiner
      conditioned so that blank ends many frames and the emissions per frame
      vary (checked on the offline decode);
- 11. RNN-T throughput at B=96, K=4 × 16 s, bf16, U=64 with
-     ``--train.rnnt_band 0`` (bench.py's RNN-T row made exact; printed
-     only);
- 12. CLI with ``--train.mode rnnt --train.rnnt_band 0``: two dispatches;
- 13. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 9 and 10; each counter is set to 0 just before a phase
-     and read just after it, so comparison launches are not counted).
+ 11. kernels K5a, K5b: the linear scan and its adjoint against their plain
+     versions at the cell's shape (B=32, T=1598, D=512), f32 and bf16;
+ 12. the masked flagship (``mask_state_updates=True``): phase 2's batched
+     encode, whose masked segment runs the split cell through K5 (a row
+     whose mask ends early carries its last valid frame's state), and one
+     CTC training group of K=2 at B=32 through K5, kernel path against plain
+     path;
+ 13. kernels K8a, K8b and the banded α/β lattice against their plain
+     versions at the banded training shape (B=32, T=1598, U=128, band 32;
+     f32, and bf16 for K8), and the identity: with band ≥ U+1 the banded
+     loss and its gradients equal the exact K6/K7 loss;
+ 14. RNN-T train step at U=128 with the default band (32): one group of K=2
+     at B=32 with a row_valid=False row and a degenerate row (its band
+     prunes every path: masked out, finite gradients), kernel path against
+     plain path;
+ 15. RNN-T throughput at B=96, K=4 × 16 s, bf16, U=64 and U=128 (bench.py's
+     RNN-T rows; both under the default band; printed only);
+ 16. CLI in RNN-T mode: two dispatches;
+ 17. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 9, 10, 12 and 14; each counter is set to 0 just
+     before a phase and read just after it, so comparison launches are not
+     counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -73,10 +88,17 @@ import torch
 from statecatcher_tpu_torch.config import Config
 from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
 from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask, num_frames
-from statecatcher_tpu_torch.models import lucyrnn
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.models.asr import init_carry
-from statecatcher_tpu_torch.ops import _kernels, ctc_lattice, lucy_fused_lm, rnnt_joint, rnnt_lattice
+from statecatcher_tpu_torch.ops import (
+    _kernels,
+    ctc_lattice,
+    lucy_fused_lm,
+    lucy_pallas,
+    rnnt_band,
+    rnnt_joint,
+    rnnt_lattice,
+)
 from statecatcher_tpu_torch.ops.ctc_lattice import (
     ctc_alpha,
     ctc_alpha_ref,
@@ -94,11 +116,31 @@ from statecatcher_tpu_torch.ops.lucy_fused_lm import (
     lucy_cell_fused_lm_bwd_ref,
     lucy_cell_fused_lm_ref,
 )
+from statecatcher_tpu_torch.ops.lucy_pallas import (
+    linear_scan_fwd,
+    linear_scan_ref,
+    linear_scan_rev,
+    linear_scan_rev_ref,
+)
+from statecatcher_tpu_torch.ops.rnnt_band import (
+    band_offsets,
+    band_width,
+    joint_blank_emit_banded_bwd_ref,
+    joint_blank_emit_banded_ref,
+    rnnt_band_alpha,
+    rnnt_band_alpha_ref,
+    rnnt_band_beta,
+    rnnt_band_beta_ref,
+    rnnt_band_bwd,
+    rnnt_band_fwd,
+    rnnt_loss_banded,
+)
 from statecatcher_tpu_torch.ops.rnnt_joint import (
     joint_blank_emit_bwd_ref,
     joint_blank_emit_ref,
     rnnt_joint_bwd,
     rnnt_joint_fwd,
+    rnnt_loss_pallas,
 )
 from statecatcher_tpu_torch.ops.rnnt_lattice import (
     rnnt_alpha,
@@ -246,18 +288,6 @@ def phase_kernel(dev) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def plain_cell():
-    """Send the model's cell to its plain version on the card, so the kernel
-    path can be held against the plain path on the same inputs."""
-    kernel = lucyrnn.lucy_cell_fused_lm
-    lucyrnn.lucy_cell_fused_lm = lucy_cell_fused_lm_ref
-    try:
-        yield
-    finally:
-        lucyrnn.lucy_cell_fused_lm = kernel
-
-
 def run_segments(model, cfg, audio, masks):
     """Features → model → log-softmax over carried segments; returns per
     segment (log-probs, carry, seconds, frame mask or None)."""
@@ -275,9 +305,15 @@ def run_segments(model, cfg, audio, masks):
     return out
 
 
-def phase_batched(model, cfg, dev) -> int:
-    """Phase 2: 3 carried 16 s segments at B=32, kernel path vs plain path."""
+def phase_batched(model, cfg, dev) -> dict:
+    """Phases 2 and 12: 3 carried 16 s segments at B=32, the last with a
+    partial sample mask, kernel path vs plain path.  Under
+    ``mask_state_updates`` the masked segment runs the split cell (K5) and a
+    row whose mask ends early must carry its last valid frame's state.
+    Returns the launches of K1 and K5a."""
     B, S = 32, 16 * 16000
+    masked = cfg.model.lucyrnn.mask_state_updates
+    tag = "[batched masked]" if masked else "[batched]"
     rng = np.random.default_rng(SEED + 2)
     audio = [torch.from_numpy(synth_audio(rng, B, S)).to(dev) for _ in range(3)]
     lens = rng.integers(S // 4, S, B)
@@ -285,15 +321,19 @@ def phase_batched(model, cfg, dev) -> int:
     last_mask = torch.arange(S, device=dev)[None, :] < torch.from_numpy(lens).to(dev)[:, None]
     masks = [None, None, last_mask]
     T = num_frames(S, cfg.frontend)
+    counters = {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
     with torch.inference_mode():
         run_segments(model, cfg, audio, masks)                    # warm-up, masked path too
-        lucy_cell_fused_lm.launches = 0
+        for c in counters.values():
+            c.launches = 0
         kern = run_segments(model, cfg, audio, masks)
-        launches = lucy_cell_fused_lm.launches
-        with plain_cell():
+        launches = {n: c.launches for n, c in counters.items()}
+        with plain_kernels():
             plain = run_segments(model, cfg, audio, masks)
-    if launches == 0:
-        raise AssertionError("the batched path launched no fused-cell kernel")
+    if launches["K1"] == 0 or (masked and launches["K5a"] == 0):
+        raise AssertionError(f"the batched path launched {launches}")
+    if masked:
+        check_last_valid_state(model, cfg, *kern[-1])
     agree = total = 0
     for k, ((lp, carry, sec, fmask), (lp_p, carry_p, sec_p, _)) in enumerate(zip(kern, plain)):
         if lp.shape != (B, T, cfg.model.vocab_size) or not torch.isfinite(lp).all():
@@ -316,10 +356,35 @@ def phase_batched(model, cfg, dev) -> int:
     if agree < 0.999 * total:
         raise AssertionError(f"greedy frames agree on {agree}/{total} < 99.9%")
     per_seg = [r[2] * 1e3 for r in kern]
-    log(f"[batched] B={B}, 3 × 16 s segments: {per_seg[0]:.1f} / {per_seg[1]:.1f} / "
+    log(f"{tag} B={B}, 3 × 16 s segments: {per_seg[0]:.1f} / {per_seg[1]:.1f} / "
         f"{per_seg[2]:.1f} ms per segment ({B * 16 / (sum(per_seg) / 3e3):.0f} audio-s/s); "
-        f"greedy frames agree {agree}/{total}; fused-cell launches {launches}")
+        f"greedy frames agree {agree}/{total}; launches {launches}")
     return launches
+
+
+def check_last_valid_state(model, cfg, lp, carry, _sec, fmask):
+    """Under ``mask_state_updates``: the row whose mask ends earliest carries
+    the state of its last valid frame.  The last layer's output at frame t
+    is h_t, whose projection is frame t's logits, and its carried h is h_T:
+    so the logits stay those of the last valid frame past it, and the
+    projection of the carried h equals them (within f32 round-off of the
+    projection, 1e-5 of their scale)."""
+    row = int(fmask.sum(1).argmin())
+    last = int(fmask[row].sum()) - 1
+    if not bool(fmask[row, :last + 1].all()) or last + 1 >= fmask.shape[1]:
+        raise AssertionError(f"row {row}: its frame mask is not a prefix ending early")
+    with torch.inference_mode():
+        h_T = carry["h"][row, 0, cfg.model.num_layers - 1]
+        logits = torch.log_softmax(model.asr.encoder.output_proj(h_T[None]).float(), -1)[0]
+    want = lp[row, last]
+    scale = want.abs().max().item()
+    d_tail = (lp[row, last + 1:] - want).abs().max().item()
+    d_carry = (logits - want).abs().max().item()
+    if d_tail > 1e-5 * scale or d_carry > 1e-5 * scale:
+        raise AssertionError(f"row {row}: the state moved after its last valid frame {last} "
+                             f"(max |Δ| {d_tail:.3e} past it, {d_carry:.3e} from the carry)")
+    log(f"[batched masked] row {row} ends at frame {last} of {fmask.shape[1]}: its log-probs "
+        f"past it and from its carried h equal frame {last}'s (max |Δ| {max(d_tail, d_carry):.2e})")
 
 
 def phase_streaming(model, cfg, dev) -> int:
@@ -534,37 +599,52 @@ def phase_lattice(dev) -> dict:
     return out
 
 
+# (module, attribute, plain version) of every kernel wrapper of the training
+# paths: K1, K2, K3, K4, K5a, K5b, K6a, K6b, K7a, K7b, K8a, K8b, banded α, β
+PLAIN = [
+    (lucy_fused_lm, "_fwd_kernel", lucy_cell_fused_lm_ref),
+    (lucy_fused_lm, "_bwd_kernel", lucy_cell_fused_lm_bwd_ref),
+    (ctc_lattice, "ctc_alpha", ctc_alpha_ref), (ctc_lattice, "ctc_beta", ctc_beta_ref),
+    (lucy_pallas, "linear_scan_fwd", linear_scan_ref),
+    (lucy_pallas, "linear_scan_rev", linear_scan_rev_ref),
+    (rnnt_joint, "rnnt_joint_fwd", joint_blank_emit_ref),
+    (rnnt_joint, "rnnt_joint_bwd", joint_blank_emit_bwd_ref),
+    (rnnt_lattice, "rnnt_alpha", rnnt_alpha_ref), (rnnt_lattice, "rnnt_beta", rnnt_beta_ref),
+    (rnnt_band, "rnnt_band_fwd", joint_blank_emit_banded_ref),
+    (rnnt_band, "rnnt_band_bwd", joint_blank_emit_banded_bwd_ref),
+    (rnnt_band, "rnnt_band_alpha", rnnt_band_alpha_ref),
+    (rnnt_band, "rnnt_band_beta", rnnt_band_beta_ref),
+]
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel of the training paths (K1, K2, K3, K4, K6, K7) to
-    its plain version on the card, so the kernel path can be held against
-    the plain path on the same inputs."""
-    saved = (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
-             ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta,
-             rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd,
-             rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta)
-    lucy_fused_lm._fwd_kernel = lambda g, b, h, s: lucy_cell_fused_lm_ref(g, b, h, s)
-    lucy_fused_lm._bwd_kernel = lucy_cell_fused_lm_bwd_ref
-    ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta = ctc_alpha_ref, ctc_beta_ref
-    rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd = joint_blank_emit_ref, joint_blank_emit_bwd_ref
-    rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta = rnnt_alpha_ref, rnnt_beta_ref
+    """Route every kernel of the model and training paths to its plain
+    version on the card, so the kernel path can be held against the plain
+    path on the same inputs."""
+    saved = [getattr(mod, name) for mod, name, _ in PLAIN]
+    for mod, name, plain in PLAIN:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (lucy_fused_lm._fwd_kernel, lucy_fused_lm._bwd_kernel,
-         ctc_lattice.ctc_alpha, ctc_lattice.ctc_beta,
-         rnnt_joint.rnnt_joint_fwd, rnnt_joint.rnnt_joint_bwd,
-         rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta) = saved
+        for (mod, name, _), kernel in zip(PLAIN, saved):
+            setattr(mod, name, kernel)
 
 
-def train_group(rng, K, B, S, U, V, dev, int16=True):
+def train_group(rng, K, B, S, U, V, dev, int16=True, degenerate=False):
     """One segment group as the training loop ships it: int16 audio, prefix
-    lengths (one partial), U random tokens per row, the last row invalid."""
+    lengths (one partial), U random tokens per row, the last row invalid.
+    With ``degenerate``, row 1 holds 50 ms of audio (5 frames) for its U
+    tokens: a banded loss whose band is narrower than U prunes all its
+    paths."""
     audio = np.stack([synth_audio(rng, B, S) for _ in range(K)])
     if int16:
         audio = np.clip(np.rint(audio * 32767.0), -32768, 32767).astype(np.int16)
     lens = np.full((K, B), S, np.int32)
     lens[-1, 0] = S // 2                                      # one partial sample mask
+    if degenerate:
+        lens[:, 1] = 800
     tokens = rng.integers(1, V, (K, B, U)).astype(np.int32)
     tok_lens = np.full((K, B), U, np.int32)
     row_valid = np.ones((K, B), bool)
@@ -576,39 +656,50 @@ def snapshot(state) -> dict:
     return {k: v.detach().clone() for k, v in state.params.items()}
 
 
-# the kernels a training mode's step launches: name → (counter, launches
-# per segment in layers (True) or once (False))
+# the kernels a training path's step launches: name → (counter, launches per
+# segment and layer, or 0 for once per segment)
 TRAIN_KERNELS = {
-    "ctc": {"K1": (lucy_cell_fused_lm, True), "K2": (lucy_cell_fused_lm_bwd, True),
-            "K3": (ctc_alpha, False), "K4": (ctc_beta, False)},
-    "rnnt": {"K1": (lucy_cell_fused_lm, True), "K2": (lucy_cell_fused_lm_bwd, True),
-             "K6a": (rnnt_joint_fwd, False), "K6b": (rnnt_joint_bwd, False),
-             "K7a": (rnnt_alpha, False), "K7b": (rnnt_beta, False)},
+    "ctc": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
+            "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "ctc masked": {"K5a": (linear_scan_fwd, 2), "K5b": (linear_scan_rev, 2),
+                   "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "rnnt": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
+             "K6a": (rnnt_joint_fwd, 0), "K6b": (rnnt_joint_bwd, 0),
+             "K7a": (rnnt_alpha, 0), "K7b": (rnnt_beta, 0)},
+    "rnnt banded": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
+                    "K8a": (rnnt_band_fwd, 0), "K8b": (rnnt_band_bwd, 0),
+                    "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
 }
 
 
-def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc") -> dict:
-    """Phases 5 and 9: one group of K=4 carried 16 s segments at B=32
+def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=None,
+                     degenerate=False) -> dict:
+    """Phases 5, 9, 12 and 14: one group of K carried 16 s segments at B=32
     through ``make_segment_scan_step`` in ``mode`` ("ctc" or "rnnt"), kernel
-    path against plain path.
+    path against plain path; ``path`` names the kernels it must launch
+    (``TRAIN_KERNELS``; the mode by default).  With ``degenerate``, row 1's
+    band prunes all its paths: its loss must be masked out (0) and every
+    gradient finite.
 
     The learning rate is 1e-6 here: at the default 3e-4, Adam's first,
     sign-like steps turn f32 round-off in near-zero gradient components into
     lr-sized parameter differences between the two paths, and the later
     segments' grad norms then differ by up to 2 % (measured on the card)."""
+    path = path or mode
     cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6", "--train.mode", mode])
-    tag = "[train]" if mode == "ctc" else "[rnnt train]"
+    tag = f"[{'train' if path == 'ctc' else path + ' train'}]"
     V = cfg.model.vocab_size
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
     state = init_train_state(model, cfg)
     step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
-    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, V, dev)
+    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, V, dev,
+                        degenerate=degenerate)
     seg_valid = np.ones(K, bool)
     p0, opt0 = snapshot(state), state.state_dict()
 
-    counters = [c for c, _ in TRAIN_KERNELS[mode].values()]
+    counters = [c for c, _ in TRAIN_KERNELS[path].values()]
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -632,6 +723,10 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc") -> di
     gn, gn_p = outs.grad_norm.cpu().numpy(), outs_p.grad_norm.cpu().numpy()
     if not (np.isfinite(loss).all() and np.isfinite(gn).all()):
         raise AssertionError(f"non-finite loss {loss} or grad norm {gn}")
+    if degenerate:
+        per = outs.per_loss.cpu().numpy()
+        if (per[:, 1] != 0).any() or (per[:, 0] <= 0).any():
+            raise AssertionError(f"the degenerate row is not masked out: per-row losses {per[:, :2]}")
     # f32 round-off of two operation orders, carried through up to K updates:
     # losses to 1e-4, grad norms to 1e-3 (relative)
     d_loss = np.abs(loss - loss_p) / np.abs(loss_p)
@@ -665,20 +760,20 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc") -> di
         f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
         f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
         f"{frac_off:.2e} of elements beyond 0.1·lr·K")
-    names = list(TRAIN_KERNELS[mode])
+    names = list(TRAIN_KERNELS[path])
     log(f"{tag} launches on the group: " + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
-    want = [(cfg.model.num_layers if per_layer else 1) * K
-            for _, per_layer in TRAIN_KERNELS[mode].values()]
+    want = [(cfg.model.num_layers * per_layer if per_layer else 1) * K
+            for _, per_layer in TRAIN_KERNELS[path].values()]
     if launches != want:
         raise AssertionError(f"launches {names} = {launches}; want {want}")
     return dict(zip(names, launches))
 
 
-def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc", extra=()) -> None:
-    """Phases 6 and 11: bench.py's shape (B=96, 16 s, bf16; CTC: U=128;
-    RNN-T: U=64, exact loss) at K segments, one warm and one timed group on
-    the kernel path."""
-    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode, *extra])
+def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None:
+    """Phases 6 and 15: bench.py's shape (B=96, 16 s, bf16; CTC: U=128;
+    RNN-T: U=64 and U=128, both under the default band 32) at K segments,
+    one warm and one timed group on the kernel path."""
+    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode])
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1)
@@ -698,7 +793,7 @@ def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc", extra=(
     if not torch.isfinite(outs.loss).all():
         raise AssertionError("throughput run: non-finite loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[throughput] {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U} {' '.join(extra)}: warm group {secs[0]:.3f} s, timed group "
+    log(f"[throughput] {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
         f"{secs[1]:.3f} s = {K * B * S / 16000 / secs[1]:.0f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
         f"segment); peak memory {peak:.2f} GiB")
 
@@ -884,6 +979,176 @@ def phase_rnnt_kernels(dev) -> dict:
     return out
 
 
+def phase_scan_kernels(dev) -> dict:
+    """Phase 11: K5a and K5b against their plain versions at the flagship's
+    cell shape (B=32, T=1598, D=512), f32 and bf16, with times, the byte
+    bound (two planes read, one written) and plain times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {}
+    B, T, D = 32, 1598, 512
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.sigmoid(torch.randn((B, T, D), generator=gen, device=dev) + 2.0).to(dtype)
+        b = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+        g = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+        s0 = torch.randn((B, D), generator=gen, device=dev)
+        label = "f32" if dtype == torch.float32 else "bf16"
+        with torch.inference_mode():
+            for name, fn, ref, args in (("K5a", linear_scan_fwd, linear_scan_ref, (a, b, s0)),
+                                        ("K5b", linear_scan_rev, linear_scan_rev_ref, (a, g))):
+                got = fn(*args)
+                torch.cuda.synchronize()
+                want = ref(*args)
+                if dtype == torch.float32:
+                    # the same products and sums in the same order
+                    err = check_close([got], [want], [name], 1e-6, 1e-6)
+                else:
+                    # both round the same f32 carry once; f32 round-off may
+                    # straddle a bf16 rounding boundary: one bf16 step
+                    err = check_close([got], [want], [name], 2.0 ** -7, 1e-6)
+                ms = cuda_ms(lambda: fn(*args), 50)
+                plain_ms = cuda_ms(lambda: ref(*args), 2, warmup=1)
+                es = torch.finfo(dtype).bits // 8
+                nbytes = 3 * B * T * D * es + (B * D * 4 if name == "K5a" else 0)
+                bound, bound_by = bytes_bound_ms(nbytes, 2 * B * T * D)
+                log(f"[K5] {name} {label} (B={B}, T={T}, D={D}): max|Δ| {err:.3e}  kernel "
+                    f"{ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({bound_by}, "
+                    f"{bound / ms:.1%} of it)  library_ms: none")
+                out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                          "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def band_problem(gen, B, T, U, J, V, band, Tb, dev, dtype):
+    """``joint_inputs`` with ragged lengths (row 1 shorter, row 2 with fewer
+    labels), the default band's offsets and cotangents of the banded tables'
+    size."""
+    enc, pred, k, b, labels, _, _ = joint_inputs(gen, B, T, U, J, V, dev, dtype, 0)
+    t_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    u_lens = torch.full((B,), U, dtype=torch.int32, device=dev)
+    t_lens[1] = T - T // 7
+    u_lens[2] = U - U // 3
+    Wp = band_width(band, U + 1, Tb)
+    Tp = -(-T // Tb) * Tb
+    o = band_offsets(t_lens, u_lens, Tp, -(-max(U + 1, Wp) // 8) * 8, Wp, Tb)
+    g_blank = torch.rand((B, Tp, Wp), generator=gen, device=dev) / Wp
+    g_emit = torch.rand((B, Tp, Wp), generator=gen, device=dev) / Wp
+    return enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, g_blank, g_emit
+
+
+def phase_band_kernels(dev) -> dict:
+    """Phase 13: K8a/K8b and the banded lattice against their plain versions
+    at the banded training shape (B=32, T=1598, U=128, band 32: Wp=48,
+    Tp=1600; J=64, V=1024; f32, and bf16 for K8), with times, bounds and
+    plain times; and the identity: with band ≥ U+1 the banded loss and its
+    gradients equal the exact loss through K6/K7."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out = {}
+    B, T, U, J, V, band, Tb = 32, 1598, 128, 64, 1024, 32, 8
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, g_blank, g_emit = band_problem(
+            gen, B, T, U, J, V, band, Tb, dev, dtype)
+        with torch.inference_mode():
+            fwd = rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb)
+            torch.cuda.synchronize()
+            fwd_ref = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb)
+            bwd_args = (enc, pred, k, b, labels, o, fwd_ref[2], g_blank, g_emit, Tb)
+            bwd = rnnt_band_bwd(*bwd_args)
+            torch.cuda.synchronize()
+            bwd_ref = joint_blank_emit_banded_bwd_ref(*bwd_args)
+            names = ("d_enc", "d_pred", "d_kernel", "d_bias")
+            if dtype == torch.float32:
+                # K6's tolerances: f32 contractions in two orders; gradient
+                # sums over 2.5M rows
+                err_f = check_close(fwd, fwd_ref, ("blank", "emit", "lse"), 1e-5, 1e-5)
+                err_b = check_grads(bwd, bwd_ref, names, 1e-4, 1e-4)
+            else:
+                err_f = check_close(fwd, fwd_ref, ("blank", "emit", "lse"), 2e-3, 2e-3)
+                err_b = check_grads(bwd, bwd_ref, names, 1e-2, 1e-3)
+            ms_f = cuda_ms(lambda: rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb), 5)
+            ms_b = cuda_ms(lambda: rnnt_band_bwd(*bwd_args), 3)
+            plain_f = cuda_ms(lambda: joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp,
+                                                                  Tb), 2, warmup=1)
+            plain_b = cuda_ms(lambda: joint_blank_emit_banded_bwd_ref(*bwd_args), 2, warmup=1)
+        R, es = B * Tp * Wp, torch.finfo(dtype).bits // 8
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        inputs = (B * T + B * (U + 1)) * J * es + (J + 1) * V * 4 + B * U * 4 + o.numel() * 4
+        bound_f, by_f = bytes_bound_ms(inputs + 3 * R * 4, joint_ops(R, V, J, False), peak)
+        bound_b, by_b = bytes_bound_ms(inputs + 3 * R * 4 + (B * T + B * (U + 1)) * J * 4
+                                       + (J + 1) * V * 4, joint_ops(R, V, J, True), peak)
+        log(f"[K8] {label} (B={B}, T={T}, U={U}, band {band}: Wp={Wp}, Tp={Tp}; J={J}, V={V}): "
+            f"fwd max|Δ| {err_f:.3e}, bwd max|Δ| {err_b:.3e}; K8a {ms_f:.4f} ms (plain "
+            f"{plain_f:.2f}, bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K8b "
+            f"{ms_b:.4f} ms (plain {plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, "
+            f"{bound_b / ms_b:.1%}); library_ms: none")
+        out["K8a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
+                               "bound_ms": bound_f, "bound_by": by_f}
+        out["K8b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                               "bound_ms": bound_b, "bound_by": by_b}
+        if dtype != torch.float32:
+            continue
+        # the banded lattice on the forward's own tables
+        blank_b, emit_b = fwd[0].contiguous(), fwd[1].contiguous()
+        with torch.inference_mode():
+            a = rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb)
+            bt = rnnt_band_beta(blank_b, emit_b, o, t_lens, u_lens, Tb)
+            torch.cuda.synchronize()
+            a_ref = rnnt_band_alpha_ref(blank_b, emit_b, o, t_lens, Tb)
+            b_ref = rnnt_band_beta_ref(blank_b, emit_b, o, t_lens, u_lens, Tb)
+            # as K7: chains of T frames of log-sum-exp scans in two orders
+            err_a = check_lattice(a, a_ref, 2e-5, 1e-5)
+            err_bt = check_lattice(bt, b_ref, 2e-5, 1e-5)
+            ms_a = cuda_ms(lambda: rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb), 20)
+            ms_bt = cuda_ms(lambda: rnnt_band_beta(blank_b, emit_b, o, t_lens, u_lens, Tb), 20)
+            plain_a = cuda_ms(lambda: rnnt_band_alpha_ref(blank_b, emit_b, o, t_lens, Tb), 1,
+                              warmup=1)
+            plain_bt = cuda_ms(lambda: rnnt_band_beta_ref(blank_b, emit_b, o, t_lens, u_lens, Tb),
+                               1, warmup=1)
+        nbytes = 3 * R * 4 + o.numel() * 4 + 2 * B * 4
+        bound, bound_by = bytes_bound_ms(nbytes, RNNT_LATTICE_OPS_PER_STATE * R)
+        log(f"[band lattice] (B={B}, Tp={Tp}, Wp={Wp}): α max|Δ| {err_a:.3e}, β max|Δ| "
+            f"{err_bt:.3e}; α {ms_a:.4f} ms, β {ms_bt:.4f} ms (plain {plain_a:.2f} / "
+            f"{plain_bt:.2f} ms), bound {bound:.4f} ms each ({bound_by}); library_ms: none")
+        out["band alpha"] = {"max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
+                             "bound_ms": bound, "bound_by": bound_by}
+        out["band beta"] = {"max_abs_err": err_bt, "ms": ms_bt, "plain_ms": plain_bt,
+                            "bound_ms": bound, "bound_by": bound_by}
+
+    # identity: a band of at least U+1 covers the lattice, so the banded loss
+    # is the exact one.  The exact loss's occupancies divide by the forward's
+    # single Z (as the JAX kernel's backward does), so each frame's sum to
+    # 1 ± δ, δ the drift between its α's and β's f32 round-off; the banded
+    # ones divide by each frame's own Z_t.  The gradients agree within δ of
+    # their scale, plus the K6 tolerances.
+    B, T, U = 8, 400, 64
+    enc, pred, k, b, labels, t_lens, u_lens, *_ = band_problem(gen, B, T, U, J, V, U + 1, Tb, dev,
+                                                               torch.float32)
+    with torch.inference_mode():
+        blank, emit, _ = rnnt_joint_fwd(enc, pred, k, b, labels)
+        a, bt = rnnt_alpha(blank, emit, t_lens), rnnt_beta(blank, emit, t_lens, u_lens)
+        occ, _ = rnnt_lattice.occupancy_grads(
+            blank, emit, t_lens, u_lens, a, bt,
+            rnnt_lattice.nll_from_alpha(a, blank, t_lens, u_lens),
+            torch.ones_like(t_lens, dtype=torch.float32))
+        active = torch.arange(blank.shape[1], device=dev)[None, :] < t_lens[:, None]
+        drift = (occ.sum(2) + 1.0)[active].abs().max().item()
+    res = []
+    for fn in (lambda *xs: rnnt_loss_banded(*xs, band=U + 1), rnnt_loss_pallas):
+        xs = [x.clone().requires_grad_() for x in (enc, pred, k, b)]
+        loss = fn(*xs, labels, t_lens, u_lens)
+        loss.backward()
+        res.append((loss.item(), [x.grad for x in xs]))
+    d_loss = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    if d_loss > 1e-5:
+        raise AssertionError(f"full band vs exact loss: {res[0][0]} vs {res[1][0]}")
+    err = check_grads(res[0][1], res[1][1], ("d_enc", "d_pred", "d_kernel", "d_bias"), 1e-4,
+                      1e-4 + drift)
+    log(f"[K8] band {U + 1} ≥ U+1 (B={B}, T={T}, U={U}): banded loss {res[0][0]:.6f}, exact "
+        f"(K6/K7) {res[1][0]:.6f} (rel {d_loss:.2e}); gradients max|Δ| {err:.3e} (the exact "
+        f"occupancies' per-frame drift δ {drift:.2e})")
+    return out
+
+
 def rnnt_model(cfg, dev):
     """The flagship in RNN-T mode with randomize_'s weights; the join kernel
     is widened to N(0, 4/J) (randomize_ scales it by the vocab's width, which
@@ -1037,8 +1302,8 @@ def phase_rnnt_streaming(model, cfg, dev) -> int:
 
 
 def phase_cli_rnnt(seconds=48.0, target=16) -> None:
-    """Phase 12: the CLI trains RNN-T (exact loss) for two dispatches on a
-    generated fixture."""
+    """Phase 16: the CLI trains RNN-T for two dispatches on a generated
+    fixture (~100 characters per 16 s segment: the default band)."""
     shutil.rmtree(WORK, ignore_errors=True)
     data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
     t0 = time.perf_counter()
@@ -1046,7 +1311,7 @@ def phase_cli_rnnt(seconds=48.0, target=16) -> None:
                        "--data.local_dir", data, "--data.target_duration", str(target),
                        "--data.batch_size", "4", "--data.num_workers", "4",
                        "--train.segments_per_dispatch", "1", "--train.log_every_n", "2",
-                       "--train.mode", "rnnt", "--train.rnnt_band", "0", "--train.steps", "2",
+                       "--train.mode", "rnnt", "--train.steps", "2",
                        "--train.model_dir", os.path.join(WORK, "rnnt")])
     if summary["global_step"] != 2 or len(summary["loss_history"]) != 2:
         raise AssertionError(f"RNN-T CLI run: step {summary['global_step']}, "
@@ -1112,44 +1377,69 @@ def main() -> int:
     phase_cli()
 
     rk = phase_rnnt_kernels(dev)
-    n_rtrain = phase_train_step(cfg, dev, U=48, mode="rnnt")
+    n_rtrain = phase_train_step(cfg, dev, K=2, U=48, mode="rnnt")
     model = rnnt_model(cfg, dev)
     n_rstream = phase_rnnt_streaming(model, cfg, dev)
     del model
-    phase_throughput(cfg, dev, K=4, U=64, mode="rnnt", extra=("--train.rnnt_band", "0"))
+
+    k5 = phase_scan_kernels(dev)
+    masked = cfg.apply_overrides(["--model.lucyrnn.mask_state_updates", "true"])
+    model = build_speech_model(masked.model, masked.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    n_mbatched = phase_batched(model.eval(), masked, dev)
+    del model
+    n_mtrain = phase_train_step(masked, dev, K=2, path="ctc masked")
+    k8 = phase_band_kernels(dev)
+    n_btrain = phase_train_step(cfg, dev, K=2, U=128, mode="rnnt", path="rnnt banded",
+                                degenerate=True)
+    for U in (64, 128):
+        phase_throughput(cfg, dev, K=4, U=U, mode="rnnt")
     phase_cli_rnnt()
 
     csrc = "statecatcher_tpu_torch/ops/csrc/"
-    n_k1 = n_batched + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
-    log(f"[kernels] launches: K1 batched {n_batched}, streaming {n_stream}, train {n_train['K1']}, "
-        f"rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}; K2 {n_train['K2']} + "
-        f"{n_rtrain['K2']}, K3 {n_train['K3']}, K4 {n_train['K4']} (train); K6a {n_rtrain['K6a']}, "
-        f"K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b {n_rtrain['K7b']} (rnnt train)")
+    n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
+            + n_mbatched["K1"] + n_btrain["K1"])
+    n_k2 = n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
+    n_k5a, n_k5b = n_mbatched["K5a"] + n_mtrain["K5a"], n_mtrain["K5b"]
+    n_k3, n_k4 = n_train["K3"] + n_mtrain["K3"], n_train["K4"] + n_mtrain["K4"]
+    log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
+        f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
+        f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}; K2 {n_k2}; K3 {n_k3}, "
+        f"K4 {n_k4} (train, masked train); K5a {n_k5a} (masked batched + train), K5b {n_k5b}; "
+        f"K6a {n_rtrain['K6a']}, K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b "
+        f"{n_rtrain['K7b']} (rnnt train); K8a {n_btrain['K8a']}, K8b {n_btrain['K8b']}, band α "
+        f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train)")
+    entries = [
+        ("lucy_cell_fused_lm", "lucy_fused_lm_fwd.cu", "lucy_fused_lm.py:156", n_k1,
+         k1["batched f32"]),
+        ("lucy_cell_fused_lm_bwd", "lucy_fused_lm_bwd.cu", "lucy_fused_lm.py:248", n_k2,
+         k2["batched f32"]),
+        ("ctc_alpha", "ctc_lattice.cu", "ctc_pallas.py:58", n_k3, lattice["training"]["alpha"]),
+        ("ctc_beta", "ctc_lattice.cu", "ctc_pallas.py:92", n_k4, lattice["training"]["beta"]),
+        ("linear_scan_fwd", "linear_scan.cu", "lucy_pallas.py:35", n_k5a, k5["K5a f32"]),
+        ("linear_scan_rev", "linear_scan.cu", "lucy_pallas.py:118", n_k5b, k5["K5b f32"]),
+        ("rnnt_joint_fwd", "rnnt_joint.cu", "rnnt_pallas.py:72", n_rtrain["K6a"],
+         rk["K6a training f32"]),
+        ("rnnt_joint_bwd", "rnnt_joint.cu", "rnnt_pallas.py:92", n_rtrain["K6b"],
+         rk["K6b training f32"]),
+        ("rnnt_alpha", "rnnt_lattice.cu", "rnnt_dp_pallas.py:69", n_rtrain["K7a"],
+         rk["K7a training"]),
+        ("rnnt_beta", "rnnt_lattice.cu", "rnnt_dp_pallas.py:93", n_rtrain["K7b"],
+         rk["K7b training"]),
+        ("rnnt_band_fwd", "rnnt_band.cu", "rnnt_band.py:80", n_btrain["K8a"], k8["K8a f32"]),
+        ("rnnt_band_bwd", "rnnt_band.cu", "rnnt_band.py:100", n_btrain["K8b"], k8["K8b f32"]),
+        # the banded lattice is an XLA scan in the JAX package, no TPU kernel
+        ("rnnt_band_alpha", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band α"],
+         k8["band alpha"]),
+        ("rnnt_band_beta", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band β"],
+         k8["band beta"]),
+    ]
+    if any(e[3] <= 0 for e in entries):
+        raise AssertionError(f"a kernel of the main path never launched: {entries}")
     log(json.dumps({"kernels": [
-        kernel_entry("lucy_cell_fused_lm", csrc + "lucy_fused_lm_fwd.cu",
-                     "statecatcher_tpu/ops/lucy_fused_lm.py:156", n_k1, k1["batched f32"]),
-        kernel_entry("lucy_cell_fused_lm_bwd", csrc + "lucy_fused_lm_bwd.cu",
-                     "statecatcher_tpu/ops/lucy_fused_lm.py:248", n_train["K2"] + n_rtrain["K2"],
-                     k2["batched f32"]),
-        kernel_entry("ctc_alpha", csrc + "ctc_lattice.cu",
-                     "statecatcher_tpu/ops/ctc_pallas.py:58", n_train["K3"],
-                     lattice["training"]["alpha"]),
-        kernel_entry("ctc_beta", csrc + "ctc_lattice.cu",
-                     "statecatcher_tpu/ops/ctc_pallas.py:92", n_train["K4"],
-                     lattice["training"]["beta"]),
-        kernel_entry("rnnt_joint_fwd", csrc + "rnnt_joint.cu",
-                     "statecatcher_tpu/ops/rnnt_pallas.py:72", n_rtrain["K6a"],
-                     rk["K6a training f32"]),
-        kernel_entry("rnnt_joint_bwd", csrc + "rnnt_joint.cu",
-                     "statecatcher_tpu/ops/rnnt_pallas.py:92", n_rtrain["K6b"],
-                     rk["K6b training f32"]),
-        kernel_entry("rnnt_alpha", csrc + "rnnt_lattice.cu",
-                     "statecatcher_tpu/ops/rnnt_dp_pallas.py:69", n_rtrain["K7a"],
-                     rk["K7a training"]),
-        kernel_entry("rnnt_beta", csrc + "rnnt_lattice.cu",
-                     "statecatcher_tpu/ops/rnnt_dp_pallas.py:93", n_rtrain["K7b"],
-                     rk["K7b training"]),
-    ]}))
+        kernel_entry(name, csrc + src, "statecatcher_tpu/ops/" + tpu, n, m)
+        for name, src, tpu, n, m in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -14,10 +14,13 @@ multi-track merge projection, zero-init output projection; carried state per
 track/layer is (h = last output, s = final scan state), batch-major
 ``(B, tracks, L, D)``.
 
-On the card every layer's recurrence runs in the fused CUDA cell kernels
-(``ops/lucy_fused_lm.py``: K1 forward, K2 backward) for any hidden size; on
-the CPU it runs their plain versions.  Options whose kernels are not ported
-yet raise on the card.
+Each layer's recurrence runs one of two ways, as in the JAX package
+(``cell_route``): the fused cell (``ops/lucy_fused_lm.py``: K1 forward, K2
+backward), or, with a frame mask (``mask_state_updates=True``) or
+``kernel_impl="pallas"``, the split path: the gate chain in torch
+(``ops/lucy_gates.py``), then the s-scan, tanh and the h-scan, each scan K5
+(``ops/lucy_pallas.py``).  The card runs the kernels, the CPU their plain
+versions.  Options whose kernels are not ported yet raise on the card.
 """
 
 from __future__ import annotations
@@ -29,40 +32,33 @@ from torch import nn
 
 from statecatcher_tpu_torch.config import LucyRNNConfig
 from statecatcher_tpu_torch.models.layers import Dense, LayerNorm, xavier_uniform_
-from statecatcher_tpu_torch.ops.lucy_fused_lm import (
-    lucy_cell_fused_lm,
-    lucy_cell_fused_lm_ref,
-)
+from statecatcher_tpu_torch.ops.lucy_fused_lm import lucy_cell_fused_lm
+from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
+from statecatcher_tpu_torch.ops.scan import SCAN_IMPLS, linear_scan
 
 # kernel_impl values whose TPU kernels are not ported yet → ROADMAP.md row
 _UNPORTED = {
-    "pallas": "K5 (ops/lucy_pallas.py linear scan)",
     "pallas-dual": "K11 (ops/lucy_pallas.py dual scan)",
     "pallas-fused": "K12 (ops/lucy_pallas.py fused masked cell)",
     "auto-fused": "K12 (ops/lucy_pallas.py fused masked cell)",
     "sp": "queue 1, multi-GPU (ops/scan_sp.py sequence-parallel scan)",
 }
-_PLAIN_IMPLS = {"auto", "assoc", "chunked", "xla-scan"}
 
 
 def cell_route(impl: str, on_cuda: bool, masked: bool) -> str:
-    """Where ``lucy_cell_parallel`` sends a segment: "kernel" (CUDA) or
-    "plain" (CPU).  Every scan algorithm of the JAX package computes the same
-    recurrence, so on the card each of them is the fused kernel; options
-    without a ported kernel raise rather than fall back."""
-    if impl not in _UNPORTED and impl not in _PLAIN_IMPLS and not impl.startswith("fused-lm"):
+    """How ``lucy_cell_parallel`` runs a segment: "fused" (the fused cell,
+    K1/K2) or "split" (gate chain, then the two scans through K5).  As in
+    the JAX package, a frame mask or ``impl="pallas"`` takes the split path
+    and every other scan algorithm the fused cell (they compute the same
+    recurrence).  Options without a ported kernel raise on the card rather
+    than fall back; on the CPU they run the same function's plain version."""
+    if impl not in _UNPORTED and impl not in SCAN_IMPLS and not impl.startswith("fused-lm"):
         raise ValueError(f"Unknown kernel_impl {impl!r}")
-    if not on_cuda:
-        return "plain"
-    if impl in _UNPORTED:
+    if on_cuda and impl in _UNPORTED:
         raise NotImplementedError(
             f"kernel_impl={impl!r} is not ported to CUDA yet: see ROADMAP.md, "
             f"{_UNPORTED[impl]}")
-    if masked:
-        raise NotImplementedError(
-            "mask_state_updates=True is not ported to CUDA yet: the masked "
-            "cell needs K5/K12 (ROADMAP.md, queue 2)")
-    return "kernel"
+    return "split" if masked or impl == "pallas" else "fused"
 
 
 def lucy_cell_parallel(
@@ -75,16 +71,21 @@ def lucy_cell_parallel(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the 7-gate cell over a whole segment → (h_all, h_T, s_T).
 
-    With ``frame_mask``, masked steps leave (h, s) unchanged (CPU only until
-    the masked kernels are ported)."""
-    cell_route(impl, gates.is_cuda, frame_mask is not None)        # raises if unported
+    With ``frame_mask``, masked steps leave (h, s) unchanged: their scan
+    coefficients are the identity map (a = 1, b = 0)."""
+    route = cell_route(impl, gates.is_cuda, frame_mask is not None)   # raises if unported
     if bias is None:
         bias = torch.zeros(gates.shape[-1], dtype=torch.float32, device=gates.device)
-    if frame_mask is None:
+    if route == "fused":
         # differentiable through K1/K2 on the card, their plain versions on the CPU
         h_all, s_all = lucy_cell_fused_lm(gates, bias, h0, s0)
     else:
-        h_all, s_all = lucy_cell_fused_lm_ref(gates, bias, h0, s0, frame_mask)
+        # differentiable through torch's autograd and K5a/K5b
+        scan = impl if impl in SCAN_IMPLS else "auto"
+        a_s, b_s, a_h, bh_c, h_pre_n = lucy_gate_coeffs(gates, frame_mask, bias)
+        s_all = linear_scan(a_s, b_s, s0, impl=scan)
+        c = torch.tanh(h_pre_n + s_all)
+        h_all = linear_scan(a_h, bh_c * c, h0, impl=scan)
     return h_all, h_all[:, -1, :], s_all[:, -1, :]
 
 

@@ -2,9 +2,10 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (pointers and the stream are
-``c_void_p``).  Libraries go to ``build/kernels/`` at the repository root,
-named by a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is reused.  Nothing is built when this module is imported:
+``c_void_p``).  Sources may include the headers of ``csrc/`` (``*.cuh``).
+Libraries go to ``build/kernels/`` at the repository root, named by a hash of
+the source, the headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing is built when this module is imported:
 the first launch builds, and ``build_all`` builds every source at once, one
 ``nvcc`` process each, started together.
 
@@ -43,10 +44,20 @@ SIGNATURES = {
     "rnnt_lattice": {
         "rnnt_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "rnnt_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "rnnt_band_alpha": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+        "rnnt_band_beta": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     },
     "rnnt_joint": {
         "rnnt_joint_fwd": (_I, [_P] * 8 + [_I] * 7 + [_P]),
         "rnnt_joint_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
+    },
+    "rnnt_band": {
+        "rnnt_band_fwd": (_I, [_P] * 9 + [_I] * 10 + [_P]),
+        "rnnt_band_bwd": (_I, [_P] * 14 + [_I] * 11 + [_P]),
+    },
+    "linear_scan": {
+        "linear_scan_fwd": (_I, [_I] + [_P] * 4 + [_I] * 3 + [_P]),
+        "linear_scan_rev": (_I, [_I] + [_P] * 3 + [_I] * 3 + [_P]),
     },
 }
 
@@ -66,8 +77,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -28,8 +28,6 @@ only for tensors on the CPU; on the card it launches its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from statecatcher_tpu_torch.ops.lucy_gates import EPS, lucy_gate_coeffs
@@ -42,14 +40,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Plain versions
 # --------------------------------------------------------------------------- #
 def lucy_cell_fused_lm_ref(gates: torch.Tensor, bias: torch.Tensor,
-                           h0: torch.Tensor, s0: torch.Tensor,
-                           frame_mask: Optional[torch.Tensor] = None):
+                           h0: torch.Tensor, s0: torch.Tensor):
     """Plain PyTorch version of the fused cell: (h_all, s_all) in the gates'
-    dtype, computed in float32 (float64 for float64 gates).  ``frame_mask``
-    (B, T) holds (h, s) over masked steps; the kernel has no mask input."""
+    dtype, computed in float32 (float64 for float64 gates)."""
     cdt = torch.promote_types(gates.dtype, torch.float32)
-    a_s, b_s, a_h, bh_c, h_pre_n = lucy_gate_coeffs(
-        gates.to(cdt), frame_mask, bias.to(cdt))
+    a_s, b_s, a_h, bh_c, h_pre_n = lucy_gate_coeffs(gates.to(cdt), None, bias.to(cdt))
     s_all = linear_scan_seq(a_s, b_s, s0.to(cdt))
     c = torch.tanh(h_pre_n + s_all)
     h_all = linear_scan_seq(a_h, bh_c * c, h0.to(cdt))

@@ -17,11 +17,12 @@ joint distribution, so the (B, T, U+1, V) logits never reach device memory:
             16 frames × 8 label positions, d_K and d_bias per row split)
             and this wrapper adds them up: deterministic, no atomics
 
-With bf16 enc/pred the joint, K and d_logits entering a product are rounded
-to bf16 and the sums are f32 (the JAX kernel's bf16 matmul with f32
-accumulation); the emit logit uses the f32 joint and K, and the bias is added
-in f32.  Outputs are float32 (float64 in the plain version for float64
-inputs); gradients come back in the inputs' dtypes.
+With bf16 enc/pred the joint, K, the bias and d_logits entering the logits or
+a product are rounded to bf16 and the sums are f32 (the JAX kernel's bf16
+matmul with f32 accumulation over its padded kernel matrix, whose row J holds
+the bias); the emit logit uses the f32 joint, K and bias (the JAX kernel's
+gathered emit column).  Outputs are float32 (float64 in the plain version for
+float64 inputs); gradients come back in the inputs' dtypes.
 
 Bounds on the card (operations; see the source): at B=32, T=1598, U=48,
 J=64, V=1024 the forward is 3.3e11 flops of contraction, the backward three
@@ -44,18 +45,25 @@ _PLAIN_CHUNK = 16       # frames per chunk of the plain versions
 
 
 def _plain_inputs(enc_p, pred_p, join_kernel, join_bias):
+    """(compute dtype, bf16?, enc, pred, K, bias, and K and bias as the logits
+    see them: rounded to bf16 under bf16 inputs)."""
     cdt = torch.promote_types(enc_p.dtype, torch.float32)
     bf = enc_p.dtype == torch.bfloat16
-    K = join_kernel.to(cdt)
-    Km = K.to(torch.bfloat16).to(cdt) if bf else K
-    return cdt, bf, enc_p.to(cdt), pred_p.to(cdt), K, Km, join_bias.to(cdt)
+    K, bias = join_kernel.to(cdt), join_bias.to(cdt)
+    rnd = lambda x: x.to(torch.bfloat16).to(cdt) if bf else x
+    return cdt, bf, enc_p.to(cdt), pred_p.to(cdt), K, bias, rnd(K), rnd(bias)
 
 
-def _plain_chunk(enc, pred, Km, bias, bf, t0, t1):
+def plain_logits(joint, Km, bias_m, bf):
+    """The joint's matmul operand (bf16-rounded under bf16) and its logits."""
+    jm = joint.to(torch.bfloat16).to(joint.dtype) if bf else joint
+    return jm, jm @ Km + bias_m
+
+
+def _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1):
     """The chunk's f32 joint, its matmul operand and its logits."""
     joint = torch.tanh(enc[:, t0:t1, None, :] + pred[:, None, :, :])
-    jm = joint.to(torch.bfloat16).to(joint.dtype) if bf else joint
-    return joint, jm, jm @ Km + bias
+    return (joint, *plain_logits(joint, Km, bias_m, bf))
 
 
 # --------------------------------------------------------------------------- #
@@ -64,7 +72,7 @@ def _plain_chunk(enc, pred, Km, bias, bf, t0, t1):
 def joint_blank_emit_ref(enc_p: torch.Tensor, pred_p: torch.Tensor, join_kernel: torch.Tensor,
                          join_bias: torch.Tensor, labels: torch.Tensor, blank_id: int = 0):
     """Plain K6a: (blank (B, T, U+1), emit (B, T, U), lse (B, T, U+1))."""
-    cdt, bf, enc, pred, K, Km, bias = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
+    cdt, bf, enc, pred, K, bias, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, _ = enc.shape
     U1 = pred.shape[1]
     U = U1 - 1
@@ -76,7 +84,7 @@ def joint_blank_emit_ref(enc_p: torch.Tensor, pred_p: torch.Tensor, join_kernel:
     lse = torch.empty((B, T, U1), dtype=cdt, device=enc.device)
     for t0 in range(0, T, _PLAIN_CHUNK):
         t1 = min(T, t0 + _PLAIN_CHUNK)
-        joint, _, logits = _plain_chunk(enc, pred, Km, bias, bf, t0, t1)
+        joint, _, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1)
         ls = torch.logsumexp(logits, dim=-1)
         lse[:, t0:t1] = ls
         blank[:, t0:t1] = logits[..., blank_id] - ls
@@ -89,7 +97,7 @@ def joint_blank_emit_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, lse,
                              g_emit, blank_id: int = 0):
     """Plain K6b: (d_enc (B, T, J), d_pred (B, U+1, J), d_kernel (J, V),
     d_bias (V,)) in f32 (f64 for f64 inputs)."""
-    cdt, bf, enc, pred, K, Km, bias = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
+    cdt, bf, enc, pred, K, _, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, J = enc.shape
     U1 = pred.shape[1]
     U = U1 - 1
@@ -103,7 +111,7 @@ def joint_blank_emit_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, lse,
     d_b = torch.zeros((V,), dtype=cdt, device=dev)
     for t0 in range(0, T, _PLAIN_CHUNK):
         t1 = min(T, t0 + _PLAIN_CHUNK)
-        joint, jm, logits = _plain_chunk(enc, pred, Km, bias, bf, t0, t1)
+        joint, jm, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1)
         gb = g_blank[:, t0:t1].to(cdt)
         ge = torch.cat([g_emit[:, t0:t1].to(cdt),
                         torch.zeros((B, t1 - t0, 1), dtype=cdt, device=dev)], dim=2)

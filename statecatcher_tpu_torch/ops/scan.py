@@ -1,9 +1,12 @@
 """First-order linear recurrence  s_t = a_t · s_{t-1} + b_t  over time.
 
-Port of ``statecatcher_tpu/ops/scan.py:linear_scan_seq``: the plain
+Port of ``statecatcher_tpu/ops/scan.py``: ``linear_scan_seq``, the plain
 sequential scan, one step per time index, in the recurrence order of the
-reference.  It is the plain version the fused cell kernel is held against;
-on the card the recurrence runs inside that kernel (ops/lucy_fused_lm.py).
+reference (the plain version the cell and scan kernels are held against),
+and ``linear_scan``, which dispatches on ``impl`` as the JAX function does.
+Every scan algorithm there computes the same recurrence, so here every one
+of them is the scan kernel K5 (``ops/lucy_pallas.py``): on the card its CUDA
+kernels, on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -19,3 +22,23 @@ def linear_scan_seq(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor) -> torch
         s = a[:, t] * s + b[:, t]
         out[:, t] = s
     return out
+
+
+SCAN_IMPLS = ("auto", "assoc", "chunked", "xla-scan", "pallas", "sp")
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor,
+                impl: str = "auto") -> torch.Tensor:
+    """s_t = a_t·s_{t−1} + b_t for (B, T, D) a, b and (B, D) s0, through K5
+    (``linear_scan_pallas``), differentiable.  ``impl`` "sp" (the
+    sequence-parallel scan across devices) raises on the card: it is not
+    ported (ROADMAP.md queue 1 item 8, multi-GPU)."""
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"Unknown scan impl {impl!r}")
+    if impl == "sp" and a.is_cuda:
+        raise NotImplementedError(
+            "the sequence-parallel scan (impl='sp', ops/scan_sp.py) is not ported yet: "
+            "see ROADMAP.md, queue 1 item 8 (multi-GPU)")
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_pallas
+
+    return linear_scan_pallas(a, b, s0)

@@ -15,10 +15,13 @@ Port of ``statecatcher_tpu/train/step.py`` (``_make_step_body``,
     and the blank-prefixed tokens; loss = the ``row_valid``-masked mean of
     the per-utterance transducer NLL, which goes to the filter as it is
     (``resolve_rnnt_impl`` picks the loss);
-  * on CUDA the encoder cells run K1 forward and K2 backward, the CTC
-    lattice K3 and K4 (with ``ctc_impl`` "auto" or "pallas"), and the
-    transducer the joint K6 and its lattice K7 (``rnnt_impl`` "auto" or
-    "pallas");
+  * on CUDA the encoder cells run K1 forward and K2 backward (K5 with a
+    frame mask or ``kernel_impl="pallas"``), the CTC lattice K3 and K4 (with
+    ``ctc_impl`` "auto" or "pallas"), and the transducer (``rnnt_impl``
+    "auto" or "pallas") the joint K6 and its lattice K7, or with a band > 0
+    (``train.rnnt_band``, -1: band 32 above a padded U of 48) the banded
+    joint K8 and the banded lattice, with ``train.rnnt_time_block`` frames
+    per band block;
   * ``ok`` = finite loss and grad norm (and loss < ``skip_loss_above``) is
     decided on the device: a bad segment leaves the parameters, the
     optimizer state and the carry as they were, through ``torch.where``,
@@ -52,6 +55,7 @@ from statecatcher_tpu_torch.frontend import (
 from statecatcher_tpu_torch.models.rnnt import make_prefix
 from statecatcher_tpu_torch.ops.ctc import ctc_loss_per_example
 from statecatcher_tpu_torch.ops.rnnt import rnnt_loss_fused
+from statecatcher_tpu_torch.ops.rnnt_band import rnnt_loss_banded
 from statecatcher_tpu_torch.ops.rnnt_joint import rnnt_loss_pallas
 from statecatcher_tpu_torch.train.optim import (
     build_optimizer,
@@ -137,23 +141,16 @@ def resolve_rnnt_band(requested: int, u_pad: int) -> int:
     return 32 if u_pad > 48 else 0
 
 
-def resolve_rnnt_impl(impl: str, band: int, on_cuda: bool) -> str:
-    """The transducer loss a step runs: "pallas" (K6 + K7; their plain
-    versions on the CPU) or "xla" (``rnnt_loss_fused``, autograd).
-
-    "auto" is "pallas" on the card and "xla" on the CPU, where the JAX
-    package resolves "auto" to "xla" too and so ignores the band.  A band
-    > 0 on the "pallas" path is the banded loss (K8), which is not ported:
-    it raises rather than run the exact loss, whose numbers differ."""
+def resolve_rnnt_impl(impl: str, on_cuda: bool) -> str:
+    """The transducer loss a step runs: "pallas" (the kernels: K6 + K7, or
+    with a band > 0 the banded K8 + its lattice; their plain versions on the
+    CPU) or "xla" (``rnnt_loss_fused``, autograd).  "auto" is "pallas" on
+    the card and "xla" on the CPU, where the JAX package resolves "auto" to
+    "xla" too and so ignores the band."""
     if impl == "auto":
         impl = "pallas" if on_cuda else "xla"
     if impl not in ("pallas", "xla"):
         raise ValueError(f"Unknown RNN-T impl {impl!r}")
-    if impl == "pallas" and band > 0:
-        raise NotImplementedError(
-            f"the banded transducer loss (train.rnnt_band resolved to {band}; K8, "
-            "ops/rnnt_band.py) is not ported yet (ROADMAP.md queue 2, K8a/b): pass "
-            "--train.rnnt_band 0 for the exact loss, or --train.rnnt_impl xla")
     return impl
 
 
@@ -199,10 +196,15 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
             p.grad = None
         if rnnt:
             band = resolve_rnnt_band(cfg.train.rnnt_band, tokens.shape[-1])
-            impl = resolve_rnnt_impl(cfg.train.rnnt_impl, band, feats.is_cuda)
+            impl = resolve_rnnt_impl(cfg.train.rnnt_impl, feats.is_cuda)
             logits, new_state, proj = state.model(feats, carry_in, frame_mask,
                                                   make_prefix(tokens, blank_id))
-            if impl == "pallas":
+            if impl == "pallas" and band > 0:
+                loss, per = rnnt_loss_banded(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
+                                             row_valid=row_valid,
+                                             time_block=cfg.train.rnnt_time_block, band=band,
+                                             return_per=True)
+            elif impl == "pallas":
                 loss, per = rnnt_loss_pallas(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
                                              row_valid=row_valid, return_per=True)
             else:

@@ -8,10 +8,11 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 drops the ini file's ``-n auto``, which needs xdist.)
 
 Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
-and K4 (the CTC α and β lattice), K6a and K6b (the fused RNN-T joint's
-forward and backward) and K7a and K7b (the transducer α and β lattice), each
-against its plain version, and the autograd Functions' gradients on the card
-against the CPU.
+and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
+adjoint), K6a and K6b (the fused RNN-T joint's forward and backward), K7a
+and K7b (the transducer α and β lattice), K8a and K8b (the banded joint) and
+the banded α and β lattice, each against its plain version, and the
+autograd Functions' gradients on the card against the CPU.
 
 Tolerances of the fused cell forward (f32, unit-normal gates):
   * h is bounded by 1: atol 2e-5.
@@ -46,6 +47,14 @@ from statecatcher_tpu_torch.ops.rnnt_joint import (
     rnnt_joint_bwd,
     rnnt_joint_fwd,
     rnnt_loss_pallas,
+)
+from statecatcher_tpu_torch.ops.rnnt_band import (
+    joint_blank_emit_banded_bwd_ref,
+    joint_blank_emit_banded_ref,
+    rnnt_band_alpha,
+    rnnt_band_beta,
+    rnnt_band_bwd,
+    rnnt_band_fwd,
 )
 from statecatcher_tpu_torch.ops.rnnt_lattice import (
     rnnt_alpha,
@@ -422,9 +431,9 @@ def test_rnnt_loss_grads_on_card_match_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_rnnt_band_raises_on_card(cuda_device):
-    """A band > 0 on the card (the auto band above U = 48 included) raises
-    rather than run the exact loss in the banded loss's place."""
+def test_rnnt_auto_band_trains_on_card(cuda_device):
+    """The auto band above a padded U of 48 (band 32) runs the banded loss
+    on the card: K8a/K8b and the banded lattice, one launch each."""
     from statecatcher_tpu_torch.config import Config
     from statecatcher_tpu_torch.models.asr import init_carry
     from statecatcher_tpu_torch.models.speech import build_speech_model
@@ -436,11 +445,183 @@ def test_rnnt_band_raises_on_card(cuda_device):
     model = build_speech_model(cfg.model, 80, "rnnt", device=cuda_device)
     step = make_segment_scan_step(model, cfg)
     state = init_train_state(model, cfg)
-    K, B, S, U = 1, 2, 4000, 64                               # padded U above 48: band 32
+    K, B, S, U = 1, 2, 8000, 64                               # padded U above 48: band 32
     batch = [torch.zeros((K, B, S), device=cuda_device),
              torch.full((K, B), S, dtype=torch.int32, device=cuda_device),
              torch.ones((K, B, U), dtype=torch.int32, device=cuda_device),
-             torch.full((K, B), U, dtype=torch.int32, device=cuda_device),
+             torch.full((K, B), 20, dtype=torch.int32, device=cuda_device),
              torch.ones((K, B), dtype=torch.bool, device=cuda_device)]
-    with pytest.raises(NotImplementedError, match="K8"):
-        step(state, init_carry(cfg.model, B, device=cuda_device), *batch, np.ones(K, bool))
+    counters = (rnnt_band_fwd, rnnt_band_bwd, rnnt_band_alpha, rnnt_band_beta)
+    before = [c.launches for c in counters]
+    _, _, outs = step(state, init_carry(cfg.model, B, device=cuda_device), *batch,
+                      np.ones(K, bool))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1, 1]
+    assert torch.isfinite(outs.loss).all() and torch.isfinite(outs.grad_norm).all()
+
+
+def band_data(seed, B, T, U, J, V, band, Tb, dev, dtype=torch.float32):
+    """Projections, labels, ragged lengths (row 0 full, row 1 short, the last
+    row degenerate where B > 2), the band's offsets and cotangents."""
+    from statecatcher_tpu_torch.ops.rnnt_band import band_offsets, band_width
+
+    enc, pred, k, b, labels, _, _ = joint_data(seed, B, T, U, J, V, dev, dtype)
+    t_lens = torch.full((B,), T, dtype=torch.int32)
+    u_lens = torch.full((B,), U, dtype=torch.int32)
+    t_lens[1], u_lens[1] = T - T // 3, U // 2
+    if B > 2:
+        t_lens[-1] = min(T, Tb - 2)                          # ends in block 0 with u_len = U
+    Wp = band_width(band, U + 1, Tb)
+    Tp = -(-T // Tb) * Tb
+    o = band_offsets(t_lens, u_lens, Tp, -(-max(U + 1, Wp) // 8) * 8, Wp, Tb)
+    rng = np.random.default_rng(seed + 1)
+    g = lambda: torch.from_numpy((rng.standard_normal((B, Tp, Wp)) * 0.1).astype(np.float32))
+    return (enc, pred, k, b, labels, o.to(dev), Wp, Tb, g().to(dev), g().to(dev),
+            t_lens.to(dev), u_lens.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,J,V,band,Tb,blank_id",
+                         [(3, 45, 40, 40, 150, 8, 8, 5), (2, 64, 30, 64, 1024, 32, 16, 0),
+                          (3, 33, 9, 100, 70, 16, 8, 69)])
+def test_band_kernels_match_plain(cuda_device, B, T, U, J, V, band, Tb, blank_id):
+    """K8a/K8b against their plain versions in f32: ragged T (Tp > T), U+1
+    above and below Wp, a degenerate row, time blocks of 8 and 16, J = 100
+    (the 128-wide instance), blank_id ≠ 0.  Forward to 1e-5, gradients to
+    1e-4 relative plus 1e-5 of each output's largest value (as K6)."""
+    enc, pred, k, b, labels, o, Wp, Tb, g_blank, g_emit, _, _ = band_data(
+        90 + J, B, T, U, J, V, band, Tb, cuda_device)
+    n = (rnnt_band_fwd.launches, rnnt_band_bwd.launches)
+    got = rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb, blank_id)
+    want = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb, blank_id)
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    args = (enc, pred, k, b, labels, o, want[2], g_blank, g_emit, Tb, blank_id)
+    got, want = rnnt_band_bwd(*args), joint_blank_emit_banded_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert (rnnt_band_fwd.launches, rnnt_band_bwd.launches) == (n[0] + 1, n[1] + 1)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), got, want):
+        assert x.shape == y.shape, name
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-4, scale_tol=1e-5)
+
+
+@pytest.mark.cuda
+def test_band_kernels_match_plain_bf16(cuda_device):
+    """bf16 enc/pred, with K6's bf16 tolerances."""
+    enc, pred, k, b, labels, o, Wp, Tb, g_blank, g_emit, _, _ = band_data(
+        95, 3, 40, 30, 64, 256, 8, 8, cuda_device, torch.bfloat16)
+    got = rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb)
+    want = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb)
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=2e-3, atol=2e-3,
+                                   err_msg=name)
+    args = (enc, pred, k, b, labels, o, want[2], g_blank, g_emit, Tb)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), rnnt_band_bwd(*args),
+                          joint_blank_emit_banded_bwd_ref(*args)):
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-2, scale_tol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,band,Tb", [(3, 45, 40, 8, 8), (4, 200, 120, 32, 8),
+                                           (2, 70, 20, 40, 16)])
+def test_band_lattice_kernels_match_plain(cuda_device, B, T, U, band, Tb):
+    """The banded α/β against their plain versions: windows of one and of
+    several warps, window shifts, short and degenerate rows."""
+    from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha_ref, rnnt_band_beta_ref
+
+    *_, o, Wp, Tb, g_blank, g_emit, t_lens, u_lens = band_data(
+        100 + U, B, T, U, 8, 16, band, Tb, cuda_device)
+    blank = (torch.log_softmax(torch.stack([g_blank, g_emit], -1) * 10, -1)[..., 0]).contiguous()
+    emit = (torch.log_softmax(torch.stack([g_emit, g_blank], -1) * 10, -1)[..., 0]).contiguous()
+    n = (rnnt_band_alpha.launches, rnnt_band_beta.launches)
+    got_a = rnnt_band_alpha(blank, emit, o, t_lens, Tb)
+    got_b = rnnt_band_beta(blank, emit, o, t_lens, u_lens, Tb)
+    torch.cuda.synchronize()
+    assert (rnnt_band_alpha.launches, rnnt_band_beta.launches) == (n[0] + 1, n[1] + 1)
+    assert_lattice_close(got_a, rnnt_band_alpha_ref(blank, emit, o, t_lens, Tb))
+    assert_lattice_close(got_b, rnnt_band_beta_ref(blank, emit, o, t_lens, u_lens, Tb))
+
+
+@pytest.mark.cuda
+def test_banded_loss_grads_on_card_match_cpu(cuda_device):
+    """The whole banded loss (K8 + the banded lattice, forward and backward)
+    on the card against its plain versions on the CPU, with a row_valid=False
+    row and a degenerate row, at a pruning band and at a full one."""
+    from statecatcher_tpu_torch.ops.rnnt_band import rnnt_loss_banded
+
+    B, T, U, J, V = 4, 50, 30, 64, 200
+    data = joint_data(110, B, T, U, J, V, "cpu")
+    t_lens = torch.tensor([T, T - 11, T - 3, 5], dtype=torch.int32)
+    u_lens = torch.tensor([U, 4, U - 4, U], dtype=torch.int32)
+    row_valid = torch.tensor([True, True, False, True])
+    for band in (8, U + 1):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            xs = [t.clone().to(dev).requires_grad_() for t in data[:4]]
+            loss = rnnt_loss_banded(*xs, data[4].to(dev), t_lens.to(dev), u_lens.to(dev),
+                                    row_valid=row_valid.to(dev), band=band)
+            loss.backward()
+            outs.append((loss.item(), [x.grad.cpu().numpy() for x in xs]))
+        np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-5)
+        for name, a, c in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), outs[1][1], outs[0][1]):
+            assert_grad_close(a, c, name, rtol=1e-4, scale_tol=1e-5)
+        assert not outs[1][1][0][2].any() and np.isfinite(outs[1][1][0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 45, 128, torch.float32), (3, 33, 100, torch.float32),
+                                         (4, 64, 256, torch.bfloat16)])
+def test_linear_scan_kernels_match_plain(cuda_device, B, T, D, dtype):
+    """K5a/K5b against their plain versions: f32 equal (the same products
+    and sums in the same order), bf16 within one bf16 step (both round the
+    same f32 carry once, which may differ by f32 round-off)."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import (
+        linear_scan_fwd,
+        linear_scan_ref,
+        linear_scan_rev,
+        linear_scan_rev_ref,
+    )
+
+    rng = np.random.default_rng(T + D)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    a = torch.sigmoid(f(B, T, D) + 2.0).to(dtype)
+    b, g = f(B, T, D).to(dtype), f(B, T, D).to(dtype)
+    s0 = f(B, D)
+    n = (linear_scan_fwd.launches, linear_scan_rev.launches)
+    got = (linear_scan_fwd(a, b, s0), linear_scan_rev(a, g))
+    want = (linear_scan_ref(a, b, s0), linear_scan_rev_ref(a, g))
+    torch.cuda.synchronize()
+    assert (linear_scan_fwd.launches, linear_scan_rev.launches) == (n[0] + 1, n[1] + 1)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        if dtype == torch.float32:
+            assert torch.equal(x, y)
+        else:
+            x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+            assert (np.abs(x - y) <= 2.0 ** -7 * np.abs(y) + 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_masked_cell_grads_on_card_match_cpu(cuda_device):
+    """The split cell (gate chain, K5a forward, K5b backward) with a frame
+    mask on the card against its plain version on the CPU."""
+    from statecatcher_tpu_torch.models.lucyrnn import lucy_cell_parallel
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, linear_scan_rev
+
+    gates, bias, h0, s0 = conditioned_cell_data(120, 3, 40, 64)
+    mask = np.ones((3, 40), bool)
+    mask[1, 25:] = False
+    w = np.random.default_rng(121).standard_normal((3, 40, 64)).astype(np.float32)
+    n = (linear_scan_fwd.launches, linear_scan_rev.launches)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xs = [torch.from_numpy(x).to(dev).requires_grad_() for x in (gates, bias, h0, s0)]
+        h_all, h_T, s_T = lucy_cell_parallel(xs[0], xs[2], xs[3], bias=xs[1],
+                                             frame_mask=torch.from_numpy(mask).to(dev))
+        ((h_all * torch.from_numpy(w).to(dev)).sum() + s_T.sum()).backward()
+        outs.append([t.detach().cpu().numpy() for t in (h_all, s_T)] +
+                    [x.grad.cpu().numpy() for x in xs])
+    assert (linear_scan_fwd.launches, linear_scan_rev.launches) == (n[0] + 2, n[1] + 2)
+    for name, a, c in zip(("h_all", "s_T", "gates", "bias", "h0", "s0"), outs[1], outs[0]):
+        assert_grad_close(a, c, name)

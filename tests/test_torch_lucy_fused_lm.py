@@ -89,18 +89,21 @@ def test_masked_plain_cell_matches_jax_f64():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("impl", ["auto", "fused-lm@32", "xla-scan", "assoc", "chunked"])
+@pytest.mark.parametrize("impl", ["auto", "fused-lm@32", "xla-scan", "assoc", "chunked", "pallas"])
 def test_cell_route_sends_every_scan_to_the_kernel_on_cuda(impl):
-    assert cell_route(impl, on_cuda=True, masked=False) == "kernel"
-    assert cell_route(impl, on_cuda=False, masked=False) == "plain"
-    assert cell_route(impl, on_cuda=False, masked=True) == "plain"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cell_route(impl, on_cuda=True, masked=True)
+    """Every scan algorithm runs a kernel on the card: the fused cell, or with
+    a frame mask (and always for "pallas") the split path through K5."""
+    unmasked = "split" if impl == "pallas" else "fused"
+    assert cell_route(impl, on_cuda=True, masked=False) == unmasked
+    assert cell_route(impl, on_cuda=False, masked=False) == unmasked
+    assert cell_route(impl, on_cuda=False, masked=True) == "split"
+    assert cell_route(impl, on_cuda=True, masked=True) == "split"
 
 
-@pytest.mark.parametrize("impl", ["pallas", "pallas-dual", "pallas-fused", "auto-fused", "sp"])
+@pytest.mark.parametrize("impl", ["pallas-dual", "pallas-fused", "auto-fused", "sp"])
 def test_cell_route_raises_for_unported_impls_on_cuda(impl):
-    assert cell_route(impl, on_cuda=False, masked=False) == "plain"
+    assert cell_route(impl, on_cuda=False, masked=False) == "fused"
+    assert cell_route(impl, on_cuda=False, masked=True) == "split"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cell_route(impl, on_cuda=True, masked=False)
     with pytest.raises(ValueError):

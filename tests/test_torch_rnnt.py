@@ -228,18 +228,15 @@ def test_dense_loss_and_grad_match_jax_f64(blank_id, use_valid, monkeypatch):
 def test_rnnt_dispatch_rule():
     """"auto" takes the kernels on the card and the fused loss on the CPU
     (ignoring the band there, as the JAX package does); a band > 0 on the
-    kernel path raises, naming the banded kernel K8."""
+    kernel path is the banded loss (K8), which the step picks by the band."""
     assert resolve_rnnt_band(-1, 48) == 0 and resolve_rnnt_band(-1, 64) == 32
     assert resolve_rnnt_band(0, 128) == 0 and resolve_rnnt_band(16, 16) == 16
-    assert resolve_rnnt_impl("auto", 0, on_cuda=True) == "pallas"
-    assert resolve_rnnt_impl("auto", 32, on_cuda=False) == "xla"
-    assert resolve_rnnt_impl("xla", 32, on_cuda=True) == "xla"
-    assert resolve_rnnt_impl("pallas", 0, on_cuda=False) == "pallas"
-    for impl in ("auto", "pallas"):
-        with pytest.raises(NotImplementedError, match="K8"):
-            resolve_rnnt_impl(impl, resolve_rnnt_band(-1, 64), on_cuda=True)
+    assert resolve_rnnt_impl("auto", on_cuda=True) == "pallas"
+    assert resolve_rnnt_impl("auto", on_cuda=False) == "xla"
+    assert resolve_rnnt_impl("xla", on_cuda=True) == "xla"
+    assert resolve_rnnt_impl("pallas", on_cuda=False) == "pallas"
     with pytest.raises(ValueError):
-        resolve_rnnt_impl("bogus", 0, on_cuda=False)
+        resolve_rnnt_impl("bogus", on_cuda=False)
 
 
 def test_kernel_wrappers_run_plain_versions_on_cpu():

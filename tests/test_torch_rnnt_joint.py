@@ -77,3 +77,22 @@ def test_loss_plain_matches_jax_interpret_with_row_valid():
     for name, x, g in zip(("enc", "pred", "kernel", "bias"), xs, jg):
         np.testing.assert_allclose(x.grad.numpy(), g, rtol=2e-4, atol=2e-5, err_msg=name)
     assert not xs[0].grad[2].any()
+
+
+def test_bf16_forward_rounds_the_bias_as_jax():
+    """bf16 enc/pred, forward only: the logits (so lse and blank) see the
+    bias rounded to bf16, as the JAX kernel's bf16 matmul over its padded
+    kernel matrix, whose row J holds the bias, does; the emit logit sees the
+    f32 bias of the gathered kernel column.  Adding the f32 bias to the
+    logits would be off by up to 2e-4 here."""
+    enc, pred, k, b, labels, _, _ = _joint_problem(11)
+    bf = jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        jb, je = jax.jit(lambda *xs: jp.joint_blank_emit(*xs, jnp.asarray(labels)))(
+            jnp.asarray(enc, bf), jnp.asarray(pred, bf), jnp.asarray(k), jnp.asarray(b))
+    blank, emit = joint_blank_emit(torch.from_numpy(enc).bfloat16(),
+                                   torch.from_numpy(pred).bfloat16(), torch.from_numpy(k),
+                                   torch.from_numpy(b), torch.from_numpy(labels))
+    assert blank.dtype == emit.dtype == torch.float32
+    np.testing.assert_allclose(blank.detach().numpy(), np.asarray(jb), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(emit.detach().numpy(), np.asarray(je), rtol=1e-5, atol=1e-5)
