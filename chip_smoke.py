@@ -6,7 +6,8 @@
 It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
 csrc`` (one nvcc per source, all started together) and drives the flagship
 LucyRNN (4 × 512, vocab 1024, 80 MFCC, float32, seeded random weights;
-RNN-T joiner 64) through the port's entry points:
+RNN-T joiner 64) and the xLSTM of the config's defaults through the port's
+entry points:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills);
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
@@ -61,10 +62,25 @@ RNN-T joiner 64) through the port's entry points:
  15. RNN-T throughput at B=96, K=4 × 16 s, bf16, U=64 and U=128 (bench.py's
      RNN-T rows; both under the default band; printed only);
  16. CLI in RNN-T mode: two dispatches;
- 17. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 9, 10, 12 and 14; each counter is set to 0 just
-     before a phase and read just after it, so comparison launches are not
-     counted).
+ 17. kernels K9a, K9b and K10: the fused mLSTM forward and backward and the
+     head-major chunkwise forward against their plain versions at the
+     xLSTM's shape (B=32, T=1598, 2 heads, dqk=128, dv=256, chunk 128; f32,
+     and bf16 q/k/v for K9) and K9 at bench.py's xLSTM shape (B=64, chunk
+     256, bf16), with times, bounds and plain times;
+ 18. the xLSTM (config defaults: E=512, 2 heads, 3 blocks, chunk 128, FFN
+     factor 2.667, vocab 1024, 80 MFCC, float32): phase 2's batched encode,
+     kernel path (``kernel_impl="auto"``: K9a) against plain path, and again
+     with ``kernel_impl="pallas"`` (K10);
+ 19. xLSTM streaming against an offline decode, as phase 3;
+ 20. one xLSTM CTC training group of K=2 at B=32 (U=128; K9a, K9b), kernel
+     path against plain path, as phase 5;
+ 21. xLSTM throughput at bench.py's xLSTM shape (B=64, bf16, chunk 256,
+     U=128) at K=4 of its 24 segments (printed only);
+ 22. CLI with ``--model.encoder xlstm``: two dispatches and a resume;
+ 23. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 9, 10, 12, 14, 18, 19 and 20; each counter is set to 0
+     just before a phase and read just after it, so comparison launches are
+     not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -90,11 +106,14 @@ from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
 from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask, num_frames
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.models.asr import init_carry
+from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
 from statecatcher_tpu_torch.ops import (
     _kernels,
     ctc_lattice,
     lucy_fused_lm,
     lucy_pallas,
+    mlstm_fused,
+    mlstm_pallas,
     rnnt_band,
     rnnt_joint,
     rnnt_lattice,
@@ -122,6 +141,14 @@ from statecatcher_tpu_torch.ops.lucy_pallas import (
     linear_scan_rev,
     linear_scan_rev_ref,
 )
+from statecatcher_tpu_torch.ops.mlstm_fused import (
+    mlstm_fused_bwd,
+    mlstm_fused_bwd_ref,
+    mlstm_fused_fwd,
+    mlstm_fused_fwd_ref,
+    soft_cap,
+)
+from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_pallas_fwd
 from statecatcher_tpu_torch.ops.rnnt_band import (
     band_offsets,
     band_width,
@@ -155,6 +182,7 @@ from statecatcher_tpu_torch.train.step import init_train_state, make_segment_sca
 
 SEED = 0
 FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vocab 1024, mfcc 80, f32
+XLSTM = ["--model.encoder", "xlstm"]             # E=512, 2 heads, 3 blocks, chunk 128, f32
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
@@ -305,15 +333,17 @@ def run_segments(model, cfg, audio, masks):
     return out
 
 
-def phase_batched(model, cfg, dev) -> dict:
-    """Phases 2 and 12: 3 carried 16 s segments at B=32, the last with a
+def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
+    """Phases 2, 12 and 18: 3 carried 16 s segments at B=32, the last with a
     partial sample mask, kernel path vs plain path.  Under
     ``mask_state_updates`` the masked segment runs the split cell (K5) and a
     row whose mask ends early must carry its last valid frame's state.
-    Returns the launches of K1 and K5a."""
+    Returns the launches of ``counters`` (name → kernel wrapper; by default
+    K1 and K5a, the LucyRNN's), each of which must launch (K5a only when
+    masked)."""
     B, S = 32, 16 * 16000
-    masked = cfg.model.lucyrnn.mask_state_updates
-    tag = "[batched masked]" if masked else "[batched]"
+    masked = cfg.model.encoder == "lucyrnn" and cfg.model.lucyrnn.mask_state_updates
+    tag = tag or ("[batched masked]" if masked else "[batched]")
     rng = np.random.default_rng(SEED + 2)
     audio = [torch.from_numpy(synth_audio(rng, B, S)).to(dev) for _ in range(3)]
     lens = rng.integers(S // 4, S, B)
@@ -321,7 +351,7 @@ def phase_batched(model, cfg, dev) -> dict:
     last_mask = torch.arange(S, device=dev)[None, :] < torch.from_numpy(lens).to(dev)[:, None]
     masks = [None, None, last_mask]
     T = num_frames(S, cfg.frontend)
-    counters = {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
+    counters = counters or {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
     with torch.inference_mode():
         run_segments(model, cfg, audio, masks)                    # warm-up, masked path too
         for c in counters.values():
@@ -330,7 +360,7 @@ def phase_batched(model, cfg, dev) -> dict:
         launches = {n: c.launches for n, c in counters.items()}
         with plain_kernels():
             plain = run_segments(model, cfg, audio, masks)
-    if launches["K1"] == 0 or (masked and launches["K5a"] == 0):
+    if any(n == 0 and (name != "K5a" or masked) for name, n in launches.items()):
         raise AssertionError(f"the batched path launched {launches}")
     if masked:
         check_last_valid_state(model, cfg, *kern[-1])
@@ -342,7 +372,7 @@ def phase_batched(model, cfg, dev) -> dict:
         scale = lp_p.abs().max().item()
         if d_lp > 1e-3 * scale:
             raise AssertionError(f"segment {k}: max|Δ log-probs| {d_lp:.3e} > 1e-3·{scale:.3e}")
-        for name in ("h", "s"):
+        for name in carry:
             dc = (carry[name] - carry_p[name]).abs().max().item()
             cs = carry_p[name].abs().max().item()
             if dc > 1e-3 * cs or not torch.isfinite(carry[name]).all():
@@ -351,7 +381,7 @@ def phase_batched(model, cfg, dev) -> dict:
         same = (lp.argmax(-1) == lp_p.argmax(-1)) & valid
         agree += int(same.sum())
         total += int(valid.sum())
-        log(f"[batched] segment {k}: {sec * 1e3:.1f} ms kernel path, {sec_p * 1e3:.1f} ms "
+        log(f"{tag} segment {k}: {sec * 1e3:.1f} ms kernel path, {sec_p * 1e3:.1f} ms "
             f"plain path; max|Δ log-probs| {d_lp:.3e} (scale {scale:.3e})")
     if agree < 0.999 * total:
         raise AssertionError(f"greedy frames agree on {agree}/{total} < 99.9%")
@@ -387,15 +417,17 @@ def check_last_valid_state(model, cfg, lp, carry, _sec, fmask):
         f"past it and from its carried h equal frame {last}'s (max |Δ| {max(d_tail, d_carry):.2e})")
 
 
-def phase_streaming(model, cfg, dev) -> int:
-    """Phase 3: three ~10 s streams through StreamingRecognizer vs offline."""
+def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming]") -> int:
+    """Phases 3 and 19: three ~10 s streams through StreamingRecognizer vs
+    offline; returns the launches of ``counter`` (the encoder's forward
+    kernel: K1, or K9a for the xLSTM)."""
     rng = np.random.default_rng(SEED + 3)
     streams = [synth_audio(rng, 1, 160000 + int(rng.integers(0, 8000)))[0] for _ in range(3)]
     warm = StreamingRecognizer(model, cfg, chunk_frames=32, device=dev)
     warm.accept_waveform(streams[0][:16000])                   # warm-up, not counted
 
     latencies, results = [], []
-    lucy_cell_fused_lm.launches = 0
+    counter.launches = 0
     for audio in streams:
         rec = StreamingRecognizer(model, cfg, chunk_frames=32, device=dev)
         step = rec._step_chunk
@@ -414,9 +446,9 @@ def phase_streaming(model, cfg, dev) -> int:
             pos += n
         rec.finish()
         results.append(rec.tokens)
-    launches = lucy_cell_fused_lm.launches
+    launches = counter.launches
     if launches == 0:
-        raise AssertionError("the streaming path launched no fused-cell kernel")
+        raise AssertionError(f"the streaming path launched no {counter.__name__} kernel")
 
     for k, (audio, toks) in enumerate(zip(streams, results)):
         with torch.inference_mode():
@@ -425,14 +457,14 @@ def phase_streaming(model, cfg, dev) -> int:
             lp = torch.log_softmax(logits.float(), dim=-1)
         want = ctc_greedy_decode_to_lists(lp, torch.tensor([lp.shape[1]]))[0]
         dist = levenshtein(toks, want)
-        log(f"[streaming] stream {k}: {len(audio) / 16000:.2f} s, {len(toks)} tokens "
+        log(f"{tag} stream {k}: {len(audio) / 16000:.2f} s, {len(toks)} tokens "
             f"streamed, {len(want)} offline, edit distance {dist}")
         if not want or dist > 0.01 * len(want):
             raise AssertionError(f"stream {k}: edit distance {dist} > 1% of {len(want)}")
     lat = np.asarray(latencies) * 1e3
-    log(f"[streaming] {len(lat)} chunks of 32 frames (320 ms): latency p50 "
+    log(f"{tag} {len(lat)} chunks of 32 frames (320 ms): latency p50 "
         f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; "
-        f"fused-cell launches {launches}")
+        f"{counter.__name__} launches {launches}")
     return launches
 
 
@@ -599,8 +631,9 @@ def phase_lattice(dev) -> dict:
     return out
 
 
-# (module, attribute, plain version) of every kernel wrapper of the training
-# paths: K1, K2, K3, K4, K5a, K5b, K6a, K6b, K7a, K7b, K8a, K8b, banded α, β
+# (module, attribute, plain version) of every kernel wrapper of the model and
+# training paths: K1, K2, K3, K4, K5a, K5b, K6a, K6b, K7a, K7b, K8a, K8b,
+# banded α, β, K9a, K9b, K10
 PLAIN = [
     (lucy_fused_lm, "_fwd_kernel", lucy_cell_fused_lm_ref),
     (lucy_fused_lm, "_bwd_kernel", lucy_cell_fused_lm_bwd_ref),
@@ -614,6 +647,9 @@ PLAIN = [
     (rnnt_band, "rnnt_band_bwd", joint_blank_emit_banded_bwd_ref),
     (rnnt_band, "rnnt_band_alpha", rnnt_band_alpha_ref),
     (rnnt_band, "rnnt_band_beta", rnnt_band_beta_ref),
+    (mlstm_fused, "mlstm_fused_fwd", mlstm_fused_fwd_ref),
+    (mlstm_fused, "mlstm_fused_bwd", mlstm_fused_bwd_ref),
+    (mlstm_pallas, "mlstm_pallas_fwd", mlstm_chunkwise),
 ]
 
 
@@ -669,12 +705,19 @@ TRAIN_KERNELS = {
     "rnnt banded": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
                     "K8a": (rnnt_band_fwd, 0), "K8b": (rnnt_band_bwd, 0),
                     "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
+    "xlstm ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
+                  "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
 }
+
+
+def n_layers(cfg) -> int:
+    """Recurrent layers of the encoder: LucyRNN layers or xLSTM blocks."""
+    return cfg.model.xlstm.num_blocks if cfg.model.encoder == "xlstm" else cfg.model.num_layers
 
 
 def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=None,
                      degenerate=False) -> dict:
-    """Phases 5, 9, 12 and 14: one group of K carried 16 s segments at B=32
+    """Phases 5, 9, 12, 14 and 20: one group of K carried 16 s segments at B=32
     through ``make_segment_scan_step`` in ``mode`` ("ctc" or "rnnt"), kernel
     path against plain path; ``path`` names the kernels it must launch
     (``TRAIN_KERNELS``; the mode by default).  With ``degenerate``, row 1's
@@ -733,7 +776,7 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     d_gn = np.abs(gn - gn_p) / np.abs(gn_p)
     if d_loss.max() > 1e-4 or d_gn.max() > 1e-3:
         raise AssertionError(f"kernel vs plain: loss rel {d_loss}, grad norm rel {d_gn}")
-    for name in ("h", "s"):
+    for name in carry:
         dc = (carry[name] - carry_p[name]).abs().max().item()
         cs = carry_p[name].abs().max().item()
         if dc > 1e-3 * cs or not torch.isfinite(carry[name]).all():
@@ -751,18 +794,22 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     rel_upd = ((pk - pp).norm() / (pk - p0_).norm()).item()
     frac_off = ((pk - pp).abs() > 0.1 * lr * K).float().mean().item()
     moved = (pk - p0_).abs().max().item()
+    # the parameters that carry the difference, by share of its squared norm
+    sq = {k: (p_kernel[k].float() - p_plain[k].float()).square().sum().item() for k in p0}
+    top = ", ".join(f"{k} {v / max(sum(sq.values()), 1e-30):.0%}"
+                    for k, v in sorted(sq.items(), key=lambda kv: -kv[1])[:3])
     if rel_upd > 1e-2 or frac_off > 1e-3:
         raise AssertionError(f"parameters: updates differ by {rel_upd:.3e} of their norm, "
-                             f"{frac_off:.3e} of elements by more than 0.1·lr·K")
+                             f"{frac_off:.3e} of elements by more than 0.1·lr·K (most in {top})")
     log(f"{tag} K={K} × {S / 16000:g} s at B={B}, U={U}: kernel path {sec:.3f} s ({sec / K * 1e3:.1f} ms "
         f"per segment, {K * B * S / 16000 / sec:.0f} audio-s/s), plain path {sec_p:.3f} s; losses "
         f"{np.array2string(loss, precision=5)} vs {np.array2string(loss_p, precision=5)} (max rel "
         f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
         f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
-        f"{frac_off:.2e} of elements beyond 0.1·lr·K")
+        f"{frac_off:.2e} of elements beyond 0.1·lr·K; the difference is most in {top}")
     names = list(TRAIN_KERNELS[path])
     log(f"{tag} launches on the group: " + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
-    want = [(cfg.model.num_layers * per_layer if per_layer else 1) * K
+    want = [(n_layers(cfg) * per_layer if per_layer else 1) * K
             for _, per_layer in TRAIN_KERNELS[path].values()]
     if launches != want:
         raise AssertionError(f"launches {names} = {launches}; want {want}")
@@ -770,9 +817,10 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
 
 
 def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None:
-    """Phases 6 and 15: bench.py's shape (B=96, 16 s, bf16; CTC: U=128;
-    RNN-T: U=64 and U=128, both under the default band 32) at K segments,
-    one warm and one timed group on the kernel path."""
+    """Phases 6, 15 and 21: bench.py's shapes (16 s, bf16; LucyRNN B=96, CTC
+    U=128, RNN-T U=64 and U=128, both under the default band 32; xLSTM B=64,
+    chunk 256, CTC U=128) at K segments, one warm and one timed group on the
+    kernel path."""
     cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode])
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
@@ -793,7 +841,7 @@ def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None
     if not torch.isfinite(outs.loss).all():
         raise AssertionError("throughput run: non-finite loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[throughput] {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
+    log(f"[throughput] {cfg.model.encoder} {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
         f"{secs[1]:.3f} s = {K * B * S / 16000 / secs[1]:.0f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
         f"segment); peak memory {peak:.2f} GiB")
 
@@ -831,12 +879,13 @@ def run_cli(args: list[str]) -> dict:
     return summary
 
 
-def phase_cli(extra=(), seconds=48.0, target=16) -> None:
-    """Phase 7: the CLI trains 2 dispatches on a generated fixture, then a
-    second run resumes from the checkpoint's cursor and trains one more."""
+def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn") -> None:
+    """Phases 7 and 22: the CLI trains 2 dispatches on a generated fixture,
+    then a second run resumes from the checkpoint's cursor and trains one
+    more."""
     shutil.rmtree(WORK, ignore_errors=True)
     data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
-    common = ["--model.encoder", "lucyrnn", "--data.source", "local", "--data.local_dir", data,
+    common = ["--model.encoder", encoder, "--data.source", "local", "--data.local_dir", data,
               "--data.target_duration", str(target), "--data.batch_size", "4",
               "--data.num_workers", "4", "--train.segments_per_dispatch", "1",
               "--train.log_every_n", "2", *extra]
@@ -851,7 +900,7 @@ def phase_cli(extra=(), seconds=48.0, target=16) -> None:
     if second["global_step"] != 3 or len(second["loss_history"]) != 1:
         raise AssertionError(f"resumed run: step {second['global_step']}, "
                              f"losses {second['loss_history']}")
-    log(f"[cli] 4 recordings × {seconds:g} s, {target} s segments, vocab from the char tokenizer: losses "
+    log(f"[cli {encoder}] 4 recordings × {seconds:g} s, {target} s segments, vocab from the char tokenizer: losses "
         f"{[round(x, 4) for x in first['loss_history']]}, checkpoint cursor {meta['cursor']}; "
         f"resumed at step 2, loss {second['loss_history'][0]:.4f}, global_step 3 "
         f"({time.perf_counter() - t0:.1f} s for both runs)")
@@ -1320,6 +1369,137 @@ def phase_cli_rnnt(seconds=48.0, target=16) -> None:
         f"{[round(x, 4) for x in summary['loss_history']]} ({time.perf_counter() - t0:.1f} s)")
 
 
+def mlstm_ops(B, H, Tp, L, dqk, dv, backward: bool) -> float:
+    """Operations of K9a/K10 (forward) or K9b over B·H heads and Tp/L chunks,
+    two per multiply-add: the causal halves of the L × L products (L(L+1)/2
+    pairs; forward q·kᵀ and (S∘E)·v, backward q·kᵀ, dh·vᵀ, dq, dk and dv)
+    and the full L × dqk × dv ones (forward q·C and (k·w)ᵀ·v; backward the
+    entry states' (k·w)ᵀ·v, C·dh, dC'·v, dC'ᵀ·k and dC).  The exps, the
+    running max and the row sums (O(L²) per chunk) are left out."""
+    tri = L * (L + 1) // 2
+    if backward:
+        per = 2 * tri * (3 * dqk + 2 * dv) + 5 * 2 * L * dqk * dv
+    else:
+        per = 2 * tri * (dqk + dv) + 2 * 2 * L * dqk * dv
+    return B * H * (Tp // L) * per
+
+
+def mlstm_bytes(B, H, Tp, dqk, dv, es, backward: bool) -> int:
+    """Each input read once, each output written once: q, k, v (and dh, dq,
+    dk, dv) in the model dtype, the gates (and their adjoints), the states."""
+    states = B * H * (dqk * dv + dqk + 1) * 4
+    lanes = B * Tp * H * (2 * dqk + dv) * es
+    plane = B * Tp * H * dv * es                         # h or dh
+    if backward:
+        return 2 * lanes + plane + 4 * B * H * Tp * 4 + 3 * states
+    return lanes + plane + 2 * B * H * Tp * 4 + 2 * states
+
+
+def mlstm_inputs(gen, B, T, H, dqk, dv, L, dtype, dev):
+    """K9's inputs: lane-major q, k, v (unit-half normal) in ``dtype``, the
+    soft-capped gates of raw N(0, 1) (input) and N(0.5, 1) (forget) values,
+    padded with random rows to the chunk multiple, and a nonzero carry."""
+    Tp = -(-T // L) * L
+    r = lambda *shape: 0.5 * torch.randn(shape, generator=gen, device=dev)
+    q, k, v = (r(B, Tp, H * d).to(dtype) for d in (dqk, dqk, dv))
+    i_c = soft_cap(2.0 * r(B, H, Tp), 15.0)
+    logf = torch.nn.functional.logsigmoid(soft_cap(2.0 * r(B, H, Tp) + 1.0, 15.0))
+    return [q, k, v, i_c, logf, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(),
+            0.1 * r(B, H)], Tp
+
+
+def check_scaled(got, want, names, tol) -> float:
+    """Raise unless each output's max |Δ| ≤ tol · its largest value; returns
+    the largest absolute error."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        d = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if d > tol * scale or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: max |Δ| {d:.3e} > {tol:g}·{scale:.3e}")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_mlstm_kernels(dev) -> dict:
+    """Phase 17: K9a/K9b and K10 against their plain versions, with times,
+    bounds and plain times.  The forward within 1e-4 of each output's scale
+    in f32 (f32 sums in other orders); the gradients within 1e-3 relative
+    plus 1e-4 of each output's largest value (as for K8).  Under bf16 both
+    versions compute in f32 from the same bf16 values and round h, dq, dk,
+    dv once: those to 2e-2 of their scale (h) and 2e-2 relative plus 1e-3
+    (gradients), the f32 outputs as in f32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+    H, dqk, dv, T = 2, 128, 256, 1598
+    fwd_names, bwd_names = ("h", "C_T", "n_T", "m_T"), ("dq", "dk", "dv", "dic", "dlogf",
+                                                        "dC0", "dn0", "dm0")
+    for label, B, L, dtype in (("f32", 32, 128, torch.float32), ("bf16", 32, 128, torch.bfloat16),
+                               ("bench bf16", 64, 256, torch.bfloat16)):
+        ins, Tp = mlstm_inputs(gen, B, T, H, dqk, dv, L, dtype, dev)
+        f32 = dtype == torch.float32
+        with torch.inference_mode():
+            got = list(mlstm_fused_fwd(*ins, L, T))
+            torch.cuda.synchronize()
+            want = list(mlstm_fused_fwd_ref(*ins, L, T))
+            got[0], want[0] = got[0][:, :T], want[0][:, :T]
+            err_f = check_scaled(got[:1], want[:1], fwd_names[:1], 1e-4 if f32 else 2e-2)
+            err_f = max(err_f, check_scaled(got[1:], want[1:], fwd_names[1:], 1e-4))
+            cots = [torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+                    for x in (ins[2], ins[5], ins[6], ins[7])]
+            cots[0][:, T:] = 0                           # rows past T are not outputs
+            bwd = mlstm_fused_bwd(*ins, *cots, L, T)
+            torch.cuda.synchronize()
+            bwd_ref = mlstm_fused_bwd_ref(*ins, *cots, L, T)
+            if f32:
+                err_b = check_grads(bwd, bwd_ref, bwd_names, 1e-3, 1e-4)
+            else:
+                err_b = check_grads(bwd[:3], bwd_ref[:3], bwd_names[:3], 2e-2, 1e-3)
+                err_b = max(err_b, check_grads(bwd[3:], bwd_ref[3:], bwd_names[3:], 1e-3, 1e-4))
+            ms_f = cuda_ms(lambda: mlstm_fused_fwd(*ins, L, T), 5)
+            ms_b = cuda_ms(lambda: mlstm_fused_bwd(*ins, *cots, L, T), 3)
+            plain_f = cuda_ms(lambda: mlstm_fused_fwd_ref(*ins, L, T), 2, warmup=1)
+            plain_b = cuda_ms(lambda: mlstm_fused_bwd_ref(*ins, *cots, L, T), 2, warmup=1)
+        es = torch.finfo(dtype).bits // 8
+        peak = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+        bound_f, by_f = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, es, False),
+                                       mlstm_ops(B, H, Tp, L, dqk, dv, False), peak)
+        bound_b, by_b = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, es, True),
+                                       mlstm_ops(B, H, Tp, L, dqk, dv, True), peak)
+        log(f"[K9] {label} (B={B}, T={T}, Tp={Tp}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): fwd "
+            f"max|Δ| {err_f:.3e}, bwd max|Δ| {err_b:.3e}; K9a {ms_f:.4f} ms (plain {plain_f:.2f}, "
+            f"bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K9b {ms_b:.4f} ms "
+            f"(plain {plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, {bound_b / ms_b:.1%}); "
+            f"library_ms: none")
+        out["K9a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
+                               "bound_ms": bound_f, "bound_by": by_f}
+        out["K9b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                               "bound_ms": bound_b, "bound_by": by_b}
+
+    # K10: head-major f32 with the raw gates (the wrapper pads, scales q and
+    # soft-caps); its plain version is mlstm_chunkwise
+    B, L = 32, 128
+    r = lambda *shape: 0.5 * torch.randn(shape, generator=gen, device=dev)
+    ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
+           2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(),
+           0.1 * r(B, H)]
+    with torch.inference_mode():
+        got = mlstm_pallas_fwd(*ins, L)
+        torch.cuda.synchronize()
+        err = check_scaled(got, mlstm_chunkwise(*ins, L), fwd_names, 1e-4)
+        ms = cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), 5)
+        plain_ms = cuda_ms(lambda: mlstm_chunkwise(*ins, L), 2, warmup=1)
+    Tp = -(-T // L) * L
+    bound, by = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, 4, False),
+                               mlstm_ops(B, H, Tp, L, dqk, dv, False))
+    log(f"[K10] f32 (B={B}, T={T}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): max|Δ| {err:.3e}; "
+        f"{ms:.4f} ms (plain {plain_ms:.2f}, bound {bound:.4f} ms {by}, {bound / ms:.1%} of it); "
+        f"library_ms: none")
+    out["K10 f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -1347,7 +1527,7 @@ def main() -> int:
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     builds = _kernels.build_all()
     log(f"[build] {len(_kernels.SIGNATURES)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     for lib, info in builds.items():
@@ -1397,19 +1577,46 @@ def main() -> int:
         phase_throughput(cfg, dev, K=4, U=U, mode="rnnt")
     phase_cli_rnnt()
 
+    k9 = phase_mlstm_kernels(dev)
+    xcfg = Config().apply_overrides(XLSTM)
+    pcfg = xcfg.apply_overrides(["--model.xlstm.kernel_impl", "pallas"])
+    models = {}
+    for c in (xcfg, pcfg):
+        models[c.model.xlstm.kernel_impl] = build_speech_model(
+            c.model, c.frontend.n_mfcc, "ctc", device=dev,
+            generator=torch.Generator().manual_seed(SEED))
+        randomize_(models[c.model.xlstm.kernel_impl], SEED + 1)
+    x = xcfg.model.xlstm
+    log(f"[model] SpeechModel xlstm E={x.embedding_dim}, {x.num_heads} heads, {x.num_blocks} "
+        f"blocks, chunk {x.chunk_size}, vocab {xcfg.model.vocab_size}, {xcfg.model.dtype}, "
+        f"{sum(p.numel() for p in models['auto'].parameters())} parameters")
+    n_xbatched = phase_batched(models["auto"].eval(), xcfg, dev, {"K9a": mlstm_fused_fwd},
+                               "[xlstm batched]")
+    n_pbatched = phase_batched(models["pallas"].eval(), pcfg, dev, {"K10": mlstm_pallas_fwd},
+                               "[xlstm pallas batched]")
+    n_xstream = phase_streaming(models["auto"], xcfg, dev, mlstm_fused_fwd, "[xlstm streaming]")
+    del models
+    n_xtrain = phase_train_step(xcfg, dev, K=2, path="xlstm ctc")
+    phase_throughput(xcfg.apply_overrides(["--model.xlstm.chunk_size", "256"]), dev, K=4, B=64)
+    phase_cli(encoder="xlstm")
+
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
             + n_mbatched["K1"] + n_btrain["K1"])
     n_k2 = n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
     n_k5a, n_k5b = n_mbatched["K5a"] + n_mtrain["K5a"], n_mtrain["K5b"]
-    n_k3, n_k4 = n_train["K3"] + n_mtrain["K3"], n_train["K4"] + n_mtrain["K4"]
+    n_k3 = n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"]
+    n_k4 = n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"]
+    n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
     log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
         f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}; K2 {n_k2}; K3 {n_k3}, "
-        f"K4 {n_k4} (train, masked train); K5a {n_k5a} (masked batched + train), K5b {n_k5b}; "
+        f"K4 {n_k4} (train, masked train, xlstm train); K5a {n_k5a} (masked batched + train), K5b {n_k5b}; "
         f"K6a {n_rtrain['K6a']}, K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b "
         f"{n_rtrain['K7b']} (rnnt train); K8a {n_btrain['K8a']}, K8b {n_btrain['K8b']}, band α "
-        f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train)")
+        f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); K9a xlstm "
+        f"batched {n_xbatched['K9a']}, streaming {n_xstream}, train {n_xtrain['K9a']}; K9b "
+        f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched)")
     entries = [
         ("lucy_cell_fused_lm", "lucy_fused_lm_fwd.cu", "lucy_fused_lm.py:156", n_k1,
          k1["batched f32"]),
@@ -1434,9 +1641,15 @@ def main() -> int:
          k8["band alpha"]),
         ("rnnt_band_beta", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band β"],
          k8["band beta"]),
+        ("mlstm_fused_fwd", "mlstm_fused.cu", "mlstm_fused.py:158", n_k9a, k9["K9a f32"]),
+        ("mlstm_fused_bwd", "mlstm_fused.cu", "mlstm_fused.py:251", n_xtrain["K9b"],
+         k9["K9b f32"]),
+        ("mlstm_pallas_fwd", "mlstm_pallas.cu", "mlstm_pallas.py:30", n_pbatched["K10"],
+         k9["K10 f32"]),
     ]
     if any(e[3] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the main path never launched: {entries}")
+    log(f"[time] the whole run, builds included: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": [
         kernel_entry(name, csrc + src, "statecatcher_tpu/ops/" + tpu, n, m)
         for name, src, tpu, n, m in entries]}))

@@ -1,17 +1,20 @@
 """statecatcher_tpu_torch — the PyTorch/CUDA port of statecatcher_tpu.
 
 The JAX package beside it is the reference; this package re-implements its
-streaming LucyRNN-CTC serving path in PyTorch, with every TPU kernel on that
-path replaced by a CUDA kernel written for Hopper (``ops/csrc``).  The port
+serving and training paths (LucyRNN and xLSTM encoders, CTC and RNN-T) in
+PyTorch, with every TPU kernel on those paths replaced by a CUDA kernel
+written for Hopper (``ops/csrc``).  The port
 imports ``torch`` and never JAX or anything of ``statecatcher_tpu``.
 
 Layer map (module names follow the JAX package):
 
   streaming.py          — StreamingRecognizer: chunked encode + greedy decode
   decode.py             — CTC greedy decode
-  models/               — SpeechModel → ASRModel → LucyRNNEncoder → LucyCell
-  ops/                  — gate chain, sequential scan, the fused cell kernel
-                          (CUDA on the card, its plain version on the CPU)
+  train/                — the segment-group step, optimizers, loop, checkpoints
+  models/               — SpeechModel → ASRModel → LucyRNNEncoder (LucyCell)
+                          or XLSTMEncoder (MLSTMLayer)
+  ops/                  — the kernels' wrappers (CUDA on the card, their plain
+                          versions on the CPU) and the torch code around them
   frontend.py           — STFT → mel → MFCC as full-f32 matmuls
   convert.py            — flax params ⇄ torch state_dict
   config.py             — the same config tree as the JAX package

@@ -1,10 +1,11 @@
 """Weight bridge: flax params tree ⇄ PyTorch state_dict.
 
 Covers the trees of ``ASRModel`` and ``SpeechModel`` (the ASR module under
-``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN encoder.  Dense
-and GateProj kernels are (in, out) in flax and (out, in) here, so they are
-transposed; a LayerNorm's ``scale`` is its ``weight``; an Embed's
-``embedding`` is its ``weight``; ``join_kernel`` stays (J, V).  The flax
+``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN and xLSTM
+encoders.  Dense and GateProj kernels are (in, out) in flax and (out, in)
+here, so they are transposed; a LayerNorm's or RMSNorm's ``scale`` is its
+``weight``; an Embed's ``embedding`` is its ``weight``; ``join_kernel``
+stays (J, V).  The flax
 side is plain numpy (``np.asarray`` of each leaf), so this module needs no
 JAX.  Both directions copy values exactly: flax → torch → flax is
 bit-identical.
@@ -26,12 +27,16 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
     check_supported(cfg)
     out = []
 
-    def dense(fpath, tkey):
+    def dense(fpath, tkey, bias=True):
         out.append((fpath + ("kernel",), f"{tkey}.weight", True))
-        out.append((fpath + ("bias",), f"{tkey}.bias", False))
+        if bias:
+            out.append((fpath + ("bias",), f"{tkey}.bias", False))
 
     if cfg.input_proj_dim > 0:
         dense(("proj",), "proj")
+    if cfg.encoder == "xlstm":
+        _xlstm_mapping(cfg, dense, out)
+        return out
     L = cfg.num_layers
     for t in range(cfg.lucyrnn.num_tracks):
         for l in range(L):
@@ -45,6 +50,30 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
         dense(("encoder", "merge_proj"), "encoder.merge_proj")
     dense(("encoder", "output_proj"), "encoder.output_proj")
     return out
+
+
+def _xlstm_mapping(cfg: ModelConfig, dense, out: list) -> None:
+    """Append the xLSTM encoder's leaves to ``out`` (``dense`` appends there)."""
+    def norm(name):
+        out.append((("encoder", name, "scale"), f"encoder.{name}.weight", False))
+
+    dense(("encoder", "input_proj"), "encoder.input_proj")
+    for bi in range(cfg.xlstm.num_blocks):
+        norm(f"block{bi}_norm_mlstm")
+        mp, mk = ("encoder", f"block{bi}_mlstm"), f"encoder.block{bi}_mlstm"
+        for name in ("q", "k", "v"):
+            dense(mp + (name,), f"{mk}.{name}", bias=False)
+        for name in ("igate", "fgate"):
+            dense(mp + (name,), f"{mk}.{name}")
+        out.append((mp + ("head_norm", "scale"), f"{mk}.head_norm.weight", False))
+        for name in ("ogate", "out_proj"):
+            dense(mp + (name,), f"{mk}.{name}", bias=False)
+        norm(f"block{bi}_norm_ffn")
+        for name in ("gate", "up", "down"):
+            dense(("encoder", f"block{bi}_ffn", name), f"encoder.block{bi}_ffn.{name}",
+                  bias=False)
+    norm("final_norm")
+    dense(("encoder", "vocab_proj"), "encoder.vocab_proj")
 
 
 # The RNN-T joiner's leaves, relative to the top of a SpeechModel tree.

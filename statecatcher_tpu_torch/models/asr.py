@@ -1,12 +1,14 @@
 """ASRModel: input projection, frame stacking, masking policy, encoder.
 
 Port of ``statecatcher_tpu/models/asr.py`` for the LucyRNN encoder (the
-7-gate ``variant="triton"``): the optional input projection, ``stack_order``
-trim-and-fold, zero-input masking of padded frames, and the cast of the
-carried state to ``carry_dtype``.  The stateful contract is the JAX
-package's: ``logits, new_state = model(feats, state, frame_mask)``.
+7-gate ``variant="triton"``) and the xLSTM encoder: the optional input
+projection, ``stack_order`` trim-and-fold, zero-input masking of padded
+frames, and the cast of the carried state to ``carry_dtype``.  The stateful
+contract is the JAX package's: ``logits, new_state = model(feats, state,
+frame_mask)``.
 
-Other encoders and ``variant="native"`` are not ported yet and raise.
+The LSTM and RWKV encoders and ``variant="native"`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -21,22 +23,24 @@ from statecatcher_tpu_torch import resolve_device
 from statecatcher_tpu_torch.config import ModelConfig
 from statecatcher_tpu_torch.models.layers import Dense, torch_dtype
 from statecatcher_tpu_torch.models.lucyrnn import LucyRNNEncoder
+from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
-    if cfg.encoder != "lucyrnn":
+    if cfg.encoder not in ("lucyrnn", "xlstm"):
         raise NotImplementedError(
-            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1); "
-            "only 'lucyrnn' is")
-    if cfg.lucyrnn.variant != "triton":
+            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1 item 7); "
+            "'lucyrnn' and 'xlstm' are")
+    if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant != "triton":
         raise NotImplementedError(
             f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported yet "
             "(ROADMAP.md queue 1); only the 7-gate 'triton' variant is")
 
 
 class ASRModel(nn.Module):
-    """Input projection → frame stacking → LucyRNN encoder (→ vocab logits).
+    """Input projection → frame stacking → LucyRNN or xLSTM encoder (→ vocab
+    logits).
 
     Parameters are initialised on the CPU from ``generator`` (a fresh one
     seeded 0 when None) and then moved to ``device``.
@@ -61,15 +65,19 @@ class ASRModel(nn.Module):
         else:
             self.proj = None
         in_dim *= max(1, cfg.stack_order)
-        lcfg = dataclasses.replace(cfg.lucyrnn, hidden_dim=cfg.hidden_size,
-                                   num_layers=cfg.num_layers)
-        self.encoder = LucyRNNEncoder(in_dim, cfg.vocab_size, lcfg, dtype=self.dtype,
-                                      param_dtype=param_dtype, generator=generator)
+        if cfg.encoder == "xlstm":
+            self.encoder = XLSTMEncoder(in_dim, cfg.vocab_size, cfg.xlstm, dtype=self.dtype,
+                                        param_dtype=param_dtype, generator=generator)
+        else:
+            lcfg = dataclasses.replace(cfg.lucyrnn, hidden_dim=cfg.hidden_size,
+                                       num_layers=cfg.num_layers)
+            self.encoder = LucyRNNEncoder(in_dim, cfg.vocab_size, lcfg, dtype=self.dtype,
+                                          param_dtype=param_dtype, generator=generator)
         self.to(dev)
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.output_proj.weight.device
+        return next(self.encoder.parameters()).device
 
     def init_state(self, batch_size: int) -> dict:
         return init_carry(self.cfg, batch_size, device=self.device)
@@ -101,11 +109,14 @@ def carry_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> dict:
-    """Zero carry for a LucyRNN config: {"h", "s"} of (B, tracks, L, D)."""
+    """Zero carry of the encoder: LucyRNN {"h", "s"} of (B, tracks, L, D);
+    xLSTM {"C", "n", "m"} (``models/xlstm.py:xlstm_init_carry``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if dtype is None:
         dtype = carry_dtype(cfg)
+    if cfg.encoder == "xlstm":
+        return xlstm_init_carry(cfg.xlstm, batch_size, dtype, dev)
     shape = (batch_size, cfg.lucyrnn.num_tracks, cfg.num_layers, cfg.hidden_size)
     return {"h": torch.zeros(shape, dtype=dtype, device=dev),
             "s": torch.zeros(shape, dtype=dtype, device=dev)}

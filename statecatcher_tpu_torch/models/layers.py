@@ -1,4 +1,4 @@
-"""Dense and LayerNorm with flax semantics.
+"""Dense, Embed, LayerNorm and RMSNorm with flax semantics.
 
 The JAX package's modules compute in ``dtype`` and keep parameters in
 ``param_dtype``; these do the same, with weights stored the PyTorch way
@@ -40,15 +40,17 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: y = x·Wᵀ + b computed in ``dtype``."""
+    """flax ``nn.Dense``: y = x·Wᵀ + b computed in ``dtype`` (no b with
+    ``use_bias=False``)."""
 
     def __init__(self, in_features: int, out_features: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, generator: torch.Generator,
-                 kernel_init=lecun_normal_):
+                 kernel_init=lecun_normal_, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype)) if use_bias
+                     else None)
         if kernel_init is None:
             nn.init.zeros_(self.weight)
         else:
@@ -56,7 +58,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Embed(nn.Module):
@@ -92,3 +95,21 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.to(cdt), (x.shape[-1],), self.weight.to(cdt),
                          self.bias.to(cdt), self.eps)
         return y.to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm`` over the last axis: y = x · (rsqrt(mean(x²) + ε) ·
+    scale), the mean square in at least float32, the output in ``dtype``."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype, param_dtype: torch.dtype,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(cdt)
+        mul = torch.rsqrt(xs.square().mean(-1, keepdim=True) + self.eps) * self.weight.to(cdt)
+        return (xs * mul).to(self.dtype)

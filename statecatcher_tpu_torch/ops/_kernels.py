@@ -55,6 +55,13 @@ SIGNATURES = {
         "rnnt_band_fwd": (_I, [_P] * 9 + [_I] * 10 + [_P]),
         "rnnt_band_bwd": (_I, [_P] * 14 + [_I] * 11 + [_P]),
     },
+    "mlstm_fused": {
+        "mlstm_fused_fwd": (_I, [_I] + [_P] * 12 + [_I] * 7 + [_P]),
+        "mlstm_fused_bwd": (_I, [_I] + [_P] * 21 + [_I] * 7 + [_P]),
+    },
+    "mlstm_pallas": {
+        "mlstm_pallas_fwd": (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    },
     "linear_scan": {
         "linear_scan_fwd": (_I, [_I] + [_P] * 4 + [_I] * 3 + [_P]),
         "linear_scan_rev": (_I, [_I] + [_P] * 3 + [_I] * 3 + [_P]),

@@ -1,8 +1,10 @@
 """Where the serving path's device time goes, from a ``torch.profiler`` trace.
 
-    python -m statecatcher_tpu_torch.profile_serving [--chunks 30] [--out DIR]
+    python -m statecatcher_tpu_torch.profile_serving [--encoder lucyrnn|xlstm]
+        [--chunks 30] [--out DIR]
 
-Builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC, float32) with
+Builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC, float32), or
+with ``--encoder xlstm`` the xLSTM-CTC of the config's defaults, with
 seeded random weights on the card and traces two windows after a warm-up:
 
   * batched: one 16 s segment at B=32 (features → model → log-softmax);
@@ -63,6 +65,7 @@ def _traced(label: str, fn, out: Path | None) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm"), default="lucyrnn")
     ap.add_argument("--chunks", type=int, default=30)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
@@ -70,7 +73,7 @@ def main() -> None:
         raise SystemExit("profile_serving needs a CUDA card")
     dev = torch.device("cuda", 0)
     print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn"])
+    cfg = Config().apply_overrides(["--model.encoder", args.encoder])
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
                                generator=torch.Generator().manual_seed(0))
     randomize_(model, 1)

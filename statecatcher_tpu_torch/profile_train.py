@@ -1,18 +1,20 @@
 """Where one training segment's device time goes, from a ``torch.profiler``
 trace.
 
-    python -m statecatcher_tpu_torch.profile_train [--mode ctc|rnnt] [--batch 32]
-        [--dtype float32] [--tokens U] [--out DIR]
+    python -m statecatcher_tpu_torch.profile_train [--encoder lucyrnn|xlstm]
+        [--mode ctc|rnnt] [--batch 32] [--dtype float32] [--tokens U] [--out DIR]
 
-Builds the flagship LucyRNN (4 × 512, vocab 1024, 80 MFCC) in CTC or RNN-T
-mode (the joiner at the config's 64 × 64) with seeded random weights on the
-card and traces one 16 s training segment of ``make_segment_scan_step``
+Builds the flagship LucyRNN (4 × 512, vocab 1024, 80 MFCC) or, with
+``--encoder xlstm``, the xLSTM of the config's defaults (E=512, 2 heads, 3
+blocks, chunk 128), in CTC or RNN-T mode (the joiner at the config's 64 ×
+64) with seeded random weights on the card and traces one 16 s training
+segment of ``make_segment_scan_step``
 (U random tokens: 128 for CTC, 48 for RNN-T, where the auto band is the
 exact loss; int16 audio as the loop ships it) after a warm-up segment.  It
 prints the host wall time, the device's busy time (the sum of its kernels
 and copies, which run on one stream) and idle share, the device time by
 kernel name, largest first, and the same grouped by the port's kernels
-(K1..K4, K6, K7), the GEMMs and the rest.  With ``--out`` it also writes the
+(K1..K4, K6, K7, K9), the GEMMs and the rest.  With ``--out`` it also writes the
 chrome trace there.
 """
 
@@ -42,6 +44,8 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("K6b rnnt_joint_bwd", "rnnt_joint_bwd"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),
+          ("K9a/K9b mlstm (fwd; bwd's entry states)", "mlstm_fwd"),
+          ("K9b mlstm_bwd", "mlstm_bwd"),
           ("GEMMs", "gemm"), ("GEMMs", "cutlass"), ("GEMMs", "xmma"), ("GEMMs", "nvjet"))
 
 
@@ -61,6 +65,7 @@ def _groups(prof) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm"), default="lucyrnn")
     ap.add_argument("--mode", choices=("ctc", "rnnt"), default="ctc")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--dtype", default="float32")
@@ -72,7 +77,7 @@ def main() -> None:
         raise SystemExit("profile_train needs a CUDA card")
     dev = torch.device("cuda", 0)
     print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn", "--model.dtype", args.dtype,
+    cfg = Config().apply_overrides(["--model.encoder", args.encoder, "--model.dtype", args.dtype,
                                     "--train.mode", args.mode])
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, args.mode, device=dev,
                                generator=torch.Generator().manual_seed(0))
@@ -99,7 +104,8 @@ def main() -> None:
         step(state, carry, *group, np.ones(1, bool))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{args.mode} train segment B={B} 16 s U={U} {args.dtype}", prof, wall, top=16)
+    _report(f"{args.encoder} {args.mode} train segment B={B} 16 s U={U} {args.dtype}", prof,
+            wall, top=16)
     _groups(prof)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

@@ -31,8 +31,10 @@ def synth_audio(rng: np.random.Generator, B: int, S: int) -> np.ndarray:
 
 def randomize_(model: torch.nn.Module, seed: int, offset_gate_biases: bool = True,
                gate_weight_scale: float = 1.0) -> None:
-    """Seeded random weights everywhere: the output projection is zero at
-    init, and greedy decoding of zero logits emits nothing.
+    """Seeded random weights everywhere: the output projection (LucyRNN's
+    ``output_proj``, xLSTM's ``vocab_proj``) is zero at init, and greedy
+    decoding of zero logits emits nothing.  Any encoder takes them; the gate
+    options below name LucyRNN's ``gate_proj`` and leave others alone.
 
     Matrices are N(0, 0.25/fan_in); other vectors get 0.1·N(0, 1) added.
     With ``offset_gate_biases`` the gate biases of k and v get ±2 and of

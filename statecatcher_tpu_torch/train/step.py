@@ -7,7 +7,8 @@ Port of ``statecatcher_tpu/train/step.py`` (``_make_step_body``,
   * int16 audio is de-quantised on the device (÷ 32767.0); a (B,) sample
     mask is a prefix length (``frame_mask_from_lens``), a (B, S) one is
     pooled (``compute_frame_mask``); frame lengths are at least 1;
-  * the carry is detached on entry (truncated BPTT across segments);
+  * the carry (any encoder's dict of tensors) is detached on entry
+    (truncated BPTT across segments);
   * CTC: loss = the ``row_valid``-masked mean of the per-row CTC loss; the
     per-utterance totals (per-row loss × max(tok_len, 1)) go out for the
     hallucination filter;
@@ -15,8 +16,10 @@ Port of ``statecatcher_tpu/train/step.py`` (``_make_step_body``,
     and the blank-prefixed tokens; loss = the ``row_valid``-masked mean of
     the per-utterance transducer NLL, which goes to the filter as it is
     (``resolve_rnnt_impl`` picks the loss);
-  * on CUDA the encoder cells run K1 forward and K2 backward (K5 with a
-    frame mask or ``kernel_impl="pallas"``), the CTC lattice K3 and K4 (with
+  * on CUDA the LucyRNN cells run K1 forward and K2 backward (K5 with a
+    frame mask or ``kernel_impl="pallas"``), the xLSTM's mLSTM layers K9a
+    forward and K9b backward (K10 forward with ``xlstm.kernel_impl=
+    "pallas"``), the CTC lattice K3 and K4 (with
     ``ctc_impl`` "auto" or "pallas"), and the transducer (``rnnt_impl``
     "auto" or "pallas") the joint K6 and its lattice K7, or with a band > 0
     (``train.rnnt_band``, -1: band 32 above a padded U of 48) the banded

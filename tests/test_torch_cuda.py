@@ -625,3 +625,172 @@ def test_masked_cell_grads_on_card_match_cpu(cuda_device):
     assert (linear_scan_fwd.launches, linear_scan_rev.launches) == (n[0] + 2, n[1] + 2)
     for name, a, c in zip(("h_all", "s_T", "gates", "bias", "h0", "s0"), outs[1], outs[0]):
         assert_grad_close(a, c, name)
+
+
+def mlstm_kernel_data(seed, B, T, H, dqk, dv, chunk, dtype=torch.float32):
+    """K9's kernel-level inputs (lane-major q/k/v, soft-capped gates), padded
+    to the chunk multiple with random rows that the kernels must ignore, and
+    a nonzero carry; from a numpy seed."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import soft_cap
+
+    rng = np.random.default_rng(seed)
+    L = min(chunk, max(8, T))
+    Tp = -(-T // L) * L
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5)
+    q, k, v = r(B, Tp, H * dqk).to(dtype), r(B, Tp, H * dqk).to(dtype), r(B, Tp, H * dv).to(dtype)
+    i_c = soft_cap(2.0 * r(B, H, Tp), 15.0)
+    logf = torch.nn.functional.logsigmoid(soft_cap(2.0 * r(B, H, Tp) + 1.0, 15.0))
+    C0, n0, m0 = 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(), 0.1 * r(B, H)
+    return [q, k, v, i_c, logf, C0, n0, m0], L, Tp
+
+
+def assert_scaled_close(got, want, names, tol):
+    """|Δ| ≤ tol·max|want| for each output (the forward's f32 round-off, held
+    to each output's own scale)."""
+    for name, a, c in zip(names, got, want):
+        a, c = a.float().cpu().numpy(), c.float().cpu().numpy()
+        assert np.isfinite(a).all(), name
+        err, scale = np.abs(a - c).max(), np.abs(c).max()
+        assert err <= tol * scale, f"{name}: max |Δ| {err:.3e} > {tol:g}·{scale:.3e}"
+
+
+MLSTM_SHAPES = [(2, 45, 2, 16, 16, 16), (1, 300, 2, 128, 256, 128), (2, 70, 1, 32, 80, 32),
+                (1, 600, 2, 128, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", MLSTM_SHAPES)
+def test_mlstm_fused_kernels_match_plain_f32(cuda_device, B, T, H, dqk, dv, chunk):
+    """K9a and K9b against their plain versions at ragged T with a nonzero
+    carry: the forward within 1e-4 of each output's scale (f32 sums in other
+    orders), the gradients within 1e-3 relative plus 1e-4 of each output's
+    largest value."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import (
+        mlstm_fused_bwd,
+        mlstm_fused_bwd_ref,
+        mlstm_fused_fwd,
+        mlstm_fused_fwd_ref,
+    )
+
+    ins, L, Tp = mlstm_kernel_data(B * T + dqk, B, T, H, dqk, dv, chunk)
+    ins = [x.to(cuda_device) for x in ins]
+    n = (mlstm_fused_fwd.launches, mlstm_fused_bwd.launches)
+    got = mlstm_fused_fwd(*ins, L, T)
+    torch.cuda.synchronize()
+    want = mlstm_fused_fwd_ref(*ins, L, T)
+    assert_scaled_close([got[0][:, :T]] + list(got[1:]), [want[0][:, :T]] + list(want[1:]),
+                        ("h", "C_T", "n_T", "m_T"), 1e-4)
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda_device) for x in want]
+    gb = mlstm_fused_bwd(*ins, *cots, L, T)
+    torch.cuda.synchronize()
+    gr = mlstm_fused_bwd_ref(*ins, *cots, L, T)
+    assert (mlstm_fused_fwd.launches, mlstm_fused_bwd.launches) == (n[0] + 1, n[1] + 1)
+    for name, a, c in zip(("dq", "dk", "dv", "dic", "dlogf", "dC0", "dn0", "dm0"), gb, gr):
+        assert_grad_close(a.cpu().numpy(), c.cpu().numpy(), name, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mlstm_fused_kernels_match_plain_bf16(cuda_device):
+    """bf16 q/k/v (h, dq, dk, dv in bf16): both versions compute in f32 from
+    the same bf16 values and round once, so a bf16 output is within a few
+    bf16 steps of the plain one; the f32 outputs keep the f32 tolerances."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import (
+        mlstm_fused_bwd,
+        mlstm_fused_bwd_ref,
+        mlstm_fused_fwd,
+        mlstm_fused_fwd_ref,
+    )
+
+    B, T, H, dqk, dv, chunk = 2, 200, 2, 64, 128, 128
+    ins, L, Tp = mlstm_kernel_data(7, B, T, H, dqk, dv, chunk, torch.bfloat16)
+    ins = [x.to(cuda_device) for x in ins]
+    got, want = mlstm_fused_fwd(*ins, L, T), mlstm_fused_fwd_ref(*ins, L, T)
+    assert got[0].dtype == torch.bfloat16
+    assert_scaled_close(got[:1], want[:1], ("h",), 2e-2)
+    assert_scaled_close(got[1:], want[1:], ("C_T", "n_T", "m_T"), 1e-4)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda_device).to(x.dtype) for x in want]
+    gb = mlstm_fused_bwd(*ins, *cots, L, T)
+    gr = mlstm_fused_bwd_ref(*ins, *cots, L, T)
+    for name, a, c in zip(("dq", "dk", "dv"), gb[:3], gr[:3]):
+        assert a.dtype == torch.bfloat16
+        assert_grad_close(a.float().cpu().numpy(), c.float().cpu().numpy(), name, rtol=2e-2,
+                          scale_tol=1e-3)
+    for name, a, c in zip(("dic", "dlogf", "dC0", "dn0", "dm0"), gb[3:], gr[3:]):
+        assert_grad_close(a.cpu().numpy(), c.cpu().numpy(), name, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", [(2, 45, 2, 16, 16, 16), (1, 300, 2, 128, 256, 128)])
+def test_mlstm_pallas_kernel_matches_plain(cuda_device, B, T, H, dqk, dv, chunk):
+    """K10 against mlstm_chunkwise (its plain version) at ragged T with a
+    nonzero carry, within 1e-4 of each output's scale; its gradients (the
+    plain version's autograd on both sides) on the card against the CPU."""
+    from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
+    from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_chunkwise_pallas, mlstm_pallas_fwd
+
+    rng = np.random.default_rng(T)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5)
+    ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
+           2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(), 0.1 * r(B, H)]
+    dev_ins = [x.to(cuda_device) for x in ins]
+    n = mlstm_pallas_fwd.launches
+    got = mlstm_pallas_fwd(*dev_ins, chunk)
+    torch.cuda.synchronize()
+    assert mlstm_pallas_fwd.launches == n + 1
+    want = mlstm_chunkwise(*dev_ins, chunk)
+    assert_scaled_close(got, want, ("h", "C_T", "n_T", "m_T"), 1e-4)
+    ws = [torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)) for x in want]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xs = [x.detach().to(dev).requires_grad_() for x in ins]
+        outs = mlstm_chunkwise_pallas(*xs, chunk)
+        loss = sum((o * w.to(dev)).sum() for o, w in zip(outs, ws))
+        grads.append([g.cpu().numpy() for g in torch.autograd.grad(loss, xs)])
+    for name, a, c in zip(("q", "k", "v", "i", "f", "C0", "n0", "m0"), *grads):
+        assert_grad_close(a, c, "d" + name, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "fused", "pallas"])
+def test_xlstm_encoder_on_card_matches_cpu(cuda_device, impl):
+    """The xLSTM encoder (2 blocks, E=64) with ``kernel_impl`` on the card
+    against "chunkwise" on the CPU over two carried segments: logits and
+    carry within 1e-4 of their scale, parameter gradients within 1e-3
+    relative plus 1e-4 of each one's largest value."""
+    from statecatcher_tpu_torch.config import Config
+    from statecatcher_tpu_torch.models.asr import build_model, init_carry
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_bwd, mlstm_fused_fwd
+    from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_pallas_fwd
+
+    ov = ["--model.encoder", "xlstm", "--model.xlstm.embedding_dim", "64",
+          "--model.xlstm.num_blocks", "2", "--model.xlstm.chunk_size", "32",
+          "--model.vocab_size", "40"]
+    cfg = Config().apply_overrides(ov)
+    rng = np.random.default_rng(3)
+    feats = [torch.from_numpy(rng.standard_normal((2, 75, 24)).astype(np.float32))
+             for _ in range(2)]
+    counters = (mlstm_fused_fwd, mlstm_fused_bwd, mlstm_pallas_fwd)
+    n = [c.launches for c in counters]
+    runs = []
+    for dev, ki in (("cpu", "chunkwise"), (cuda_device, impl)):
+        c = Config().apply_overrides(ov + ["--model.xlstm.kernel_impl", ki])
+        model = build_model(c.model, 24, device=dev, generator=torch.Generator().manual_seed(0))
+        w = model.encoder.vocab_proj.weight                  # zero at init
+        with torch.no_grad():
+            w.copy_(0.1 * torch.randn(w.shape, generator=torch.Generator().manual_seed(1)))
+        carry, outs, loss = init_carry(c.model, 2, device=dev), [], 0.0
+        for x in feats:
+            logits, carry = model(x.to(dev), carry)
+            outs.append(logits)
+            loss = loss + (logits * torch.linspace(-1, 1, 40, device=dev)).sum()
+        loss.backward()
+        runs.append(([o.detach().cpu() for o in outs] + [v.detach().cpu() for v in carry.values()],
+                     {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}))
+    assert_scaled_close(runs[1][0], runs[0][0], ("logits 0", "logits 1", "C", "n", "m"), 1e-4)
+    for k, a in runs[1][1].items():
+        assert_grad_close(a, runs[0][1][k], k, rtol=1e-3, scale_tol=1e-4)
+    moved = [c.launches - k for c, k in zip(counters, n)]
+    want = {"pallas": [0, 0, 4]}.get(impl, [4, 4, 0])
+    assert moved == want, moved

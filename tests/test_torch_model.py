@@ -147,9 +147,11 @@ def test_carry_layout_and_dtype():
 
 @pytest.mark.parametrize("override", [
     ["--model.encoder", "lstm"],
+    ["--model.encoder", "rwkv"],
     ["--model.encoder", "lucyrnn", "--model.lucyrnn.variant", "native"],
 ])
 def test_unported_models_raise(override):
+    # xlstm is ported (tests/test_torch_xlstm.py); these still raise
     cfg = Config().apply_overrides(override)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.model, F, device="cpu")
