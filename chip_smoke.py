@@ -6,8 +6,9 @@
 It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
 csrc`` (one nvcc per source, all started together) and drives the flagship
 LucyRNN (4 × 512, vocab 1024, 80 MFCC, float32, seeded random weights;
-RNN-T joiner 64) and the xLSTM of the config's defaults through the port's
-entry points:
+RNN-T joiner 64; the 7-gate cell, masked or not, through each of its
+kernels, and the 6-gate native variant) and the xLSTM of the config's
+defaults through the port's entry points:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills);
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
@@ -77,10 +78,26 @@ entry points:
  21. xLSTM throughput at bench.py's xLSTM shape (B=64, bf16, chunk 256,
      U=128) at K=4 of its 24 segments (printed only);
  22. CLI with ``--model.encoder xlstm``: two dispatches and a resume;
- 23. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 9, 10, 12, 14, 18, 19 and 20; each counter is set to 0
-     just before a phase and read just after it, so comparison launches are
-     not counted).
+ 23. kernels K12 and K11: the fused masked cell and the dual scan against
+     their plain versions at the batched shape (B=32, T=1598, D=512; f32 and
+     bf16, unmasked and with one partial row) and K12 at the streaming shape
+     (1, 32, 512), with times, byte bounds and plain times; and their
+     autograd Functions' gradients (the backward's two K5b scans) against the
+     plain versions' at the f32 shape;
+ 24. the masked flagship through K12 (``kernel_impl="auto-fused"``,
+     ``mask_state_updates=True``): phase 12's batched encode, its masked
+     segment's time beside phase 12's split path; three streams against the
+     offline decode; a CTC training group of K=2 (K12 and K5b per layer, K3,
+     K4), kernel path against plain path;
+ 25. K11 (``kernel_impl="pallas-dual"``, masked): the batched encode and a CTC
+     training group of K=1;
+ 26. the native LucyRNN (``variant="native"``, 4 × 512, vocab 1024, masked;
+     its scans through K5): the batched encode, three streams, a CTC
+     training group of K=2 and the CLI with a resume;
+ 27. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 9, 10, 12, 14, 18, 19, 20 and 24–26; each counter is
+     set to 0 just before a phase and read just after it, so comparison
+     launches are not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -135,11 +152,16 @@ from statecatcher_tpu_torch.ops.lucy_fused_lm import (
     lucy_cell_fused_lm_bwd_ref,
     lucy_cell_fused_lm_ref,
 )
+from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
 from statecatcher_tpu_torch.ops.lucy_pallas import (
     linear_scan_fwd,
     linear_scan_ref,
     linear_scan_rev,
     linear_scan_rev_ref,
+    lucy_dual_scan,
+    lucy_dual_scan_ref,
+    lucy_fused_cell,
+    lucy_fused_cell_ref,
 )
 from statecatcher_tpu_torch.ops.mlstm_fused import (
     mlstm_fused_bwd,
@@ -183,6 +205,8 @@ from statecatcher_tpu_torch.train.step import init_train_state, make_segment_sca
 SEED = 0
 FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vocab 1024, mfcc 80, f32
 XLSTM = ["--model.encoder", "xlstm"]             # E=512, 2 heads, 3 blocks, chunk 128, f32
+MASKED = ["--model.lucyrnn.mask_state_updates", "true"]
+NATIVE = ["--model.lucyrnn.variant", "native"]
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
@@ -195,6 +219,12 @@ CELL_OPS_PER_ELEMENT = 58
 # three sigmoids), tanh and the two adjoint steps (~10), the closed-form
 # chain adjoint (~65), the d_bias sums (7): ~132 counted from the source.
 CELL_BWD_OPS_PER_ELEMENT = 132
+# K12 per (b, t, d), counted from its source: K1's chain without the 7 bias
+# adds (51), and 7 more for a frame mask (m·a + (1 − m) twice, m·b twice).
+K12_OPS_PER_ELEMENT = 51
+K12_MASK_OPS_PER_ELEMENT = 7
+# K11 per (b, t, d): s-step 2, the tanh and its sum 2, (1 − a_h)·c 2, h-step 2.
+K11_OPS_PER_ELEMENT = 8
 # K3/K4 per (b, t, s): three exp, one log and ~12 adds/compares/selects.
 LATTICE_OPS_PER_STATE = 16
 # K7a/K7b per (b, t, u): the chain's own logaddexp (exp, log1p, ~6
@@ -336,11 +366,12 @@ def run_segments(model, cfg, audio, masks):
 def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     """Phases 2, 12 and 18: 3 carried 16 s segments at B=32, the last with a
     partial sample mask, kernel path vs plain path.  Under
-    ``mask_state_updates`` the masked segment runs the split cell (K5) and a
-    row whose mask ends early must carry its last valid frame's state.
-    Returns the launches of ``counters`` (name → kernel wrapper; by default
-    K1 and K5a, the LucyRNN's), each of which must launch (K5a only when
-    masked)."""
+    ``mask_state_updates`` the masked segment runs the masked cell (the
+    split path through K5 unless ``kernel_impl`` names K12 or K11) and a row
+    whose mask ends early must carry its last valid frame's state.  Returns
+    the launches of ``counters`` (name → kernel wrapper; by default K1 and
+    K5a, the 7-gate LucyRNN's), each of which must launch (the default K5a
+    only when masked), and the kernel path's ms per segment."""
     B, S = 32, 16 * 16000
     masked = cfg.model.encoder == "lucyrnn" and cfg.model.lucyrnn.mask_state_updates
     tag = tag or ("[batched masked]" if masked else "[batched]")
@@ -351,6 +382,7 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     last_mask = torch.arange(S, device=dev)[None, :] < torch.from_numpy(lens).to(dev)[:, None]
     masks = [None, None, last_mask]
     T = num_frames(S, cfg.frontend)
+    optional = set() if counters or masked else {"K5a"}
     counters = counters or {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
     with torch.inference_mode():
         run_segments(model, cfg, audio, masks)                    # warm-up, masked path too
@@ -360,10 +392,10 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
         launches = {n: c.launches for n, c in counters.items()}
         with plain_kernels():
             plain = run_segments(model, cfg, audio, masks)
-    if any(n == 0 and (name != "K5a" or masked) for name, n in launches.items()):
+    if any(n == 0 and name not in optional for name, n in launches.items()):
         raise AssertionError(f"the batched path launched {launches}")
     if masked:
-        check_last_valid_state(model, cfg, *kern[-1])
+        check_last_valid_state(model, cfg, *kern[-1], tag=tag)
     agree = total = 0
     for k, ((lp, carry, sec, fmask), (lp_p, carry_p, sec_p, _)) in enumerate(zip(kern, plain)):
         if lp.shape != (B, T, cfg.model.vocab_size) or not torch.isfinite(lp).all():
@@ -389,22 +421,24 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     log(f"{tag} B={B}, 3 × 16 s segments: {per_seg[0]:.1f} / {per_seg[1]:.1f} / "
         f"{per_seg[2]:.1f} ms per segment ({B * 16 / (sum(per_seg) / 3e3):.0f} audio-s/s); "
         f"greedy frames agree {agree}/{total}; launches {launches}")
-    return launches
+    return launches, per_seg
 
 
-def check_last_valid_state(model, cfg, lp, carry, _sec, fmask):
+def check_last_valid_state(model, cfg, lp, carry, _sec, fmask, tag="[batched masked]"):
     """Under ``mask_state_updates``: the row whose mask ends earliest carries
     the state of its last valid frame.  The last layer's output at frame t
     is h_t, whose projection is frame t's logits, and its carried h is h_T:
     so the logits stay those of the last valid frame past it, and the
     projection of the carried h equals them (within f32 round-off of the
-    projection, 1e-5 of their scale)."""
+    projection, 1e-5 of their scale).  The carry is (B, tracks, L, D), or
+    (B, L, D) for the native variant: track 0's last layer either way."""
     row = int(fmask.sum(1).argmin())
     last = int(fmask[row].sum()) - 1
     if not bool(fmask[row, :last + 1].all()) or last + 1 >= fmask.shape[1]:
         raise AssertionError(f"row {row}: its frame mask is not a prefix ending early")
     with torch.inference_mode():
-        h_T = carry["h"][row, 0, cfg.model.num_layers - 1]
+        L = cfg.model.num_layers
+        h_T = carry["h"][row].reshape(-1, L, carry["h"].shape[-1])[0, L - 1]
         logits = torch.log_softmax(model.asr.encoder.output_proj(h_T[None]).float(), -1)[0]
     want = lp[row, last]
     scale = want.abs().max().item()
@@ -413,7 +447,7 @@ def check_last_valid_state(model, cfg, lp, carry, _sec, fmask):
     if d_tail > 1e-5 * scale or d_carry > 1e-5 * scale:
         raise AssertionError(f"row {row}: the state moved after its last valid frame {last} "
                              f"(max |Δ| {d_tail:.3e} past it, {d_carry:.3e} from the carry)")
-    log(f"[batched masked] row {row} ends at frame {last} of {fmask.shape[1]}: its log-probs "
+    log(f"{tag} row {row} ends at frame {last} of {fmask.shape[1]}: its log-probs "
         f"past it and from its carried h equal frame {last}'s (max |Δ| {max(d_tail, d_carry):.2e})")
 
 
@@ -633,7 +667,7 @@ def phase_lattice(dev) -> dict:
 
 # (module, attribute, plain version) of every kernel wrapper of the model and
 # training paths: K1, K2, K3, K4, K5a, K5b, K6a, K6b, K7a, K7b, K8a, K8b,
-# banded α, β, K9a, K9b, K10
+# banded α, β, K9a, K9b, K10, K12, K11
 PLAIN = [
     (lucy_fused_lm, "_fwd_kernel", lucy_cell_fused_lm_ref),
     (lucy_fused_lm, "_bwd_kernel", lucy_cell_fused_lm_bwd_ref),
@@ -650,6 +684,8 @@ PLAIN = [
     (mlstm_fused, "mlstm_fused_fwd", mlstm_fused_fwd_ref),
     (mlstm_fused, "mlstm_fused_bwd", mlstm_fused_bwd_ref),
     (mlstm_pallas, "mlstm_pallas_fwd", mlstm_chunkwise),
+    (lucy_pallas, "_fused_cell_kernel", lucy_fused_cell_ref),
+    (lucy_pallas, "_dual_scan_kernel", lucy_dual_scan_ref),
 ]
 
 
@@ -707,6 +743,12 @@ TRAIN_KERNELS = {
                     "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
     "xlstm ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
                   "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "ctc k12": {"K12": (lucy_fused_cell, 1), "K5b": (linear_scan_rev, 2),
+                "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "ctc dual": {"K11": (lucy_dual_scan, 1), "K5b": (linear_scan_rev, 2),
+                 "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "native ctc": {"K5a": (linear_scan_fwd, 2), "K5b": (linear_scan_rev, 2),
+                   "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
 }
 
 
@@ -717,7 +759,7 @@ def n_layers(cfg) -> int:
 
 def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=None,
                      degenerate=False) -> dict:
-    """Phases 5, 9, 12, 14 and 20: one group of K carried 16 s segments at B=32
+    """Phases 5, 9, 12, 14, 20 and 24–26: one group of K carried 16 s segments at B=32
     through ``make_segment_scan_step`` in ``mode`` ("ctc" or "rnnt"), kernel
     path against plain path; ``path`` names the kernels it must launch
     (``TRAIN_KERNELS``; the mode by default).  With ``degenerate``, row 1's
@@ -879,8 +921,8 @@ def run_cli(args: list[str]) -> dict:
     return summary
 
 
-def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn") -> None:
-    """Phases 7 and 22: the CLI trains 2 dispatches on a generated fixture,
+def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn", tag=None) -> None:
+    """Phases 7, 22 and 26: the CLI trains 2 dispatches on a generated fixture,
     then a second run resumes from the checkpoint's cursor and trains one
     more."""
     shutil.rmtree(WORK, ignore_errors=True)
@@ -900,7 +942,7 @@ def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn") -> None:
     if second["global_step"] != 3 or len(second["loss_history"]) != 1:
         raise AssertionError(f"resumed run: step {second['global_step']}, "
                              f"losses {second['loss_history']}")
-    log(f"[cli {encoder}] 4 recordings × {seconds:g} s, {target} s segments, vocab from the char tokenizer: losses "
+    log(f"{tag or '[cli ' + encoder + ']'} 4 recordings × {seconds:g} s, {target} s segments, vocab from the char tokenizer: losses "
         f"{[round(x, 4) for x in first['loss_history']]}, checkpoint cursor {meta['cursor']}; "
         f"resumed at step 2, loss {second['loss_history'][0]:.4f}, global_step 3 "
         f"({time.perf_counter() - t0:.1f} s for both runs)")
@@ -1500,6 +1542,91 @@ def phase_mlstm_kernels(dev) -> dict:
     return out
 
 
+def masked_rows(B, T, dev):
+    """A frame mask with one partial row (row 1 ends at two thirds of T)."""
+    mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    mask[1 % B, (2 * T) // 3:] = False
+    return mask
+
+
+def phase_cell_scan_kernels(dev) -> dict:
+    """Phase 23: K12 and K11 against their plain versions at the flagship's
+    cell shape (B=32, T=1598, D=512; f32 and bf16, unmasked and with one
+    partial row) and K12 at the streaming shape (1, 32, 512), on
+    ``conditioned_cell_inputs``; K11 runs on the planes of the (masked) gate
+    chain.  Tolerances as phase 1 holds K1.  Then the gradients of both
+    autograd Functions (the backward's two reverse scans through K5b) on
+    the card against the same Functions over the plain versions, at the f32
+    shape: 1e-4 relative plus 1e-6 of each gradient's scale, K2's f32
+    tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    out = {}
+    cases = [("batched f32", 32, 1598, 512, torch.float32, False),
+             ("batched f32 masked", 32, 1598, 512, torch.float32, True),
+             ("batched bf16", 32, 1598, 512, torch.bfloat16, False),
+             ("batched bf16 masked", 32, 1598, 512, torch.bfloat16, True),
+             ("streaming f32", 1, 32, 512, torch.float32, False)]
+    for label, B, T, D, dtype, masked in cases:
+        gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)
+        mask = masked_rows(B, T, dev) if masked else None
+        es = torch.finfo(dtype).bits // 8
+        small = B * T <= 1000
+        g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
+        planes = [x.to(dtype) for i, x in enumerate(lucy_gate_coeffs(gates, mask, bias)) if i != 3]
+        runs = [("K12", lucy_fused_cell, lucy_fused_cell_ref, (g4, h0, s0, mask),
+                 9 * B * T * D * es + (B * T if masked else 0),
+                 K12_OPS_PER_ELEMENT + (K12_MASK_OPS_PER_ELEMENT if masked else 0))]
+        if not small:
+            runs.append(("K11", lucy_dual_scan, lucy_dual_scan_ref, (*planes, h0, s0),
+                         6 * B * T * D * es, K11_OPS_PER_ELEMENT))
+        for name, fn, ref, args, nbytes, ops in runs:
+            with torch.inference_mode():
+                h, s = fn(*args)
+                torch.cuda.synchronize()
+                h_ref, s_ref = ref(*args)
+                if dtype == torch.float32:
+                    err = check_cell(h, s, h_ref, s_ref, 2e-5, 0.0, 1e-6, 1e-4)
+                else:
+                    err = check_cell(h, s, h_ref, s_ref, 2e-2, 2e-2, 1e-3, 1e-2)
+                ms = cuda_ms(lambda: fn(*args), 200 if small else 50, graph=small)
+                plain_ms = cuda_ms(lambda: ref(*args), 20 if small else 2, warmup=1, graph=small)
+            bound, bound_by = bytes_bound_ms(nbytes + 2 * B * D * 4, ops * B * T * D)
+            log(f"[{name}] {label} (B={B}, T={T}, D={D}): max|Δ| {err:.3e}  kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.3f} ms  bound {bound:.4f} ms ({bound_by}, {bound / ms:.1%} of "
+                f"it)  library_ms: none")
+            out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound, "bound_by": bound_by}
+
+    B, T, D = 32, 1598, 512
+    gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)
+    mask = masked_rows(B, T, dev)
+    w_h, w_s = (torch.randn((B, T, D), generator=gen, device=dev) for _ in range(2))
+    planes = [x for i, x in enumerate(lucy_gate_coeffs(gates, mask, bias)) if i != 3]
+    for name, fn, inputs, names in (
+            ("K12", lambda g, h, s: lucy_fused_cell(g, h, s, mask),
+             ((gates + bias).reshape(B, T, 7, D), h0, s0), ("d_gates", "dh0", "ds0")),
+            ("K11", lucy_dual_scan, (*planes, h0, s0),
+             ("d_a_s", "d_b_s", "d_a_h", "d_h_pre", "dh0", "ds0"))):
+        def grads():
+            xs = [x.detach().clone().requires_grad_() for x in inputs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h_all, s_all = fn(*xs)
+            ((h_all * w_h).sum() + 0.1 * (s_all * w_s).sum()).backward()
+            torch.cuda.synchronize()
+            return [x.grad for x in xs], time.perf_counter() - t0
+
+        grads()                                               # warm-up
+        got, sec = grads()
+        with plain_kernels():
+            want, sec_p = grads()
+        err = check_grads(got, want, names, 1e-4, 1e-6)
+        log(f"[{name}] backward Function at (B={B}, T={T}, D={D}) f32, masked: gradients max|Δ| "
+            f"{err:.3e} against the plain versions'; forward+backward {sec * 1e3:.1f} ms (plain "
+            f"{sec_p * 1e3:.1f} ms)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -1547,7 +1674,7 @@ def main() -> int:
         f"{m.vocab_size}, {cfg.frontend.kind} {cfg.frontend.n_mfcc}, {m.dtype}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
 
-    n_batched = phase_batched(model, cfg, dev)
+    n_batched, _ = phase_batched(model, cfg, dev)
     n_stream = phase_streaming(model, cfg, dev)
     k2 = phase_cell_bwd(dev)
     lattice = phase_lattice(dev)
@@ -1563,11 +1690,11 @@ def main() -> int:
     del model
 
     k5 = phase_scan_kernels(dev)
-    masked = cfg.apply_overrides(["--model.lucyrnn.mask_state_updates", "true"])
+    masked = cfg.apply_overrides(MASKED)
     model = build_speech_model(masked.model, masked.frontend.n_mfcc, "ctc", device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1)
-    n_mbatched = phase_batched(model.eval(), masked, dev)
+    n_mbatched, split_ms = phase_batched(model.eval(), masked, dev)
     del model
     n_mtrain = phase_train_step(masked, dev, K=2, path="ctc masked")
     k8 = phase_band_kernels(dev)
@@ -1590,28 +1717,66 @@ def main() -> int:
     log(f"[model] SpeechModel xlstm E={x.embedding_dim}, {x.num_heads} heads, {x.num_blocks} "
         f"blocks, chunk {x.chunk_size}, vocab {xcfg.model.vocab_size}, {xcfg.model.dtype}, "
         f"{sum(p.numel() for p in models['auto'].parameters())} parameters")
-    n_xbatched = phase_batched(models["auto"].eval(), xcfg, dev, {"K9a": mlstm_fused_fwd},
-                               "[xlstm batched]")
-    n_pbatched = phase_batched(models["pallas"].eval(), pcfg, dev, {"K10": mlstm_pallas_fwd},
-                               "[xlstm pallas batched]")
+    n_xbatched, _ = phase_batched(models["auto"].eval(), xcfg, dev, {"K9a": mlstm_fused_fwd},
+                                  "[xlstm batched]")
+    n_pbatched, _ = phase_batched(models["pallas"].eval(), pcfg, dev, {"K10": mlstm_pallas_fwd},
+                                  "[xlstm pallas batched]")
     n_xstream = phase_streaming(models["auto"], xcfg, dev, mlstm_fused_fwd, "[xlstm streaming]")
     del models
     n_xtrain = phase_train_step(xcfg, dev, K=2, path="xlstm ctc")
     phase_throughput(xcfg.apply_overrides(["--model.xlstm.chunk_size", "256"]), dev, K=4, B=64)
     phase_cli(encoder="xlstm")
 
+    k12 = phase_cell_scan_kernels(dev)
+    kcfg = masked.apply_overrides(["--model.lucyrnn.kernel_impl", "auto-fused"])
+    dcfg = masked.apply_overrides(["--model.lucyrnn.kernel_impl", "pallas-dual"])
+    ncfg = masked.apply_overrides(NATIVE)
+    kmodel, dmodel, nmodel = (build_speech_model(c.model, c.frontend.n_mfcc, "ctc", device=dev,
+                                                 generator=torch.Generator().manual_seed(SEED))
+                              for c in (kcfg, dcfg, ncfg))
+    for m_ in (kmodel, dmodel, nmodel):
+        randomize_(m_, SEED + 1)
+        m_.eval()
+    n_kbatched, k12_ms = phase_batched(kmodel, kcfg, dev, {"K12": lucy_fused_cell},
+                                       "[k12 batched masked]")
+    log(f"[k12 batched masked] the masked segment: {k12_ms[2]:.1f} ms through K12, "
+        f"{split_ms[2]:.1f} ms through the split path (phase 12 of this run)")
+    n_kstream = phase_streaming(kmodel, kcfg, dev, lucy_fused_cell, "[k12 streaming]")
+    n_ktrain = phase_train_step(kcfg, dev, K=2, path="ctc k12")
+    n_dbatched, _ = phase_batched(dmodel, dcfg, dev, {"K11": lucy_dual_scan},
+                                  "[dual batched masked]")
+    n_dtrain = phase_train_step(dcfg, dev, K=1, path="ctc dual")
+    log(f"[model] SpeechModel lucyrnn native {ncfg.model.num_layers} × "
+        f"{ncfg.model.hidden_size}, vocab {ncfg.model.vocab_size}, masked, "
+        f"{sum(p.numel() for p in nmodel.parameters())} parameters")
+    n_nbatched, _ = phase_batched(nmodel, ncfg, dev, {"K5a": linear_scan_fwd},
+                                  "[native batched masked]")
+    n_nstream = phase_streaming(nmodel, ncfg, dev, linear_scan_fwd, "[native streaming]")
+    del kmodel, dmodel, nmodel
+    n_ntrain = phase_train_step(ncfg, dev, K=2, path="native ctc")
+    phase_cli(extra=NATIVE, tag="[cli native]")
+
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
             + n_mbatched["K1"] + n_btrain["K1"])
     n_k2 = n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
-    n_k5a, n_k5b = n_mbatched["K5a"] + n_mtrain["K5a"], n_mtrain["K5b"]
-    n_k3 = n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"]
-    n_k4 = n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"]
+    n_k5a = (n_mbatched["K5a"] + n_mtrain["K5a"] + n_nbatched["K5a"] + n_nstream
+             + n_ntrain["K5a"])
+    n_k5b = n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
+    n_k3 = (n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"] + n_ktrain["K3"] + n_dtrain["K3"]
+            + n_ntrain["K3"])
+    n_k4 = (n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"] + n_ktrain["K4"] + n_dtrain["K4"]
+            + n_ntrain["K4"])
+    n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
+    n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
     n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
     log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
         f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}; K2 {n_k2}; K3 {n_k3}, "
-        f"K4 {n_k4} (train, masked train, xlstm train); K5a {n_k5a} (masked batched + train), K5b {n_k5b}; "
+        f"K4 {n_k4} (train, masked, xlstm, k12, dual and native train); K5a {n_k5a} (masked "
+        f"batched + train, native batched + streaming + train), K5b {n_k5b} (masked, k12, dual "
+        f"and native train); K12 batched {n_kbatched['K12']}, streaming {n_kstream}, train "
+        f"{n_ktrain['K12']}; K11 batched {n_dbatched['K11']}, train {n_dtrain['K11']}; "
         f"K6a {n_rtrain['K6a']}, K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b "
         f"{n_rtrain['K7b']} (rnnt train); K8a {n_btrain['K8a']}, K8b {n_btrain['K8b']}, band α "
         f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); K9a xlstm "
@@ -1646,6 +1811,10 @@ def main() -> int:
          k9["K9b f32"]),
         ("mlstm_pallas_fwd", "mlstm_pallas.cu", "mlstm_pallas.py:30", n_pbatched["K10"],
          k9["K10 f32"]),
+        ("lucy_fused_cell", "lucy_cell_scan.cu", "lucy_pallas.py:319", n_k12,
+         k12["K12 batched f32 masked"]),
+        ("lucy_dual_scan", "lucy_cell_scan.cu", "lucy_pallas.py:527", n_k11,
+         k12["K11 batched f32 masked"]),
     ]
     if any(e[3] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the main path never launched: {entries}")

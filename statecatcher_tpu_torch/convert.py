@@ -1,14 +1,13 @@
 """Weight bridge: flax params tree ⇄ PyTorch state_dict.
 
 Covers the trees of ``ASRModel`` and ``SpeechModel`` (the ASR module under
-``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN and xLSTM
-encoders.  Dense and GateProj kernels are (in, out) in flax and (out, in)
-here, so they are transposed; a LayerNorm's or RMSNorm's ``scale`` is its
-``weight``; an Embed's ``embedding`` is its ``weight``; ``join_kernel``
-stays (J, V).  The flax
-side is plain numpy (``np.asarray`` of each leaf), so this module needs no
-JAX.  Both directions copy values exactly: flax → torch → flax is
-bit-identical.
+``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN (7-gate and
+native) and xLSTM encoders.  Dense and GateProj kernels are (in, out) in
+flax and (out, in) here, so they are transposed; a LayerNorm's or
+RMSNorm's ``scale`` is its ``weight``; an Embed's ``embedding`` is its
+``weight``; ``join_kernel`` stays (J, V).  The flax side is plain numpy
+(``np.asarray`` of each leaf), so this module needs no JAX.  Both
+directions copy values exactly: flax → torch → flax is bit-identical.
 """
 
 from __future__ import annotations
@@ -36,6 +35,9 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
         dense(("proj",), "proj")
     if cfg.encoder == "xlstm":
         _xlstm_mapping(cfg, dense, out)
+        return out
+    if cfg.lucyrnn.variant == "native":
+        _native_mapping(cfg, dense, out)
         return out
     L = cfg.num_layers
     for t in range(cfg.lucyrnn.num_tracks):
@@ -74,6 +76,23 @@ def _xlstm_mapping(cfg: ModelConfig, dense, out: list) -> None:
                   bias=False)
     norm("final_norm")
     dense(("encoder", "vocab_proj"), "encoder.vocab_proj")
+
+
+def _native_mapping(cfg: ModelConfig, dense, out: list) -> None:
+    """Append the native LucyRNN encoder's leaves to ``out``: per layer the
+    input projection, ``W_fused`` (``fused_ops``) or ``W_r`` … ``W_h``, and
+    with ``layer_norm`` four LayerNorms; then the output projection."""
+    lc = cfg.lucyrnn
+    for l in range(cfg.num_layers):
+        fp, tk = ("encoder", f"layer{l}"), f"encoder.layer{l}"
+        names = ["W_fused"] if lc.fused_ops else ["W_r", "W_z", "W_k", "W_v", "W_decay", "W_h"]
+        for name in ["input_proj"] + names:
+            dense(fp + (name,), f"{tk}.{name}")
+        if lc.layer_norm:
+            for name in ("layernorm_in", "layernorm_r", "layernorm_z", "layernorm_h"):
+                out.append((fp + (name, "scale"), f"{tk}.{name}.weight", False))
+                out.append((fp + (name, "bias"), f"{tk}.{name}.bias", False))
+    dense(("encoder", "output_proj"), "encoder.output_proj")
 
 
 # The RNN-T joiner's leaves, relative to the top of a SpeechModel tree.

@@ -1,14 +1,14 @@
 """ASRModel: input projection, frame stacking, masking policy, encoder.
 
 Port of ``statecatcher_tpu/models/asr.py`` for the LucyRNN encoder (the
-7-gate ``variant="triton"``) and the xLSTM encoder: the optional input
-projection, ``stack_order`` trim-and-fold, zero-input masking of padded
-frames, and the cast of the carried state to ``carry_dtype``.  The stateful
+7-gate ``variant="triton"`` and the 6-gate ``variant="native"``) and the
+xLSTM encoder: the optional input projection, ``stack_order``
+trim-and-fold, zero-input masking of padded frames, and the cast of the
+carried state to ``carry_dtype``.  The stateful
 contract is the JAX package's: ``logits, new_state = model(feats, state,
 frame_mask)``.
 
-The LSTM and RWKV encoders and ``variant="native"`` are not ported yet and
-raise.
+The LSTM and RWKV encoders are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from statecatcher_tpu_torch import resolve_device
 from statecatcher_tpu_torch.config import ModelConfig
 from statecatcher_tpu_torch.models.layers import Dense, torch_dtype
 from statecatcher_tpu_torch.models.lucyrnn import LucyRNNEncoder
+from statecatcher_tpu_torch.models.lucyrnn_native import LucyNativeEncoder
 from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
 
 
@@ -30,17 +31,17 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
     if cfg.encoder not in ("lucyrnn", "xlstm"):
         raise NotImplementedError(
-            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1 item 7); "
+            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1 item 2); "
             "'lucyrnn' and 'xlstm' are")
-    if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant != "triton":
+    if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant not in ("triton", "native"):
         raise NotImplementedError(
-            f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported yet "
-            "(ROADMAP.md queue 1); only the 7-gate 'triton' variant is")
+            f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported; the 7-gate 'triton' "
+            "and the 6-gate 'native' variants are")
 
 
 class ASRModel(nn.Module):
-    """Input projection → frame stacking → LucyRNN or xLSTM encoder (→ vocab
-    logits).
+    """Input projection → frame stacking → LucyRNN (7-gate or native) or
+    xLSTM encoder (→ vocab logits).
 
     Parameters are initialised on the CPU from ``generator`` (a fresh one
     seeded 0 when None) and then moved to ``device``.
@@ -71,8 +72,15 @@ class ASRModel(nn.Module):
         else:
             lcfg = dataclasses.replace(cfg.lucyrnn, hidden_dim=cfg.hidden_size,
                                        num_layers=cfg.num_layers)
-            self.encoder = LucyRNNEncoder(in_dim, cfg.vocab_size, lcfg, dtype=self.dtype,
-                                          param_dtype=param_dtype, generator=generator)
+            encoder = LucyRNNEncoder
+            if lcfg.variant == "native":
+                # the fused and dual cells are 7-gate kernels: the native
+                # variant runs its scans through K5 instead, as in JAX
+                if lcfg.kernel_impl in ("pallas-fused", "auto-fused", "pallas-dual"):
+                    lcfg = dataclasses.replace(lcfg, kernel_impl="pallas")
+                encoder = LucyNativeEncoder
+            self.encoder = encoder(in_dim, cfg.vocab_size, lcfg, dtype=self.dtype,
+                                   param_dtype=param_dtype, generator=generator)
         self.to(dev)
 
     @property
@@ -109,15 +117,19 @@ def carry_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> dict:
-    """Zero carry of the encoder: LucyRNN {"h", "s"} of (B, tracks, L, D);
-    xLSTM {"C", "n", "m"} (``models/xlstm.py:xlstm_init_carry``)."""
+    """Zero carry of the encoder: LucyRNN {"h", "s"} of (B, tracks, L, D)
+    (native: (B, L, D)); xLSTM {"C", "n", "m"}
+    (``models/xlstm.py:xlstm_init_carry``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if dtype is None:
         dtype = carry_dtype(cfg)
     if cfg.encoder == "xlstm":
         return xlstm_init_carry(cfg.xlstm, batch_size, dtype, dev)
-    shape = (batch_size, cfg.lucyrnn.num_tracks, cfg.num_layers, cfg.hidden_size)
+    if cfg.lucyrnn.variant == "native":
+        shape = (batch_size, cfg.num_layers, cfg.hidden_size)
+    else:
+        shape = (batch_size, cfg.lucyrnn.num_tracks, cfg.num_layers, cfg.hidden_size)
     return {"h": torch.zeros(shape, dtype=dtype, device=dev),
             "s": torch.zeros(shape, dtype=dtype, device=dev)}
 

@@ -39,6 +39,13 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def orthogonal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``orthogonal`` on an (out, in) weight: orthonormal rows or
+    columns, whichever are fewer."""
+    with torch.no_grad():
+        nn.init.orthogonal_(w, generator=generator)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: y = x·Wᵀ + b computed in ``dtype`` (no b with
     ``use_bias=False``)."""

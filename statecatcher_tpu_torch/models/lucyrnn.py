@@ -14,13 +14,25 @@ multi-track merge projection, zero-init output projection; carried state per
 track/layer is (h = last output, s = final scan state), batch-major
 ``(B, tracks, L, D)``.
 
-Each layer's recurrence runs one of two ways, as in the JAX package
-(``cell_route``): the fused cell (``ops/lucy_fused_lm.py``: K1 forward, K2
-backward), or, with a frame mask (``mask_state_updates=True``) or
-``kernel_impl="pallas"``, the split path: the gate chain in torch
-(``ops/lucy_gates.py``), then the s-scan, tanh and the h-scan, each scan K5
-(``ops/lucy_pallas.py``).  The card runs the kernels, the CPU their plain
-versions.  Options whose kernels are not ported yet raise on the card.
+Each layer's recurrence runs one of four ways, as in the JAX package
+(``cell_route``):
+
+  * "k12" (``kernel_impl`` "pallas-fused" or "auto-fused", masked or not):
+    the bias added in the gates' dtype, then the fused masked cell K12 (gate
+    chain and both scans in one kernel; ``ops/lucy_pallas.py:lucy_fused_cell``,
+    backward through K5b);
+  * "dual" ("pallas-dual"): the gate chain in torch (``ops/lucy_gates.py``),
+    then the dual scan K11 (s-scan, tanh and h-scan in one kernel;
+    ``ops/lucy_pallas.py:lucy_dual_scan``, backward through K5b);
+  * "fused" (every other scan algorithm without a frame mask): the fused
+    lane-major cell (``ops/lucy_fused_lm.py``: K1 forward, K2 backward);
+  * "split" (a frame mask, ``mask_state_updates=True``, or ``kernel_impl=
+    "pallas"``): the gate chain in torch, then the s-scan, tanh and the
+    h-scan, each scan K5 (``ops/lucy_pallas.py``).
+
+The card runs the kernels, the CPU their plain versions.  ``kernel_impl=
+"sp"`` (the sequence-parallel scan, multi-GPU) is not ported and raises on
+the card.
 """
 
 from __future__ import annotations
@@ -34,30 +46,34 @@ from statecatcher_tpu_torch.config import LucyRNNConfig
 from statecatcher_tpu_torch.models.layers import Dense, LayerNorm, xavier_uniform_
 from statecatcher_tpu_torch.ops.lucy_fused_lm import lucy_cell_fused_lm
 from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
+from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_fused_cell
 from statecatcher_tpu_torch.ops.scan import SCAN_IMPLS, linear_scan
 
 # kernel_impl values whose TPU kernels are not ported yet → ROADMAP.md row
-_UNPORTED = {
-    "pallas-dual": "K11 (ops/lucy_pallas.py dual scan)",
-    "pallas-fused": "K12 (ops/lucy_pallas.py fused masked cell)",
-    "auto-fused": "K12 (ops/lucy_pallas.py fused masked cell)",
-    "sp": "queue 1, multi-GPU (ops/scan_sp.py sequence-parallel scan)",
-}
+_UNPORTED = {"sp": "queue 1 item 5, multi-GPU (ops/scan_sp.py sequence-parallel scan)"}
+_K12_IMPLS = ("pallas-fused", "auto-fused")
 
 
 def cell_route(impl: str, on_cuda: bool, masked: bool) -> str:
-    """How ``lucy_cell_parallel`` runs a segment: "fused" (the fused cell,
-    K1/K2) or "split" (gate chain, then the two scans through K5).  As in
-    the JAX package, a frame mask or ``impl="pallas"`` takes the split path
-    and every other scan algorithm the fused cell (they compute the same
-    recurrence).  Options without a ported kernel raise on the card rather
-    than fall back; on the CPU they run the same function's plain version."""
-    if impl not in _UNPORTED and impl not in SCAN_IMPLS and not impl.startswith("fused-lm"):
+    """How ``lucy_cell_parallel`` runs a segment, in the JAX package's order:
+    "k12" (the fused masked cell) for "pallas-fused" and "auto-fused",
+    masked or not; "dual" (gate chain, then the dual scan K11) for
+    "pallas-dual"; then "split" (gate chain, then the two scans through K5)
+    with a frame mask or for "pallas", and "fused" (K1/K2) for every other
+    scan algorithm (they compute the same recurrence).  "sp", whose kernel
+    is not ported, raises on the card rather than fall back; on the CPU it
+    runs the same function's plain version."""
+    if impl not in SCAN_IMPLS and impl not in _K12_IMPLS and impl != "pallas-dual" \
+            and not impl.startswith("fused-lm"):
         raise ValueError(f"Unknown kernel_impl {impl!r}")
     if on_cuda and impl in _UNPORTED:
         raise NotImplementedError(
             f"kernel_impl={impl!r} is not ported to CUDA yet: see ROADMAP.md, "
             f"{_UNPORTED[impl]}")
+    if impl in _K12_IMPLS:
+        return "k12"
+    if impl == "pallas-dual":
+        return "dual"
     return "split" if masked or impl == "pallas" else "fused"
 
 
@@ -74,6 +90,18 @@ def lucy_cell_parallel(
     With ``frame_mask``, masked steps leave (h, s) unchanged: their scan
     coefficients are the identity map (a = 1, b = 0)."""
     route = cell_route(impl, gates.is_cuda, frame_mask is not None)   # raises if unported
+    if route == "k12":
+        # the bias added in the gates' dtype (under bf16 the sum is rounded
+        # to bf16 before the gate chain), then the (B, T, 7, D) view
+        if bias is not None:
+            gates = gates + bias.to(gates.dtype)
+        B, T, G = gates.shape
+        h_all, s_all = lucy_fused_cell(gates.reshape(B, T, 7, G // 7), h0, s0, frame_mask)
+        return h_all, h_all[:, -1, :], s_all[:, -1, :]
+    if route == "dual":
+        a_s, b_s, a_h, _, h_pre_n = lucy_gate_coeffs(gates, frame_mask, bias)
+        h_all, s_all = lucy_dual_scan(a_s, b_s, a_h, h_pre_n, h0, s0)
+        return h_all, h_all[:, -1, :], s_all[:, -1, :]
     if bias is None:
         bias = torch.zeros(gates.shape[-1], dtype=torch.float32, device=gates.device)
     if route == "fused":

@@ -66,6 +66,10 @@ SIGNATURES = {
         "linear_scan_fwd": (_I, [_I] + [_P] * 4 + [_I] * 3 + [_P]),
         "linear_scan_rev": (_I, [_I] + [_P] * 3 + [_I] * 3 + [_P]),
     },
+    "lucy_cell_scan": {
+        "lucy_fused_cell_fwd": (_I, [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+        "lucy_dual_scan_fwd": (_I, [_I] + [_P] * 8 + [_I] * 3 + [_P]),
+    },
 }
 
 # ptxas -v output and wall time of each build this process ran: name → dict

@@ -1,7 +1,8 @@
-"""The first-order linear scan s_t = a_t·s_{t−1} + b_t with its adjoint:
-K5a (forward) and K5b (reverse adjoint scan).
+"""The LucyRNN cell's scans: the first-order linear scan
+s_t = a_t·s_{t−1} + b_t with its adjoint (K5a, K5b), the fused masked cell
+(K12) and the dual scan (K11).
 
-Replaces two TPU kernels of ``statecatcher_tpu/ops/lucy_pallas.py``:
+Replaces four TPU kernels of ``statecatcher_tpu/ops/lucy_pallas.py``:
 
   * K5a, ``_scan_kernel`` (:35, launched by ``_linear_scan_pallas_fwd_impl``,
     :79) → ``linear_scan_fwd`` of ``ops/csrc/linear_scan.cu``: a, b
@@ -9,26 +10,44 @@ Replaces two TPU kernels of ``statecatcher_tpu/ops/lucy_pallas.py``:
   * K5b, ``_rev_scan_kernel`` (:118, launched by
     ``_linear_scan_pallas_rev_impl``, :174) → ``linear_scan_rev``: a and the
     cotangent g (B, T, D) → λ_t = g_t + a_{t+1}·λ_{t+1} (λ past T−1 is 0) in
-    a's dtype.
+    a's dtype;
+  * K12, ``_fused_cell_kernel`` (:319, launched by ``_fused_cell_fwd_impl``,
+    :390) → ``lucy_fused_cell_fwd`` of ``ops/csrc/lucy_cell_scan.cu``: gates
+    (B, T, 7, D) with the bias already added, h0, s0 and an optional frame
+    mask (B, T) → h_all, s_all (B, T, D) in the gates' dtype: the gate chain
+    of ``ops/lucy_gates.py``, the s-scan, tanh and the h-scan in one pass;
+  * K11, ``_dual_scan_kernel`` (:527, launched by ``_dual_scan_fwd_impl``,
+    :568) → ``lucy_dual_scan_fwd``: the planes a_s, b_s, a_h, h_pre_n
+    (B, T, D), h0, s0 → h_all, s_all in a_s's dtype: the s-scan, tanh and
+    the h-scan with the offset (1 − a_h)·c.
 
-Both carry the state in float32 whatever the inputs' dtype and round only
-what they write (under bf16, s and λ are rounded on output), as the TPU
+All carry the state in float32 whatever the inputs' dtype and round only
+what they write (under bf16, s, h and λ are rounded on output), as the TPU
 kernels' float32 carry does.  ``linear_scan_pallas`` is a
-``torch.autograd.Function`` over the two, as the JAX package's
-``custom_vjp`` is: da = λ·s_{t−1}, db = λ, ds0 = λ_0·a_0.
+``torch.autograd.Function`` over K5a/K5b, as the JAX package's
+``custom_vjp`` is: da = λ·s_{t−1}, db = λ, ds0 = λ_0·a_0.  ``lucy_fused_cell``
+and ``lucy_dual_scan`` are autograd Functions whose forward is K12 or K11
+and whose backward transcribes the JAX package's ``_fused_bwd`` (:467) and
+``_dual_bwd`` (:623): two reverse scans through K5b, the rest in torch (for
+K12, the gate chain recomputed in float32 and differentiated by autograd).
 
-Bound on the card (bytes; see the source): each kernel reads two planes of
-B·T·D and writes one, 0.094 ms at (B=32, T=1598, D=512) f32.
+Bounds on the card (bytes; see the sources), at (B=32, T=1598, D=512) f32:
+K5a and K5b read two planes of B·T·D and write one, 0.094 ms; K12 reads 7
+and writes 2, 0.281 ms; K11 reads 4 and writes 2, 0.188 ms.
 
-``linear_scan_ref`` (``ops/scan.py:linear_scan_seq`` in float32) and
-``linear_scan_rev_ref`` are the plain versions.  Each wrapper runs its plain
-version only for tensors on the CPU; on the card it launches or raises.
+``linear_scan_ref`` (``ops/scan.py:linear_scan_seq`` in float32),
+``linear_scan_rev_ref``, ``lucy_fused_cell_ref`` and ``lucy_dual_scan_ref``
+are the plain versions.  Each wrapper runs its plain version only for
+tensors on the CPU; on the card it launches or raises.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
 from statecatcher_tpu_torch.ops.scan import linear_scan_seq
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,3 +173,218 @@ def linear_scan_pallas(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor) -> to
     differentiable in all three.  K5a forward and K5b backward on CUDA
     tensors, their plain versions on CPU tensors."""
     return _LinearScan.apply(a, b, s0)
+
+
+# --------------------------------------------------------------------------- #
+# K12 and K11: plain versions
+# --------------------------------------------------------------------------- #
+def _lane_major(gates: torch.Tensor) -> torch.Tensor:
+    """(B, T, 7, D) gates → the same memory viewed as (B, T, 7·D)."""
+    B, T, G, D = gates.shape
+    return gates.reshape(B, T, G * D)
+
+
+def lucy_fused_cell_ref(gates: torch.Tensor, h0: torch.Tensor, s0: torch.Tensor,
+                        frame_mask: Optional[torch.Tensor] = None):
+    """Plain K12: gates (B, T, 7, D) with the bias added → (h_all, s_all) in
+    the gates' dtype, computed in float32 (float64 for float64 gates)."""
+    cdt = torch.promote_types(gates.dtype, torch.float32)
+    a_s, b_s, a_h, bh_c, h_pre_n = lucy_gate_coeffs(_lane_major(gates.to(cdt)), frame_mask)
+    s_all = linear_scan_seq(a_s, b_s, s0.to(cdt))
+    c = torch.tanh(h_pre_n + s_all)
+    h_all = linear_scan_seq(a_h, bh_c * c, h0.to(cdt))
+    return h_all.to(gates.dtype), s_all.to(gates.dtype)
+
+
+def lucy_dual_scan_ref(a_s, b_s, a_h, h_pre, h0, s0):
+    """Plain K11: the s-scan, c = tanh(h_pre + s), the h-scan with offset
+    (1 − a_h)·c → (h_all, s_all) in a_s's dtype, computed in float32
+    (float64 for float64 planes)."""
+    cdt = torch.promote_types(a_s.dtype, torch.float32)
+    s_all = linear_scan_seq(a_s.to(cdt), b_s.to(cdt), s0.to(cdt))
+    a_h = a_h.to(cdt)
+    c = torch.tanh(h_pre.to(cdt) + s_all)
+    h_all = linear_scan_seq(a_h, (1.0 - a_h) * c, h0.to(cdt))
+    return h_all.to(a_s.dtype), s_all.to(a_s.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# K12 and K11: kernel launchers
+# --------------------------------------------------------------------------- #
+def _check_carry(h0, s0, B, D, dev):
+    for name, t in (("h0", h0), ("s0", s0)):
+        if t.shape != (B, D) or t.device != dev:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} must be ({B}, {D}) on {dev}")
+    return h0.to(torch.float32).contiguous(), s0.to(torch.float32).contiguous()
+
+
+def _fused_cell_kernel(gates, h0, s0, frame_mask):
+    """Launch K12 (``lucy_fused_cell_fwd``) on the current stream."""
+    if gates.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gates must be float32 or bfloat16, got {gates.dtype}")
+    if gates.ndim != 4 or gates.shape[2] != 7 or min(gates.shape) == 0:
+        raise ValueError(f"gates must be a non-empty (B, T, 7, D), got {tuple(gates.shape)}")
+    B, T, _, D = gates.shape
+    if B * D > 2**31 - 1:
+        raise ValueError(f"B·D = {B * D} does not fit the grid")
+    if not gates.is_contiguous():
+        raise ValueError("gates must be contiguous")
+    dev = gates.device
+    h32, s32 = _check_carry(h0, s0, B, D, dev)
+    if frame_mask is not None:
+        if frame_mask.dtype != torch.bool or frame_mask.shape != (B, T) or frame_mask.device != dev:
+            raise ValueError(f"frame_mask {tuple(frame_mask.shape)} {frame_mask.dtype} on "
+                             f"{frame_mask.device} must be bool ({B}, {T}) on {dev}")
+        frame_mask = frame_mask.contiguous()
+    from statecatcher_tpu_torch.ops._kernels import library
+
+    h_all = torch.empty((B, T, D), dtype=gates.dtype, device=dev)
+    s_all = torch.empty_like(h_all)
+    with torch.cuda.device(dev):
+        err = library("lucy_cell_scan").lucy_fused_cell_fwd(
+            _DTYPE_CODE[gates.dtype], gates.data_ptr(),
+            None if frame_mask is None else frame_mask.data_ptr(), h32.data_ptr(),
+            s32.data_ptr(), h_all.data_ptr(), s_all.data_ptr(), B, T, D, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"lucy_fused_cell_fwd launch failed: cudaError {err}")
+    lucy_fused_cell.launches += 1
+    return h_all, s_all
+
+
+def _dual_scan_kernel(a_s, b_s, a_h, h_pre, h0, s0):
+    """Launch K11 (``lucy_dual_scan_fwd``) on the current stream."""
+    B, T, D = _check(a_s, [("b_s", b_s), ("a_h", a_h), ("h_pre", h_pre)])
+    dev = a_s.device
+    h32, s32 = _check_carry(h0, s0, B, D, dev)
+    planes = [x.contiguous() for x in (a_s, b_s, a_h, h_pre)]
+    from statecatcher_tpu_torch.ops._kernels import library
+
+    h_all = torch.empty_like(planes[0])
+    s_all = torch.empty_like(planes[0])
+    with torch.cuda.device(dev):
+        err = library("lucy_cell_scan").lucy_dual_scan_fwd(
+            _DTYPE_CODE[a_s.dtype], *(x.data_ptr() for x in planes), h32.data_ptr(),
+            s32.data_ptr(), h_all.data_ptr(), s_all.data_ptr(), B, T, D, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"lucy_dual_scan_fwd launch failed: cudaError {err}")
+    lucy_dual_scan.launches += 1
+    return h_all, s_all
+
+
+# --------------------------------------------------------------------------- #
+# K12 and K11: autograd Functions
+# --------------------------------------------------------------------------- #
+def _prev(x0, x_all, dt):
+    """(x0, x_0 … x_{T−2}): each step's incoming state, in ``dt``."""
+    return torch.cat([x0.to(dt)[:, None], x_all.to(dt)[:, :-1]], dim=1)
+
+
+class _FusedMaskedCell(torch.autograd.Function):
+    """K12 forward; backward as the JAX package's ``_fused_bwd``."""
+
+    @staticmethod
+    def forward(ctx, gates, h0, s0, frame_mask):
+        if gates.is_cuda:
+            h_all, s_all = _fused_cell_kernel(gates, h0, s0, frame_mask)
+        else:
+            h_all, s_all = lucy_fused_cell_ref(gates, h0, s0, frame_mask)
+        ctx.save_for_backward(gates, h0, s0, h_all, s_all, frame_mask)
+        ctx.set_materialize_grads(False)
+        return h_all, s_all
+
+    @staticmethod
+    def backward(ctx, g_h, g_s):
+        gates, h0, s0, h_all, s_all, frame_mask = ctx.saved_tensors
+        if g_h is None and g_s is None:
+            return None, None, None, None
+        cdt = torch.promote_types(gates.dtype, torch.float32)
+        g_h = torch.zeros_like(h_all, dtype=cdt) if g_h is None else g_h.to(cdt)
+        g_s = torch.zeros_like(s_all, dtype=cdt) if g_s is None else g_s.to(cdt)
+        # the gate chain recomputed in float32, its VJP by autograd
+        with torch.enable_grad():
+            g32 = gates.detach().to(cdt).requires_grad_()
+            coeffs = lucy_gate_coeffs(_lane_major(g32), frame_mask)
+        a_s, _, a_h, bh_c, h_pre_n = (x.detach() for x in coeffs)
+        c = torch.tanh(h_pre_n + s_all.to(cdt))
+
+        # h-recurrence adjoint: h_t = a_h·h_{t−1} + bh_c·c_t
+        lam_h = linear_scan_rev(a_h, g_h)
+        d_a_h = lam_h * _prev(h0, h_all, cdt)
+        d_bhc = lam_h * c
+        d_pre_s = (lam_h * bh_c) * (1.0 - c * c)      # c = tanh(h_pre_n + s)
+        dh0 = lam_h[:, 0] * a_h[:, 0]
+        # s-recurrence adjoint: the external g_s and the path through c
+        lam_s = linear_scan_rev(a_s, g_s + d_pre_s)
+        d_a_s = lam_s * _prev(s0, s_all, cdt)
+        ds0 = lam_s[:, 0] * a_s[:, 0]
+        (d_gates,) = torch.autograd.grad(coeffs, g32, (d_a_s, lam_s, d_a_h, d_bhc, d_pre_s))
+        return d_gates.to(gates.dtype), dh0.to(h0.dtype), ds0.to(s0.dtype), None
+
+
+def lucy_fused_cell(gates: torch.Tensor, h0: torch.Tensor, s0: torch.Tensor,
+                    frame_mask: Optional[torch.Tensor] = None):
+    """Fused 7-gate cell (K12): gates (B, T, 7, D) float32 or bfloat16
+    (float64 on the CPU) with the bias already added, h0, s0 (B, D), an
+    optional bool frame mask (B, T) → (h_all, s_all) (B, T, D) in the gates'
+    dtype, differentiable in gates, h0 and s0.
+
+    On CUDA tensors the forward launches ``lucy_fused_cell_fwd`` on the
+    current stream (counted in ``lucy_fused_cell.launches``) and the backward
+    K5b twice; on CPU tensors both run their plain versions."""
+    return _FusedMaskedCell.apply(gates, h0, s0, frame_mask)
+
+
+lucy_fused_cell.launches = 0
+
+
+class _DualScan(torch.autograd.Function):
+    """K11 forward; backward as the JAX package's ``_dual_bwd``."""
+
+    @staticmethod
+    def forward(ctx, a_s, b_s, a_h, h_pre, h0, s0):
+        if a_s.is_cuda:
+            h_all, s_all = _dual_scan_kernel(a_s, b_s, a_h, h_pre, h0, s0)
+        else:
+            h_all, s_all = lucy_dual_scan_ref(a_s, b_s, a_h, h_pre, h0, s0)
+        ctx.save_for_backward(a_s, a_h, h_pre, h0, s0, h_all, s_all)
+        ctx.b_dtype = b_s.dtype
+        ctx.set_materialize_grads(False)
+        return h_all, s_all
+
+    @staticmethod
+    def backward(ctx, g_h, g_s):
+        a_s, a_h, h_pre, h0, s0, h_all, s_all = ctx.saved_tensors
+        if g_h is None and g_s is None:
+            return (None,) * 6
+        cdt = torch.promote_types(a_s.dtype, torch.float32)
+        g_h = torch.zeros_like(h_all, dtype=cdt) if g_h is None else g_h.to(cdt)
+        g_s = torch.zeros_like(s_all, dtype=cdt) if g_s is None else g_s.to(cdt)
+        a_s32, a_h32 = a_s.to(cdt), a_h.to(cdt)
+        c = torch.tanh(h_pre.to(cdt) + s_all.to(cdt))
+
+        # h-recurrence adjoint: h_t = a_h·h_{t−1} + (1 − a_h)·c_t
+        lam_h = linear_scan_rev(a_h32, g_h)
+        d_a_h = lam_h * (_prev(h0, h_all, cdt) - c)
+        d_pre = (lam_h * (1.0 - a_h32)) * (1.0 - c * c)   # c = tanh(h_pre + s)
+        dh0 = lam_h[:, 0] * a_h32[:, 0]
+        # s-recurrence adjoint: the external g_s and the path through c
+        lam_s = linear_scan_rev(a_s32, g_s + d_pre)
+        d_a_s = lam_s * _prev(s0, s_all, cdt)
+        ds0 = lam_s[:, 0] * a_s32[:, 0]
+        return (d_a_s.to(a_s.dtype), lam_s.to(ctx.b_dtype), d_a_h.to(a_h.dtype),
+                d_pre.to(h_pre.dtype), dh0.to(h0.dtype), ds0.to(s0.dtype))
+
+
+def lucy_dual_scan(a_s: torch.Tensor, b_s: torch.Tensor, a_h: torch.Tensor,
+                   h_pre: torch.Tensor, h0: torch.Tensor, s0: torch.Tensor):
+    """Dual scan (K11): a_s, b_s, a_h, h_pre_n (B, T, D) in one dtype,
+    float32 or bfloat16 (float64 on the CPU), h0, s0 (B, D) → (h_all, s_all)
+    (B, T, D) in a_s's dtype, differentiable in all six.
+
+    On CUDA tensors the forward launches ``lucy_dual_scan_fwd`` on the
+    current stream (counted in ``lucy_dual_scan.launches``) and the backward
+    K5b twice; on CPU tensors both run their plain versions."""
+    return _DualScan.apply(a_s, b_s, a_h, h_pre, h0, s0)
+
+
+lucy_dual_scan.launches = 0

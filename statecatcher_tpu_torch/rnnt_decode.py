@@ -8,7 +8,7 @@ is a one-token embedding, so the context is the last emitted token, looked up
 in a precomputed (V, J) table: each emission is one (B, J) × (J, V) product.
 Everything stays on the device (no host sync per frame or symbol); the state
 (last_token, out_buf, out_len) is the streaming twin of the encoder carry.
-Beam search (``rnnt_beam_*``) is not ported yet (ROADMAP.md queue 1 item 6).
+Beam search (``rnnt_beam_*``) is not ported yet (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations

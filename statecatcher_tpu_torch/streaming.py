@@ -52,7 +52,7 @@ class StreamingRecognizer:
                  device="cuda"):
         if decoder not in ("greedy", "rnnt"):
             raise NotImplementedError(
-                f"decoder={decoder!r} is not ported yet (ROADMAP.md queue 1 item 5, CTC "
+                f"decoder={decoder!r} is not ported yet (ROADMAP.md queue 1 item 3, CTC "
                 "prefix beam); 'greedy' and 'rnnt' are")
         if decoder == "rnnt" and getattr(model, "mode", None) != "rnnt":
             raise ValueError("decoder='rnnt' needs a SpeechModel built with mode='rnnt'")
@@ -176,6 +176,14 @@ class StreamingRecognizer:
         if self.decoder == "rnnt":
             return list(self._committed)
         return list(self._tokens)
+
+    @property
+    def committed_text(self) -> str:
+        """``committed_tokens`` decoded (ids joined by spaces without a
+        tokenizer)."""
+        if self.tokenizer is None:
+            return " ".join(map(str, self.committed_tokens))
+        return self.tokenizer.decode_ids(self.committed_tokens)
 
     @property
     def text(self) -> str:

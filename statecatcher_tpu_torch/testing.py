@@ -4,11 +4,14 @@
 running this module measures why that matters, on the CPU by default:
 
     python -m statecatcher_tpu_torch.testing [--seconds 10] [--device cpu]
+        [--variant triton|native]
 
-It builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC), gives it
-random weights with and without the gate-bias offsets, runs the same
-features through it in float32 and in float64, and prints how often the
-greedy frames differ and the edit distance of the greedy tokens.
+It builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC; the 7-gate
+cell, or with ``--variant native`` the 6-gate one), gives it random weights
+(for the 7-gate cell with and without the gate-bias offsets; the native
+cell has no gate_proj), runs the same features through it in float32 and in
+float64, and prints how often the greedy frames differ and the edit
+distance of the greedy tokens.
 """
 
 from __future__ import annotations
@@ -92,15 +95,16 @@ def _as_float64(model: torch.nn.Module) -> torch.nn.Module:
     return m64
 
 
-def roundoff_report(seconds: float, device: str, seed: int = 0) -> None:
+def roundoff_report(seconds: float, device: str, seed: int = 0, variant: str = "triton") -> None:
     from statecatcher_tpu_torch.config import Config
     from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
     from statecatcher_tpu_torch.frontend import compute_features
     from statecatcher_tpu_torch.models.speech import build_speech_model
 
-    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn"])
+    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn",
+                                    "--model.lucyrnn.variant", variant])
     audio = synth_audio(np.random.default_rng(seed + 2), 2, int(seconds * 16000))
-    for offset in (False, True):
+    for offset in ((False, True) if variant == "triton" else (True,)):
         model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=device,
                                    generator=torch.Generator().manual_seed(seed))
         randomize_(model, seed + 1, offset_gate_biases=offset)
@@ -112,7 +116,8 @@ def roundoff_report(seconds: float, device: str, seed: int = 0) -> None:
         tok32 = ctc_greedy_decode_to_lists(lp32, lens)
         tok64 = ctc_greedy_decode_to_lists(lp64, lens)
         d = (lp32 - lp64).abs()
-        print(f"gate-bias offsets {'on ' if offset else 'off'}: float32 vs float64 over "
+        what = f"gate-bias offsets {'on ' if offset else 'off'}" if variant == "triton" else variant
+        print(f"{what}: float32 vs float64 over "
               f"2 × {seconds} s: greedy frames equal "
               f"{(lp32.argmax(-1) == lp64.argmax(-1)).double().mean().item():.4%}; "
               f"max|Δ log-probs| {d.max().item():.3e} (median {d.median().item():.3e}, "
@@ -125,5 +130,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--variant", choices=("triton", "native"), default="triton")
     args = ap.parse_args()
-    roundoff_report(args.seconds, args.device)
+    roundoff_report(args.seconds, args.device, variant=args.variant)

@@ -10,9 +10,11 @@ drops the ini file's ``-n auto``, which needs xdist.)
 Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
 and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
 adjoint), K6a and K6b (the fused RNN-T joint's forward and backward), K7a
-and K7b (the transducer α and β lattice), K8a and K8b (the banded joint) and
-the banded α and β lattice, each against its plain version, and the
-autograd Functions' gradients on the card against the CPU.
+and K7b (the transducer α and β lattice), K8a and K8b (the banded joint),
+the banded α and β lattice, K9a, K9b and K10 (the mLSTM), K12 (the fused
+masked cell) and K11 (the dual scan), each against its plain version; the
+autograd Functions' gradients on the card against the CPU; and the xLSTM
+and native LucyRNN encoders on the card against the CPU.
 
 Tolerances of the fused cell forward (f32, unit-normal gates):
   * h is bounded by 1: atol 2e-5.
@@ -794,3 +796,152 @@ def test_xlstm_encoder_on_card_matches_cpu(cuda_device, impl):
     moved = [c.launches - k for c, k in zip(counters, n)]
     want = {"pallas": [0, 0, 4]}.get(impl, [4, 4, 0])
     assert moved == want, moved
+
+
+def _frame_mask(B, T, dev):
+    """Row 1 ends early, row 0 has a hole."""
+    mask = torch.ones((B, T), dtype=torch.bool)
+    mask[1 % B, (2 * T) // 3:] = False
+    mask[0, T // 2] = False
+    return mask.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 45, 128, torch.float32), (3, 33, 100, torch.float32),
+                                         (1, 32, 512, torch.float32), (4, 64, 256, torch.bfloat16)])
+def test_fused_cell_kernel_matches_plain(cuda_device, B, T, D, dtype, masked):
+    """K12 against its plain version: f32 to the fused cell's tolerances
+    (``assert_cell_close``); bf16 gates to a bf16 step, as K1's bf16 test."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_fused_cell, lucy_fused_cell_ref
+
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(30 + T, B, T, D))
+    g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
+    mask = _frame_mask(B, T, cuda_device) if masked else None
+    before = lucy_fused_cell.launches
+    with torch.inference_mode():
+        h, s = lucy_fused_cell(g4, h0, s0, mask)
+        h_ref, s_ref = lucy_fused_cell_ref(g4, h0, s0, mask)
+    torch.cuda.synchronize()
+    assert lucy_fused_cell.launches == before + 1
+    assert h.dtype == s.dtype == dtype
+    h, s, h_ref, s_ref = (t.float().cpu().numpy() for t in (h, s, h_ref, s_ref))
+    if dtype == torch.float32:
+        assert_cell_close(h, s, h_ref, s_ref)
+    else:
+        np.testing.assert_allclose(h, h_ref, rtol=2e-2, atol=2e-2)
+        assert (np.abs(s - s_ref) <= 1e-3 * np.abs(s_ref).max() + 1e-2 * np.abs(s_ref)).all()
+    if masked:                                               # row 1 frozen past its end
+        end = (2 * T) // 3
+        assert (h[1 % B, end:] == h[1 % B, end - 1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 45, 128, torch.float32), (3, 33, 100, torch.float32),
+                                         (4, 64, 256, torch.bfloat16)])
+def test_dual_scan_kernel_matches_plain(cuda_device, B, T, D, dtype):
+    """K11 against its plain version on the planes of the masked gate chain,
+    with the tolerances of the K12 test."""
+    from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_dual_scan_ref
+
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(40 + T, B, T, D))
+    a_s, b_s, a_h, _, h_pre = (x.to(dtype) for x in lucy_gate_coeffs(
+        gates, _frame_mask(B, T, cuda_device), bias))
+    before = lucy_dual_scan.launches
+    with torch.inference_mode():
+        h, s = lucy_dual_scan(a_s, b_s, a_h, h_pre, h0, s0)
+        h_ref, s_ref = lucy_dual_scan_ref(a_s, b_s, a_h, h_pre, h0, s0)
+    torch.cuda.synchronize()
+    assert lucy_dual_scan.launches == before + 1
+    assert h.dtype == s.dtype == dtype
+    h, s, h_ref, s_ref = (t.float().cpu().numpy() for t in (h, s, h_ref, s_ref))
+    if dtype == torch.float32:
+        assert_cell_close(h, s, h_ref, s_ref)
+    else:
+        np.testing.assert_allclose(h, h_ref, rtol=2e-2, atol=2e-2)
+        assert (np.abs(s - s_ref) <= 1e-3 * np.abs(s_ref).max() + 1e-2 * np.abs(s_ref)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,masked,dtype", [
+    ("pallas-fused", True, torch.float32), ("auto-fused", False, torch.float32),
+    ("pallas-fused", True, torch.bfloat16), ("pallas-dual", True, torch.float32),
+    ("pallas-dual", False, torch.float32)])
+def test_k12_and_k11_cells_grads_on_card_match_cpu(cuda_device, impl, masked, dtype):
+    """``lucy_cell_parallel`` with ``impl`` on the card (K12 or K11 forward,
+    the backward's two adjoint scans through K5b) against the CPU (plain
+    versions), values and gradients of gates, bias, h0 and s0.  f32 to
+    ``assert_grad_close``'s 1e-4 relative plus 1e-6 of the scale; bf16
+    gates, h0 and s0 to a bf16 step (2e-2 relative plus 1e-3 of the
+    scale)."""
+    from statecatcher_tpu_torch.models.lucyrnn import lucy_cell_parallel
+    from statecatcher_tpu_torch.ops.lucy_pallas import (
+        linear_scan_rev,
+        lucy_dual_scan,
+        lucy_fused_cell,
+    )
+
+    B, T, D = 3, 40, 64
+    gates, bias, h0, s0 = conditioned_cell_data(50, B, T, D)
+    w = np.random.default_rng(51).standard_normal((B, T, D)).astype(np.float32)
+    counter = lucy_dual_scan if impl == "pallas-dual" else lucy_fused_cell
+    n = (counter.launches, linear_scan_rev.launches)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xs = [torch.from_numpy(x).to(dev).to(dtype if i != 1 else torch.float32).requires_grad_()
+              for i, x in enumerate((gates, bias, h0, s0))]
+        h_all, h_T, s_T = lucy_cell_parallel(
+            xs[0], xs[2], xs[3], impl=impl, bias=xs[1],
+            frame_mask=_frame_mask(B, T, dev) if masked else None)
+        ((h_all.float() * torch.from_numpy(w).to(dev)).sum() + s_T.float().sum()).backward()
+        outs.append([t.detach().float().cpu().numpy() for t in (h_all, s_T)] +
+                    [x.grad.float().cpu().numpy() for x in xs])
+    assert (counter.launches, linear_scan_rev.launches) == (n[0] + 1, n[1] + 2)
+    tol = {} if dtype == torch.float32 else dict(rtol=2e-2, scale_tol=1e-3)
+    for name, a, c in zip(("h_all", "s_T", "gates", "bias", "h0", "s0"), outs[1], outs[0]):
+        assert_grad_close(a, c, name, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,decay", [(False, "learned"), (True, "prefix_sum")])
+def test_native_encoder_on_card_matches_cpu(cuda_device, fused, decay):
+    """The native LucyRNN (2 layers × 64, masked) on the card (K5a, K5b)
+    against the CPU over two carried segments: logits and carry within 1e-4
+    of their scale, parameter gradients within 1e-3 relative plus 1e-4 of
+    each one's largest value (the xLSTM encoder test's tolerances)."""
+    from statecatcher_tpu_torch.config import Config
+    from statecatcher_tpu_torch.models.asr import build_model, init_carry
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, linear_scan_rev
+
+    ov = ["--model.encoder", "lucyrnn", "--model.lucyrnn.variant", "native",
+          "--model.hidden_size", "64", "--model.num_layers", "2", "--model.vocab_size", "40",
+          "--model.lucyrnn.fused_ops", str(fused).lower(), "--model.lucyrnn.decay_mode", decay,
+          "--model.lucyrnn.lambda_decay", "0.01", "--model.lucyrnn.mask_state_updates", "true"]
+    cfg = Config().apply_overrides(ov)
+    rng = np.random.default_rng(5)
+    feats = [torch.from_numpy(rng.standard_normal((2, 75, 24)).astype(np.float32))
+             for _ in range(2)]
+    n = (linear_scan_fwd.launches, linear_scan_rev.launches)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = build_model(cfg.model, 24, device=dev, generator=torch.Generator().manual_seed(0))
+        w = model.encoder.output_proj.weight                 # zero at init
+        with torch.no_grad():
+            w.copy_(0.1 * torch.randn(w.shape, generator=torch.Generator().manual_seed(1)))
+        carry, outs, loss = init_carry(cfg.model, 2, device=dev), [], 0.0
+        for k, x in enumerate(feats):
+            mask = _frame_mask(2, 75, dev) if k == 1 else None
+            logits, carry = model(x.to(dev), carry, mask)
+            outs.append(logits)
+            loss = loss + (logits * torch.linspace(-1, 1, 40, device=dev)).sum()
+        loss.backward()
+        runs.append(([o.detach().cpu() for o in outs] + [v.detach().cpu() for v in carry.values()],
+                     {k: p.grad.cpu().numpy() for k, p in model.named_parameters()
+                      if p.grad is not None}))
+    assert (linear_scan_fwd.launches - n[0], linear_scan_rev.launches - n[1]) == (8, 8)
+    assert runs[1][0][2].shape == (2, 2, 64)                   # carry (B, L, D)
+    assert_scaled_close(runs[1][0], runs[0][0], ("logits 0", "logits 1", "h", "s"), 1e-4)
+    assert runs[1][1].keys() == runs[0][1].keys()
+    for k, a in runs[1][1].items():
+        assert_grad_close(a, runs[0][1][k], k, rtol=1e-3, scale_tol=1e-4)

@@ -102,9 +102,19 @@ def test_cell_route_sends_every_scan_to_the_kernel_on_cuda(impl):
 
 @pytest.mark.parametrize("impl", ["pallas-dual", "pallas-fused", "auto-fused", "sp"])
 def test_cell_route_raises_for_unported_impls_on_cuda(impl):
-    assert cell_route(impl, on_cuda=False, masked=False) == "fused"
-    assert cell_route(impl, on_cuda=False, masked=True) == "split"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cell_route(impl, on_cuda=True, masked=False)
+    """Only "sp" (multi-GPU) is left unported: it raises on the card.  The
+    fused masked cell K12 ("pallas-fused", "auto-fused") and the dual scan
+    K11 ("pallas-dual") take their own routes, masked or not, on both
+    devices."""
+    if impl == "sp":
+        assert cell_route(impl, on_cuda=False, masked=False) == "fused"
+        assert cell_route(impl, on_cuda=False, masked=True) == "split"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cell_route(impl, on_cuda=True, masked=False)
+    else:
+        want = "dual" if impl == "pallas-dual" else "k12"
+        for on_cuda in (False, True):
+            for masked in (False, True):
+                assert cell_route(impl, on_cuda=on_cuda, masked=masked) == want
     with pytest.raises(ValueError):
         cell_route("bogus", on_cuda=False, masked=False)

@@ -77,12 +77,19 @@ def test_masked_ctc_step_matches_jax_in_lockstep(monkeypatch):
 @pytest.mark.parametrize("impl", ["auto", "assoc", "chunked", "xla-scan", "fused-lm@32",
                                   "pallas", "pallas-dual", "pallas-fused", "auto-fused", "sp"])
 def test_cell_route_on_the_card(impl):
-    """On the card a frame mask takes the split path (K5) for every ported
-    impl, "pallas" always does; the impls without a ported kernel raise."""
-    if impl in ("pallas-dual", "pallas-fused", "auto-fused", "sp"):
+    """On the card a frame mask takes the split path (K5) for every scan
+    algorithm, "pallas" always does; "pallas-fused"/"auto-fused" take K12
+    and "pallas-dual" K11, masked or not; "sp", whose kernel is not ported,
+    raises."""
+    if impl == "sp":
         for masked in (False, True):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 cell_route(impl, on_cuda=True, masked=masked)
+        return
+    if impl in ("pallas-dual", "pallas-fused", "auto-fused"):
+        for masked in (False, True):
+            assert cell_route(impl, on_cuda=True, masked=masked) == (
+                "dual" if impl == "pallas-dual" else "k12")
         return
     assert cell_route(impl, on_cuda=True, masked=True) == "split"
     assert cell_route(impl, on_cuda=True, masked=False) == ("split" if impl == "pallas"

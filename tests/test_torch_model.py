@@ -148,10 +148,10 @@ def test_carry_layout_and_dtype():
 @pytest.mark.parametrize("override", [
     ["--model.encoder", "lstm"],
     ["--model.encoder", "rwkv"],
-    ["--model.encoder", "lucyrnn", "--model.lucyrnn.variant", "native"],
 ])
 def test_unported_models_raise(override):
-    # xlstm is ported (tests/test_torch_xlstm.py); these still raise
+    # xlstm (tests/test_torch_xlstm.py) and LucyRNN's native variant
+    # (tests/test_torch_lucyrnn_native.py) are ported; these still raise
     cfg = Config().apply_overrides(override)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.model, F, device="cpu")

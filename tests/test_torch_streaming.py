@@ -102,6 +102,30 @@ def test_streaming_matches_jax_recognizer(setup, feed):
     assert rec.text == jrec.text
 
 
+def test_committed_text_matches_jax_recognizer(setup):
+    """Greedy CTC commits every emitted token: ``committed_text`` is the ids
+    joined by spaces without a tokenizer and ``decode_ids`` with one, as in
+    JAX, mid-stream and after ``finish``."""
+    from statecatcher_tpu.tokenizer.char import CharTokenizer as JCharTokenizer
+    from statecatcher_tpu_torch.tokenizer.char import CharTokenizer
+
+    cfg, model, (jcfg, jmodel, params), audio = setup
+    texts = ["abc", "def"]                               # 7 ids, the vocab of 8
+    for tok, jtok in ((None, None), (CharTokenizer.train(texts), JCharTokenizer.train(texts))):
+        rec = StreamingRecognizer(model, cfg, chunk_frames=16, tokenizer=tok, device="cpu")
+        jrec = JStreamingRecognizer(jmodel, params, jcfg, chunk_frames=16, tokenizer=jtok)
+        half = len(audio) // 2
+        for part in (audio[:half], audio[half:]):
+            rec.accept_waveform(part)
+            jrec.accept_waveform(part)
+            assert rec.committed_text == jrec.committed_text
+        rec.finish()
+        jrec.finish()
+        assert len(jrec.committed_tokens) > 5
+        assert rec.committed_tokens == jrec.committed_tokens
+        assert rec.committed_text == jrec.committed_text
+
+
 def test_unported_decoders_raise(setup):
     cfg, model, _, _ = setup
     with pytest.raises(NotImplementedError, match="not ported"):
