@@ -110,6 +110,7 @@ import ast
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -210,6 +211,7 @@ NATIVE = ["--model.lucyrnn.variant", "native"]
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 495e12                          # H100 SXM, TF32 on the tensor cores, dense
 # Operations per (b, t, d) element of the fused cell, counted from the kernel
 # source: 7 bias adds, rms_rz 6, rms_kv² 5, its sqrt 1, z 5, decay 8,
 # alpha 8, h_pre 4, kv 5, s-step 3, tanh 2, h-step 4 (sqrt, divide, exp,
@@ -236,14 +238,47 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")                 # ignored by git
 
 
-def joint_ops(R: int, V: int, J: int, backward: bool) -> float:
-    """Operations of K6 over R rows and V columns.  K6a per (row, v): the
-    J-long contraction (2J), the bias add, and the logsumexp's compare, exp
-    and add (5).  K6b: the logits once more, as they are not saved (2J),
-    d_joint and d_K (2 · 2J), with the softmax, d_logits and d_bias (~10).
-    The kernel recomputes the logits a second time, in its d_K kernel: its
-    design's cost, not counted."""
-    return R * V * ((6 * J + 10) if backward else (2 * J + 5))
+def joint_bound_ms(R: int, V: int, J: int, dtype: torch.dtype, nbytes: float,
+                   backward: bool) -> tuple[float, str]:
+    """The least time of K6/K8 over R rows and V columns: the larger of the
+    bytes over the memory rate and the operations over their rates.  Per
+    (row, v) the contractions take 2J (K6a: the logits) or 6J (K6b: the
+    logits once more, as they are not saved, d_joint and d_K), at the card's
+    fastest rate for the inputs' accuracy: bf16 on the tensor cores, f32 as
+    three TF32 products (3xTF32: a third of the TF32 rate); the elementwise
+    work (K6a: the bias add and the logsumexp's compare, exp and add, 5;
+    K6b: the softmax, d_logits and d_bias, ~10) at the f32 rate outside the
+    tensor cores.  The two overlap, so the larger term bounds.  K6b's d_K
+    kernel recomputes the logits a second time: its design's cost, not
+    counted."""
+    per_j, elementwise = (6, 10) if backward else (2, 5)
+    contraction_peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S / 3
+    t_ops = max(R * V * per_j * J / contraction_peak, R * V * elementwise / F32_OPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def joint_sass_hmma(lib: str) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per kernel of the built library
+    ``lib`` whose name holds "joint_", from ``cuobjdump -sass``."""
+    nvcc = _kernels._nvcc()
+    out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                          str(_kernels._target(lib))], capture_output=True, text=True,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            mangled = line.split("Function : ")[1]
+            base = re.search(r"\d(joint_[a-z_]*kernel)", mangled)    # after its length
+            args = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+            name = None if base is None else (
+                base.group(1) + (f"<{args.group(1)}{', bf16' if args.group(2) == '1' else ''}>"
+                                 if args else ""))
+            if name is not None:
+                counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def log(msg: str) -> None:
@@ -1018,12 +1053,10 @@ def phase_rnnt_kernels(dev) -> dict:
                               warmup=1)
             plain_b = cuda_ms(lambda: joint_blank_emit_bwd_ref(*bwd_args), 2, warmup=1)
         R, es = B * T * (U + 1), torch.finfo(dtype).bits // 8
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         inputs = (B * T + B * (U + 1)) * J * es + (J + 1) * V * 4 + B * U * 4
-        bound_f, by_f = bytes_bound_ms(inputs + (3 * R - B * T) * 4, joint_ops(R, V, J, False),
-                                       peak)
-        bound_b, by_b = bytes_bound_ms(inputs + (3 * R - B * T) * 4 + (B * T + B * (U + 1)) * J * 4
-                                       + (J + 1) * V * 4, joint_ops(R, V, J, True), peak)
+        bound_f, by_f = joint_bound_ms(R, V, J, dtype, inputs + (3 * R - B * T) * 4, False)
+        bound_b, by_b = joint_bound_ms(R, V, J, dtype, inputs + (3 * R - B * T) * 4
+                                       + (B * T + B * (U + 1)) * J * 4 + (J + 1) * V * 4, True)
         log(f"[K6] {label} (B={B}, T={T}, U={U}, J={J}, V={V}, blank {blank_id}): fwd max|Δ| "
             f"{err_f:.3e}, bwd max|Δ| {err_b:.3e}; K6a {ms_f:.4f} ms (plain {plain_f:.2f}, bound "
             f"{bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K6b {ms_b:.4f} ms (plain "
@@ -1162,11 +1195,10 @@ def phase_band_kernels(dev) -> dict:
                                                                   Tb), 2, warmup=1)
             plain_b = cuda_ms(lambda: joint_blank_emit_banded_bwd_ref(*bwd_args), 2, warmup=1)
         R, es = B * Tp * Wp, torch.finfo(dtype).bits // 8
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         inputs = (B * T + B * (U + 1)) * J * es + (J + 1) * V * 4 + B * U * 4 + o.numel() * 4
-        bound_f, by_f = bytes_bound_ms(inputs + 3 * R * 4, joint_ops(R, V, J, False), peak)
-        bound_b, by_b = bytes_bound_ms(inputs + 3 * R * 4 + (B * T + B * (U + 1)) * J * 4
-                                       + (J + 1) * V * 4, joint_ops(R, V, J, True), peak)
+        bound_f, by_f = joint_bound_ms(R, V, J, dtype, inputs + 3 * R * 4, False)
+        bound_b, by_b = joint_bound_ms(R, V, J, dtype, inputs + 3 * R * 4
+                                       + (B * T + B * (U + 1)) * J * 4 + (J + 1) * V * 4, True)
         log(f"[K8] {label} (B={B}, T={T}, U={U}, band {band}: Wp={Wp}, Tp={Tp}; J={J}, V={V}): "
             f"fwd max|Δ| {err_f:.3e}, bwd max|Δ| {err_b:.3e}; K8a {ms_f:.4f} ms (plain "
             f"{plain_f:.2f}, bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K8b "
@@ -1661,6 +1693,15 @@ def main() -> int:
         usage = [ln.strip() for ln in info["ptxas"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {lib}: nvcc {info['seconds']:.1f} s; " + " | ".join(usage))
+
+    # the joint's backward kernels run on the tensor cores; its forward does not
+    for lib in ("rnnt_joint", "rnnt_band"):
+        hmma = joint_sass_hmma(lib)
+        log(f"[build] {lib} SASS, HMMA instructions per kernel: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+        bwd = {k: v for k, v in hmma.items() if "bwd_rows_mma" in k or "bwd_dk_mma" in k}
+        if len(bwd) != 8 or min(bwd.values()) == 0:
+            raise AssertionError(f"{lib}: the backward's kernels hold no HMMA: {hmma}")
 
     k1 = phase_kernel(dev)
 

@@ -6,9 +6,9 @@
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_band.py:
 //   K8a  joint_fwd_kernel      <- _fwd_kernel (:80), launched by _banded_fwd_impl (:157)
-//   K8b  joint_bwd_rows_kernel <- _bwd_kernel (:100), launched by _banded_core_bwd (:206)
-//        joint_bwd_dk_kernel
-//        band_dpred_kernel
+//   K8b  joint_bwd_kprep_kernel, joint_bwd_rows_mma_kernel, joint_bwd_rowrec_kernel,
+//        joint_bwd_dk_mma_kernel, band_dpred_kernel
+//        <- _bwd_kernel (:100), launched by _banded_core_bwd (:206)
 //
 //   o      (B, nblk) int32 band starts, nblk = Tp/Tb: 8-aligned, >= 0,
 //          non-decreasing along the blocks, o + Wp <= round_up(max(U1, Wp), 8)
@@ -87,24 +87,23 @@ extern "C" int rnnt_band_bwd(const float* enc, const float* pred, const float* K
                              const float* bias, const int* labels, const int* o, const float* lse,
                              const float* g_blank, const float* g_emit, float* d_enc_part,
                              float* d_pred_part, float* dk_part, float* db_part, float* d_pred,
-                             int B, int T, int U1, int J, int V, int Tp, int Wp, int Tb,
-                             int blank_id, int bf, int nsplit, void* stream) {
+                             int* rec, void* kop, int B, int T, int U1, int J, int V, int Tp,
+                             int Wp, int Tb, int blank_id, int bf, int nsplit, void* stream) {
   if (!band_ok(Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
   const Geo g = band_geo(B, T, U1, J, V, o, Tp, Wp, Tb);
   auto s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (J <= 64)
-    err = launch_bwd<64>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, bf,
-                         nsplit, d_enc_part, d_pred_part, dk_part, db_part, s);
-  else if (J <= 128)
-    err = launch_bwd<128>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, bf,
-                          nsplit, d_enc_part, d_pred_part, dk_part, db_part, s);
-  else
-    err = static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_bwd(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, bf,
+                             nsplit, rec, kop, d_enc_part, d_pred_part, dk_part, db_part, s);
   if (err != 0) return err;
   const long long n = static_cast<long long>(U1) * J;
   const dim3 grid(static_cast<unsigned>((n + 255) / 256), B);
   band_dpred_kernel<<<grid, 256, 0, s>>>(d_pred_part, o, d_pred, U1, J, Wp, Tp / kBandPatchFrames,
                                          Tb, g.nblk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's sizes at this J, V and dtype (rnnt_joint_core.cuh's
+// bwd_sizes): out[0] d_K blocks per SM, out[1] words of K's operand form
+extern "C" int rnnt_band_bwd_sizes(int J, int V, int bf, int* out) {
+  return bwd_sizes(J, V, bf, out);
 }

@@ -5,8 +5,9 @@
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_pallas.py:
 //   K6a  joint_fwd_kernel      <- _fwd_kernel (:72), launched by _core_fwd_impl (:155)
-//   K6b  joint_bwd_rows_kernel <- _bwd_kernel (:92), launched by _core_bwd (:196):
-//        joint_bwd_dk_kernel      d_enc and d_pred there, d_K and d_bias here
+//   K6b  joint_bwd_kprep_kernel, joint_bwd_rows_mma_kernel (d_enc, d_pred),
+//        joint_bwd_rowrec_kernel, joint_bwd_dk_mma_kernel (d_K, d_bias)
+//        <- _bwd_kernel (:92), launched by _core_bwd (:196)
 //
 // Rows r = (b*T + t)*U1 + u; blank and lse (B, T, U1), emit (B, T, U).  The
 // backward's rows kernel owns patches of 16 frames x 8 label positions:
@@ -42,16 +43,16 @@ extern "C" int rnnt_joint_fwd(const float* enc, const float* pred, const float* 
 extern "C" int rnnt_joint_bwd(const float* enc, const float* pred, const float* K,
                               const float* bias, const int* labels, const float* lse,
                               const float* g_blank, const float* g_emit, float* d_enc_part,
-                              float* d_pred_part, float* dk_part, float* db_part, int B, int T,
-                              int U1, int J, int V,
-                              int blank_id, int bf, int nsplit, void* stream) {
-  const Geo g = exact_geo(B, T, U1, J, V);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (J <= 64)
-    return launch_bwd<64>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, bf,
-                          nsplit, d_enc_part, d_pred_part, dk_part, db_part, s);
-  if (J <= 128)
-    return launch_bwd<128>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, bf,
-                           nsplit, d_enc_part, d_pred_part, dk_part, db_part, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                              float* d_pred_part, float* dk_part, float* db_part, int* rec,
+                              void* kop, int B, int T, int U1, int J, int V, int blank_id, int bf,
+                              int nsplit, void* stream) {
+  return launch_bwd(enc, pred, K, bias, labels, lse, g_blank, g_emit, exact_geo(B, T, U1, J, V),
+                    blank_id, bf, nsplit, rec, kop, d_enc_part, d_pred_part, dk_part, db_part,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The backward's sizes at this J, V and dtype (rnnt_joint_core.cuh's
+// bwd_sizes): out[0] d_K blocks per SM, out[1] words of K's operand form
+extern "C" int rnnt_joint_bwd_sizes(int J, int V, int bf, int* out) {
+  return bwd_sizes(J, V, bf, out);
 }

@@ -52,6 +52,7 @@ from statecatcher_tpu_torch.ops.rnnt_joint import (
     _check_err,
     _kernel_args,
     _plain_inputs,
+    bwd_plan,
     plain_logits,
 )
 from statecatcher_tpu_torch.ops.rnnt_lattice import NEG, chain_scan
@@ -151,10 +152,12 @@ def joint_blank_emit_banded_ref(enc_p, pred_p, join_kernel, join_bias, labels, o
 
 
 def joint_blank_emit_banded_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, o, lse,
-                                    g_blank, g_emit, time_block: int = 8, blank_id: int = 0):
+                                    g_blank, g_emit, time_block: int = 8, blank_id: int = 0,
+                                    matmul=torch.matmul):
     """Plain K8b: (d_enc (B, T, J), d_pred (B, U+1, J), d_kernel (J, V),
     d_bias (V,)) in f32 (f64 for f64 inputs), from the forward's lse and the
-    cotangents of the banded blank and emit (B, Tp, Wp)."""
+    cotangents of the banded blank and emit (B, Tp, Wp).  ``matmul`` takes
+    its three contractions, as in K6b's plain version."""
     cdt, bf, enc, pred, K, _, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, J = enc.shape
     U1, V = pred.shape[1], K.shape[1]
@@ -172,7 +175,7 @@ def joint_blank_emit_banded_bwd_ref(enc_p, pred_p, join_kernel, join_bias, label
     d_b = torch.zeros((V,), dtype=cdt, device=dev)
     for k0, k1 in _block_chunks(nblk, Tb):
         joint = torch.tanh(encb[:, k0:k1] + predw[:, k0:k1, None])  # (B, nb, Tb, Wp, J)
-        jm, logits = plain_logits(joint, Km, bias_m, bf)
+        jm, logits = plain_logits(joint, Km, bias_m, bf, matmul)
         gb, ge = g_blank[:, k0:k1], g_emit[:, k0:k1]
         dlog = -(gb + ge)[..., None] * torch.exp(logits - lse[:, k0:k1, ..., None])
         dlog[..., blank_id] += gb
@@ -180,10 +183,10 @@ def joint_blank_emit_banded_bwd_ref(enc_p, pred_p, join_kernel, join_bias, label
         dlog.scatter_add_(4, sel, g_onehot[:, k0:k1, ..., None])
         if bf:
             dlog = dlog.to(torch.bfloat16).to(cdt)
-        dj = (dlog @ Km.t()) * (1.0 - joint * joint)
+        dj = matmul(dlog, Km.t()) * (1.0 - joint * joint)
         d_enc[:, k0:k1] = dj.sum(3)
         d_predw[:, k0:k1] = dj.sum(2)
-        d_k += jm.reshape(-1, J).t() @ dlog.reshape(-1, V)
+        d_k += matmul(jm.reshape(-1, J).t(), dlog.reshape(-1, V))
         d_b += dlog.reshape(-1, V).sum(0)
     d_pred = torch.zeros((B, U1p, J), dtype=cdt, device=dev).scatter_add_(
         1, idx.reshape(B, -1, 1).expand(-1, -1, J), d_predw.reshape(B, -1, J))
@@ -258,22 +261,21 @@ def rnnt_band_bwd(enc_p, pred_p, join_kernel, join_bias, labels, o, lse, g_blank
 
     f32 = lambda t: t.to(torch.float32).contiguous()
     rows = (f32(lse), f32(g_blank), f32(g_emit))
-    n_grp = 2 * -(-Wp // 16)                                 # rnnt_band.cu: 8 × 16 patches
-    n_vt = -(-V // 64)
-    n_tiles = -(-(B * Tp * Wp) // 128)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(n_tiles, n_sm // n_vt))
-    d_enc_part = torch.empty((B, Tp, n_grp, J), dtype=torch.float32, device=dev)
-    d_pred_part = torch.empty((B, Tp // 8, Wp, J), dtype=torch.float32, device=dev)
+    lay = bwd_plan("rnnt_band", dev, B, Tp, Wp, J, V, 8, bf)  # rnnt_band.cu: 8 × 16 patches
+    nsplit = lay["nsplit"]
+    d_enc_part = torch.empty((B, Tp, lay["n_grp"], J), dtype=torch.float32, device=dev)
+    d_pred_part = torch.empty((B, lay["n_t"], Wp, J), dtype=torch.float32, device=dev)
     dk_part = torch.empty((nsplit, J, V), dtype=torch.float32, device=dev)
     db_part = torch.empty((nsplit, V), dtype=torch.float32, device=dev)
     d_pred = torch.empty((B, U1, J), dtype=torch.float32, device=dev)
+    rec = torch.empty((6, lay["rec_rows"]), dtype=torch.int32, device=dev)
+    kop = torch.empty(lay["kop_words"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = library("rnnt_band").rnnt_band_bwd(
             *(a.data_ptr() for a in args), o32.data_ptr(), *(r.data_ptr() for r in rows),
             d_enc_part.data_ptr(), d_pred_part.data_ptr(), dk_part.data_ptr(),
-            db_part.data_ptr(), d_pred.data_ptr(), B, T, U1, J, V, Tp, Wp, time_block, blank_id,
-            int(bf), nsplit, _stream(dev))
+            db_part.data_ptr(), d_pred.data_ptr(), rec.data_ptr(), kop.data_ptr(), B, T, U1, J,
+            V, Tp, Wp, time_block, blank_id, int(bf), nsplit, _stream(dev))
     _check_err("rnnt_band_bwd", err)
     rnnt_band_bwd.launches += 1
     return d_enc_part.sum(2)[:, :T], d_pred, dk_part.sum(0), db_part.sum(0)

@@ -26,7 +26,8 @@ float64 inputs); gradients come back in the inputs' dtypes.
 
 Bounds on the card (operations; see the source): at B=32, T=1598, U=48,
 J=64, V=1024 the forward is 3.3e11 flops of contraction, the backward three
-times that (the logits once more, d_joint, d_K).
+times that (the logits once more, d_joint, d_K), which its kernels take on
+the tensor cores (3xTF32 for f32 inputs, bf16 for bf16 inputs).
 
 ``joint_blank_emit_ref`` and ``joint_blank_emit_bwd_ref`` are the plain
 versions: per time chunk, tanh, matmul, logsumexp and gathers (backward:
@@ -36,12 +37,18 @@ for tensors on the CPU; on the card it launches or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from statecatcher_tpu_torch.ops.rnnt_lattice import rnnt_nll_dp_pallas
 
 _MAX_J = 128            # rnnt_joint.cu instantiates J ≤ 64 and J ≤ 128
 _PLAIN_CHUNK = 16       # frames per chunk of the plain versions
+_PATCH_ROWS = 128       # rnnt_joint_core.cuh's kRT: rows of a backward patch
+_DK_ROWS = 64           # its kDR: rows per tile of the d_K kernel
+_DK_COLS = 128          # its kVS: vocab columns per block of the d_K kernel
+_MAX_GRID_YZ = 65535    # CUDA's limit on a grid's y and z
 
 
 def _plain_inputs(enc_p, pred_p, join_kernel, join_bias):
@@ -54,16 +61,16 @@ def _plain_inputs(enc_p, pred_p, join_kernel, join_bias):
     return cdt, bf, enc_p.to(cdt), pred_p.to(cdt), K, bias, rnd(K), rnd(bias)
 
 
-def plain_logits(joint, Km, bias_m, bf):
+def plain_logits(joint, Km, bias_m, bf, matmul=torch.matmul):
     """The joint's matmul operand (bf16-rounded under bf16) and its logits."""
     jm = joint.to(torch.bfloat16).to(joint.dtype) if bf else joint
-    return jm, jm @ Km + bias_m
+    return jm, matmul(jm, Km) + bias_m
 
 
-def _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1):
+def _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1, matmul=torch.matmul):
     """The chunk's f32 joint, its matmul operand and its logits."""
     joint = torch.tanh(enc[:, t0:t1, None, :] + pred[:, None, :, :])
-    return (joint, *plain_logits(joint, Km, bias_m, bf))
+    return (joint, *plain_logits(joint, Km, bias_m, bf, matmul))
 
 
 # --------------------------------------------------------------------------- #
@@ -94,9 +101,10 @@ def joint_blank_emit_ref(enc_p: torch.Tensor, pred_p: torch.Tensor, join_kernel:
 
 
 def joint_blank_emit_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, lse, g_blank,
-                             g_emit, blank_id: int = 0):
+                             g_emit, blank_id: int = 0, matmul=torch.matmul):
     """Plain K6b: (d_enc (B, T, J), d_pred (B, U+1, J), d_kernel (J, V),
-    d_bias (V,)) in f32 (f64 for f64 inputs)."""
+    d_bias (V,)) in f32 (f64 for f64 inputs).  ``matmul`` takes its three
+    contractions (the tests pass an emulation of the kernels' products)."""
     cdt, bf, enc, pred, K, _, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, J = enc.shape
     U1 = pred.shape[1]
@@ -111,7 +119,7 @@ def joint_blank_emit_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, lse,
     d_b = torch.zeros((V,), dtype=cdt, device=dev)
     for t0 in range(0, T, _PLAIN_CHUNK):
         t1 = min(T, t0 + _PLAIN_CHUNK)
-        joint, jm, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1)
+        joint, jm, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1, matmul)
         gb = g_blank[:, t0:t1].to(cdt)
         ge = torch.cat([g_emit[:, t0:t1].to(cdt),
                         torch.zeros((B, t1 - t0, 1), dtype=cdt, device=dev)], dim=2)
@@ -120,10 +128,10 @@ def joint_blank_emit_bwd_ref(enc_p, pred_p, join_kernel, join_bias, labels, lse,
         dlog.scatter_add_(3, lab[:, None, :, None].expand(B, t1 - t0, U1, 1), ge[..., None])
         if bf:
             dlog = dlog.to(torch.bfloat16).to(cdt)
-        dj = (dlog @ Km.t()) * (1.0 - joint * joint)
+        dj = matmul(dlog, Km.t()) * (1.0 - joint * joint)
         d_enc[:, t0:t1] = dj.sum(2)
         d_pred += dj.sum(1)
-        d_k += jm.reshape(-1, J).t() @ dlog.reshape(-1, V)
+        d_k += matmul(jm.reshape(-1, J).t(), dlog.reshape(-1, V))
         d_b += dlog.reshape(-1, V).sum(0)
     return d_enc, d_pred, d_k, d_b
 
@@ -164,6 +172,58 @@ def _kernel_args(enc_p, pred_p, join_kernel, join_bias, labels, blank_id):
     f32 = lambda t: t.to(torch.float32).contiguous()
     return ((f32(enc_p), f32(pred_p), f32(join_kernel), f32(join_bias),
              labels.to(torch.int32).contiguous()), (B, T, U1, J, V, bf))
+
+
+def bwd_layout(B: int, TT: int, W: int, V: int, patch_frames: int, n_sm: int,
+               blocks_per_sm: int) -> dict:
+    """Grids and scratch sizes of the backward's rows and d_K kernels over
+    B·TT·W rows.  The rows kernel: patches of ``patch_frames`` (PT) frames × 128/PT
+    positions (PU), grid (ceil(W/PU), ceil(TT/PT), B), d_enc partials per
+    group of 8 positions (``n_grp`` of them per frame) and d_pred partials
+    per row of patches (``n_t``).  The d_K kernel: grid (ceil(V/128),
+    ``nsplit``), the row splits chosen so that the grid is one wave of
+    ``blocks_per_sm`` resident blocks on each of ``n_sm`` SMs, and never
+    more splits than 64-row tiles; it reads the rows' records (offsets,
+    label, cotangents, lse) from a (6, ``rec_rows``) int32 scratch, the rows
+    padded to whole tiles."""
+    PU = _PATCH_ROWS // patch_frames
+    n_w, n_t = -(-W // PU), -(-TT // patch_frames)
+    n_vs = -(-V // _DK_COLS)
+    n_tiles = -(-(B * TT * W) // _DK_ROWS)
+    nsplit = max(1, min(n_tiles, blocks_per_sm * n_sm // n_vs))
+    return {"rows_grid": (n_w, n_t, B), "n_grp": n_w * PU // 8, "n_t": n_t,
+            "dk_grid": (n_vs, nsplit), "nsplit": nsplit, "rec_rows": n_tiles * _DK_ROWS}
+
+
+@functools.cache
+def _bwd_sizes(lib_name: str, device_index: int, J: int, V: int, bf: bool) -> tuple[int, int]:
+    """(blocks of the d_K kernel resident on one SM, 32-bit words of K's
+    operand form) at this J, V and dtype, from the library."""
+    import ctypes
+
+    from statecatcher_tpu_torch.ops._kernels import library
+
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        err = getattr(library(lib_name), f"{lib_name}_bwd_sizes")(J, V, int(bf), out)
+    _check_err(f"{lib_name}_bwd_sizes", err)
+    if out[0] <= 0:
+        raise RuntimeError(f"{lib_name}: the d_K kernel cannot be resident at J={J}")
+    return out[0], out[1]
+
+
+def bwd_plan(lib_name: str, dev: torch.device, B: int, TT: int, W: int, J: int, V: int,
+             patch_frames: int, bf: bool) -> dict:
+    """``bwd_layout`` on this card (its SM count and the d_K kernel's
+    occupancy at this J and dtype), with ``kop_words``, the size of K's
+    operand form."""
+    per_sm, kop_words = _bwd_sizes(lib_name, dev.index, J, V, bf)
+    lay = bwd_layout(B, TT, W, V, patch_frames,
+                     torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
+    if max(lay["rows_grid"][1:]) > _MAX_GRID_YZ:
+        raise ValueError(f"B={B} or {TT} frames too large for the patch grid "
+                         f"{lay['rows_grid']} (y and z at most {_MAX_GRID_YZ})")
+    return {**lay, "kop_words": kop_words}
 
 
 def _check_err(name, err):
@@ -215,22 +275,20 @@ def rnnt_joint_bwd(enc_p, pred_p, join_kernel, join_bias, labels, lse, g_blank, 
     dev = enc_p.device
     f32 = lambda t: t.to(torch.float32).contiguous()
     rows = (f32(lse), f32(g_blank), f32(g_emit))
-    n_u, n_t = -(-U1 // 8), -(-T // 16)                      # rnnt_joint.cu's kPU, kPT
-    if n_t > 65535 or B > 65535:
-        raise ValueError(f"B={B} or T={T} too large for the patch grid (B, T/16 ≤ 65535)")
-    n_vt = -(-V // 64)                                       # its kVT
-    n_tiles = -(-(B * T * U1) // 128)                        # its kRT
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(n_tiles, n_sm // n_vt))
-    d_enc_part = torch.empty((B, T, n_u, J), dtype=torch.float32, device=dev)
-    d_pred_part = torch.empty((B, n_t, U1, J), dtype=torch.float32, device=dev)
+    lay = bwd_plan("rnnt_joint", dev, B, T, U1, J, V, 16, bf)  # rnnt_joint.cu: 16 × 8 patches
+    nsplit = lay["nsplit"]
+    d_enc_part = torch.empty((B, T, lay["n_grp"], J), dtype=torch.float32, device=dev)
+    d_pred_part = torch.empty((B, lay["n_t"], U1, J), dtype=torch.float32, device=dev)
     dk_part = torch.empty((nsplit, J, V), dtype=torch.float32, device=dev)
     db_part = torch.empty((nsplit, V), dtype=torch.float32, device=dev)
+    rec = torch.empty((6, lay["rec_rows"]), dtype=torch.int32, device=dev)
+    kop = torch.empty(lay["kop_words"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = library("rnnt_joint").rnnt_joint_bwd(
             *(a.data_ptr() for a in args), *(r.data_ptr() for r in rows), d_enc_part.data_ptr(),
-            d_pred_part.data_ptr(), dk_part.data_ptr(), db_part.data_ptr(), B, T, U1, J, V,
-            blank_id, int(bf), nsplit, torch.cuda.current_stream(dev).cuda_stream)
+            d_pred_part.data_ptr(), dk_part.data_ptr(), db_part.data_ptr(), rec.data_ptr(),
+            kop.data_ptr(), B, T, U1, J, V, blank_id, int(bf), nsplit,
+            torch.cuda.current_stream(dev).cuda_stream)
     _check_err("rnnt_joint_bwd", err)
     rnnt_joint_bwd.launches += 1
     return d_enc_part.sum(2), d_pred_part.sum(1), dk_part.sum(0), db_part.sum(0)

@@ -14,7 +14,7 @@ exact loss; int16 audio as the loop ships it) after a warm-up segment.  It
 prints the host wall time, the device's busy time (the sum of its kernels
 and copies, which run on one stream) and idle share, the device time by
 kernel name, largest first, and the same grouped by the port's kernels
-(K1..K4, K6, K7, K9), the GEMMs and the rest.  With ``--out`` it also writes the
+(K1..K4, K6/K8 by kernel, K7, K9), the GEMMs and the rest.  With ``--out`` it also writes the
 chrome trace there.
 """
 
@@ -40,8 +40,12 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("K2 lucy_fused_lm_bwd", "lucy_fused_lm_bwd"),
           ("K3 ctc_alpha", "ctc_alpha"),
           ("K4 ctc_beta", "ctc_beta"),
-          ("K6a rnnt_joint_fwd", "rnnt_joint_fwd"),
-          ("K6b rnnt_joint_bwd", "rnnt_joint_bwd"),
+          ("K6a/K8a joint_fwd_kernel", "joint_fwd_kernel"),
+          ("K6b/K8b joint_bwd_rows_mma_kernel (d_enc, d_pred)", "joint_bwd_rows_mma"),
+          ("K6b/K8b joint_bwd_dk_mma_kernel (d_K, d_bias)", "joint_bwd_dk_mma"),
+          ("K6b/K8b joint_bwd_kprep/rowrec_kernel", "joint_bwd_kprep"),
+          ("K6b/K8b joint_bwd_kprep/rowrec_kernel", "joint_bwd_rowrec"),
+          ("K8b band_dpred_kernel", "band_dpred"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),
           ("K9a/K9b mlstm (fwd; bwd's entry states)", "mlstm_fwd"),

@@ -1,9 +1,10 @@
 """Seeded inputs for checking the port: synthetic audio and random weights.
 
 ``randomize_`` gives a model random weights that keep f32 round-off small;
-running this module measures why that matters, on the CPU by default:
+running this module measures why that matters, on the card by default (it
+raises without one; ``--device cpu`` runs the plain PyTorch versions):
 
-    python -m statecatcher_tpu_torch.testing [--seconds 10] [--device cpu]
+    python -m statecatcher_tpu_torch.testing [--seconds 10] [--device cuda|cpu]
         [--variant triton|native]
 
 It builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC; the 7-gate
@@ -96,11 +97,13 @@ def _as_float64(model: torch.nn.Module) -> torch.nn.Module:
 
 
 def roundoff_report(seconds: float, device: str, seed: int = 0, variant: str = "triton") -> None:
+    from statecatcher_tpu_torch import resolve_device
     from statecatcher_tpu_torch.config import Config
     from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
     from statecatcher_tpu_torch.frontend import compute_features
     from statecatcher_tpu_torch.models.speech import build_speech_model
 
+    device = resolve_device(device)
     cfg = Config().apply_overrides(["--model.encoder", "lucyrnn",
                                     "--model.lucyrnn.variant", variant])
     audio = synth_audio(np.random.default_rng(seed + 2), 2, int(seconds * 16000))
@@ -126,10 +129,14 @@ def roundoff_report(seconds: float, device: str, seed: int = 0, variant: str = "
               f"{[levenshtein(a, b) for a, b in zip(tok32, tok64)]}")
 
 
-if __name__ == "__main__":
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=10.0)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--variant", choices=("triton", "native"), default="triton")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     roundoff_report(args.seconds, args.device, variant=args.variant)
+
+
+if __name__ == "__main__":
+    main()

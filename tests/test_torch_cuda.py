@@ -525,6 +525,68 @@ def test_band_kernels_match_plain_bf16(cuda_device):
 
 
 @pytest.mark.cuda
+def test_band_bwd_degenerate_row_and_labels_outside_vocab(cuda_device):
+    """K8b at a band with a degenerate row (its last frame in block 0) and
+    labels outside [0, V), which select no column (no one-hot, no emit
+    column), against its plain version in f32 (K6's tolerances)."""
+    enc, pred, k, b, labels, o, Wp, Tb, g_blank, g_emit, _, _ = band_data(
+        97, 3, 45, 40, 64, 150, 8, 8, cuda_device)
+    labels = labels.clone()
+    labels[0, ::5] = -1
+    labels[2, 1::7] = 150 + 3
+    got = rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb)
+    want = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb)
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    args = (enc, pred, k, b, labels, o, want[2], g_blank, g_emit, Tb)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), rnnt_band_bwd(*args),
+                          joint_blank_emit_banded_bwd_ref(*args)):
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-4, scale_tol=1e-5)
+
+
+def _bwd_args(kind, J, dev, dtype, seed):
+    """The backward's arguments for K6b (``kind`` "joint") or K8b ("band"),
+    with the forward's plain lse, and the kernel and its plain version."""
+    if kind == "joint":
+        enc, pred, k, b, labels, g_blank, g_emit = joint_data(seed, 3, 40, 12, J, 256, dev, dtype)
+        lse = joint_blank_emit_ref(enc, pred, k, b, labels)[2]
+        return ((enc, pred, k, b, labels, lse, g_blank, g_emit), rnnt_joint_bwd,
+                joint_blank_emit_bwd_ref)
+    enc, pred, k, b, labels, o, Wp, Tb, g_blank, g_emit, _, _ = band_data(
+        seed, 3, 40, 30, J, 256, 8, 8, dev, dtype)
+    lse = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb)[2]
+    return ((enc, pred, k, b, labels, o, lse, g_blank, g_emit, Tb), rnnt_band_bwd,
+            joint_blank_emit_banded_bwd_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("J", [40, 100])
+def test_joint_bwd_bf16_ragged_widths(cuda_device, kind, J):
+    """K6b/K8b with bf16 enc/pred at J = 40 (ragged in the 64-wide instance's
+    tensor-core k-steps) and J = 100 (the 128-wide instance), with the bf16
+    tolerances of test_rnnt_joint_kernels_match_plain_bf16."""
+    args, kernel, plain = _bwd_args(kind, J, cuda_device, torch.bfloat16, 110 + J)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), kernel(*args),
+                          plain(*args)):
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-2, scale_tol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_joint_bwd_is_deterministic(cuda_device, kind, dtype):
+    """Two calls of K6b/K8b on the same inputs give bit-equal outputs: the
+    partial sums are added in a fixed order, with no atomics."""
+    args, kernel, _ = _bwd_args(kind, 64, cuda_device, dtype, 120)
+    first = [x.clone() for x in kernel(*args)]
+    second = kernel(*args)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,U,band,Tb", [(3, 45, 40, 8, 8), (4, 200, 120, 32, 8),
                                            (2, 70, 20, 40, 16)])
 def test_band_lattice_kernels_match_plain(cuda_device, B, T, U, band, Tb):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from statecatcher_tpu.config import Config as JConfig
+from statecatcher_tpu_torch import testing
 from statecatcher_tpu_torch.config import Config
 
 REPO = Path(__file__).resolve().parents[1]
@@ -80,6 +81,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     model = build_model(cfg.model, 80, device="cpu")
     with pytest.raises(RuntimeError, match="is_available"):
         StreamingRecognizer(model, cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        testing.main([])                                  # the round-off report asks for the card
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
