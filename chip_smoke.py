@@ -10,7 +10,9 @@ RNN-T joiner 64; the 7-gate cell, masked or not, through each of its
 kernels, and the 6-gate native variant) and the xLSTM of the config's
 defaults through the port's entry points:
 
-  0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills);
+  0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills)
+     and the tensor-core (HMMA) instructions of the joint's and K9b's
+     backward kernels, each of which must hold some;
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
      batched shape (f32 and bf16) and the streaming shape, with times (CUDA
      events) beside the byte bound;
@@ -258,23 +260,26 @@ def joint_bound_ms(R: int, V: int, J: int, dtype: torch.dtype, nbytes: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def joint_sass_hmma(lib: str) -> dict[str, int]:
+def sass_hmma(lib: str, family: str) -> dict[str, int]:
     """HMMA (tensor-core) instructions per kernel of the built library
-    ``lib`` whose name holds "joint_", from ``cuobjdump -sass``."""
+    ``lib`` whose name starts with ``family``, from ``cuobjdump -sass``; each
+    kernel named with its template arguments as its mangled name gives them
+    (f32 or bf16 for a type, 0 or 1 for a bool, an int's value)."""
     nvcc = _kernels._nvcc()
     out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                           str(_kernels._target(lib))], capture_output=True, text=True,
                          check=True).stdout
+    words = {"f": "f32", "13__nv_bfloat16": "bf16"}
     counts, name = {}, None
     for line in out.splitlines():
         if "Function : " in line:
-            mangled = line.split("Function : ")[1]
-            base = re.search(r"\d(joint_[a-z_]*kernel)", mangled)    # after its length
-            args = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
-            name = None if base is None else (
-                base.group(1) + (f"<{args.group(1)}{', bf16' if args.group(2) == '1' else ''}>"
-                                 if args else ""))
-            if name is not None:
+            m = re.search(rf"\d({family}[a-z_]*kernel)(I(?:13__nv_bfloat16|f|Lb[01]E|Li\d+E)+E)?",
+                          line.split("Function : ")[1])              # the name after its length
+            name = None
+            if m is not None:
+                args = [words.get(a) or a[2:-1] for a in
+                        re.findall(r"13__nv_bfloat16|f|Lb[01]E|Li\d+E", m.group(2) or "")]
+                name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
                 counts[name] = 0
         elif name is not None and "HMMA" in line:
             counts[name] += 1
@@ -792,6 +797,22 @@ def n_layers(cfg) -> int:
     return cfg.model.xlstm.num_blocks if cfg.model.encoder == "xlstm" else cfg.model.num_layers
 
 
+def train_setup(cfg, dev, K, B=32, S=16 * 16000, U=128, mode="ctc", degenerate=False):
+    """phase_train_step's set-up: ``cfg`` at lr 1e-6 in ``mode``, its model
+    with random weights (gate projections ×0.1), the train state, the
+    segment-scan step and one group of K segments (``train_group``).  Returns
+    (cfg, state, step, group)."""
+    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6", "--train.mode", mode])
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
+    state = init_train_state(model, cfg)
+    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, cfg.model.vocab_size, dev,
+                        degenerate=degenerate)
+    return cfg, state, step, group
+
+
 def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=None,
                      degenerate=False) -> dict:
     """Phases 5, 9, 12, 14, 20 and 24–26: one group of K carried 16 s segments at B=32
@@ -806,16 +827,8 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     lr-sized parameter differences between the two paths, and the later
     segments' grad norms then differ by up to 2 % (measured on the card)."""
     path = path or mode
-    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6", "--train.mode", mode])
     tag = f"[{'train' if path == 'ctc' else path + ' train'}]"
-    V = cfg.model.vocab_size
-    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
-                               generator=torch.Generator().manual_seed(SEED))
-    randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
-    state = init_train_state(model, cfg)
-    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
-    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, V, dev,
-                        degenerate=degenerate)
+    cfg, state, step, group = train_setup(cfg, dev, K, B, S, U, mode, degenerate)
     seg_valid = np.ones(K, bool)
     p0, opt0 = snapshot(state), state.state_dict()
 
@@ -823,10 +836,12 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, carry, outs = step(state, init_carry(cfg.model, B, device=dev), *group, seg_valid)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = [c.launches for c in counters]
     p_kernel = snapshot(state)
 
@@ -879,7 +894,8 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
         raise AssertionError(f"parameters: updates differ by {rel_upd:.3e} of their norm, "
                              f"{frac_off:.3e} of elements by more than 0.1·lr·K (most in {top})")
     log(f"{tag} K={K} × {S / 16000:g} s at B={B}, U={U}: kernel path {sec:.3f} s ({sec / K * 1e3:.1f} ms "
-        f"per segment, {K * B * S / 16000 / sec:.0f} audio-s/s), plain path {sec_p:.3f} s; losses "
+        f"per segment, {K * B * S / 16000 / sec:.0f} audio-s/s, peak memory {peak:.2f} GiB), "
+        f"plain path {sec_p:.3f} s; losses "
         f"{np.array2string(loss, precision=5)} vs {np.array2string(loss_p, precision=5)} (max rel "
         f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
         f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
@@ -1443,19 +1459,39 @@ def phase_cli_rnnt(seconds=48.0, target=16) -> None:
         f"{[round(x, 4) for x in summary['loss_history']]} ({time.perf_counter() - t0:.1f} s)")
 
 
-def mlstm_ops(B, H, Tp, L, dqk, dv, backward: bool) -> float:
+def mlstm_ops(B, H, Tp, L, dqk, dv, backward: bool) -> tuple[float, float]:
     """Operations of K9a/K10 (forward) or K9b over B·H heads and Tp/L chunks,
-    two per multiply-add: the causal halves of the L × L products (L(L+1)/2
-    pairs; forward q·kᵀ and (S∘E)·v, backward q·kᵀ, dh·vᵀ, dq, dk and dv)
-    and the full L × dqk × dv ones (forward q·C and (k·w)ᵀ·v; backward the
-    entry states' (k·w)ᵀ·v, C·dh, dC'·v, dC'ᵀ·k and dC).  The exps, the
-    running max and the row sums (O(L²) per chunk) are left out."""
-    tri = L * (L + 1) // 2
+    two per multiply-add, as (the products of two inputs, the products of an
+    input and an f32 value): the causal halves of the L × L products (L(L+1)/2
+    pairs; forward q·kᵀ of inputs and (S∘E)·v; backward q·kᵀ and dh·vᵀ of
+    inputs, Q·k, Qᵀ·q and Wᵀ·dh) and the full L × dqk × dv ones (forward q·C
+    and (k·w)ᵀ·v; backward the entry states' (k·w)ᵀ·v, C·dh, dC'·v, dC'ᵀ·k and
+    (q·sp/den)ᵀ·dh).  Every product has an input (q, k, v or dh) for an
+    operand; the scales can go on the other operand or after the product.
+    The exps, the running max and the row sums (O(L²) per chunk) are left
+    out."""
+    tri, n = L * (L + 1) // 2, B * H * (Tp // L)
     if backward:
-        per = 2 * tri * (3 * dqk + 2 * dv) + 5 * 2 * L * dqk * dv
+        return n * 2 * tri * (dqk + dv), n * (2 * tri * (2 * dqk + dv) + 5 * 2 * L * dqk * dv)
+    return n * 2 * tri * dqk, n * (2 * tri * dv + 2 * 2 * L * dqk * dv)
+
+
+def mlstm_bound_ms(B, H, Tp, L, dqk, dv, dtype, backward: bool) -> tuple[float, str]:
+    """The least time of K9a/K10 or K9b: the larger of their bytes over the
+    memory rate and their products at the tensor cores' rate for the accuracy
+    the contract asks of each, as the joint's (joint_bound_ms).  f32 inputs:
+    every product as three TF32 products (3xTF32: a third of the TF32 rate).
+    bf16 inputs: the products of two inputs at bf16's rate; those of an input
+    and an f32 value as two TF32 products (bf16 is exact in TF32, so the
+    input needs no low half: half the TF32 rate)."""
+    es = torch.finfo(dtype).bits // 8
+    ops_in, ops_mixed = mlstm_ops(B, H, Tp, L, dqk, dv, backward)
+    if dtype == torch.bfloat16:
+        t_ops = (ops_in / BF16_OPS_PER_S + ops_mixed / (TF32_OPS_PER_S / 2)) * 1e3
     else:
-        per = 2 * tri * (dqk + dv) + 2 * 2 * L * dqk * dv
-    return B * H * (Tp // L) * per
+        t_ops = (ops_in + ops_mixed) / (TF32_OPS_PER_S / 3) * 1e3
+    t_bytes = mlstm_bytes(B, H, Tp, dqk, dv, es, backward) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def mlstm_bytes(B, H, Tp, dqk, dv, es, backward: bool) -> int:
@@ -1534,12 +1570,8 @@ def phase_mlstm_kernels(dev) -> dict:
             ms_b = cuda_ms(lambda: mlstm_fused_bwd(*ins, *cots, L, T), 3)
             plain_f = cuda_ms(lambda: mlstm_fused_fwd_ref(*ins, L, T), 2, warmup=1)
             plain_b = cuda_ms(lambda: mlstm_fused_bwd_ref(*ins, *cots, L, T), 2, warmup=1)
-        es = torch.finfo(dtype).bits // 8
-        peak = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
-        bound_f, by_f = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, es, False),
-                                       mlstm_ops(B, H, Tp, L, dqk, dv, False), peak)
-        bound_b, by_b = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, es, True),
-                                       mlstm_ops(B, H, Tp, L, dqk, dv, True), peak)
+        bound_f, by_f = mlstm_bound_ms(B, H, Tp, L, dqk, dv, dtype, False)
+        bound_b, by_b = mlstm_bound_ms(B, H, Tp, L, dqk, dv, dtype, True)
         log(f"[K9] {label} (B={B}, T={T}, Tp={Tp}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): fwd "
             f"max|Δ| {err_f:.3e}, bwd max|Δ| {err_b:.3e}; K9a {ms_f:.4f} ms (plain {plain_f:.2f}, "
             f"bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K9b {ms_b:.4f} ms "
@@ -1564,8 +1596,7 @@ def phase_mlstm_kernels(dev) -> dict:
         ms = cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), 5)
         plain_ms = cuda_ms(lambda: mlstm_chunkwise(*ins, L), 2, warmup=1)
     Tp = -(-T // L) * L
-    bound, by = bytes_bound_ms(mlstm_bytes(B, H, Tp, dqk, dv, 4, False),
-                               mlstm_ops(B, H, Tp, L, dqk, dv, False))
+    bound, by = mlstm_bound_ms(B, H, Tp, L, dqk, dv, torch.float32, False)
     log(f"[K10] f32 (B={B}, T={T}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): max|Δ| {err:.3e}; "
         f"{ms:.4f} ms (plain {plain_ms:.2f}, bound {bound:.4f} ms {by}, {bound / ms:.1%} of it); "
         f"library_ms: none")
@@ -1696,12 +1727,20 @@ def main() -> int:
 
     # the joint's backward kernels run on the tensor cores; its forward does not
     for lib in ("rnnt_joint", "rnnt_band"):
-        hmma = joint_sass_hmma(lib)
+        hmma = sass_hmma(lib, "joint_")
         log(f"[build] {lib} SASS, HMMA instructions per kernel: "
             + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
         bwd = {k: v for k, v in hmma.items() if "bwd_rows_mma" in k or "bwd_dk_mma" in k}
         if len(bwd) != 8 or min(bwd.values()) == 0:
             raise AssertionError(f"{lib}: the backward's kernels hold no HMMA: {hmma}")
+    # so do K9b's product kernels (the chunk and state products)
+    hmma = sass_hmma("mlstm_fused", "bwd_")
+    log("[build] mlstm_fused SASS, HMMA instructions per K9b kernel: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+    products = ("bwd_state_kernel", "bwd_rows_kernel", "bwd_dk_kernel", "bwd_dv_kernel")
+    mma = {k: v for k, v in hmma.items() if k.split("<")[0] in products}
+    if {k.split("<")[0] for k in mma} != set(products) or min(mma.values()) == 0:
+        raise AssertionError(f"mlstm_fused: K9b's product kernels hold no HMMA: {hmma}")
 
     k1 = phase_kernel(dev)
 

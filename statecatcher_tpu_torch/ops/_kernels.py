@@ -60,6 +60,7 @@ SIGNATURES = {
     "mlstm_fused": {
         "mlstm_fused_fwd": (_I, [_I] + [_P] * 12 + [_I] * 7 + [_P]),
         "mlstm_fused_bwd": (_I, [_I] + [_P] * 21 + [_I] * 7 + [_P]),
+        "mlstm_fused_bwd_work": (ctypes.c_longlong, [_I] * 6),
     },
     "mlstm_pallas": {
         "mlstm_pallas_fwd": (_I, [_P] * 12 + [_I] * 5 + [_P]),

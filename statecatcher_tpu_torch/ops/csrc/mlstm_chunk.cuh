@@ -17,9 +17,9 @@
 // and the log-forget as 0, so they neither write nor decay the state.
 //
 // Bound on the card (operations; counted in chip_smoke.py): per (b, head)
-// and chunk the five products S = q k^T, (S.E) v, E k (the TPU kernel's, or
-// the row sums here), q C and (k w)^T v, ~34 MFLOP at L = 128, dqk = 128,
-// dv = 256, against ~80 KB of inputs: far above the f32 machine balance.
+// and chunk the products S = q k^T, (S.E) v, q C and (k w)^T v, ~34 MFLOP
+// at L = 128, dqk = 128, dv = 256, against ~80 KB of inputs, at 3xTF32's rate
+// (bf16's for q k^T of bf16 inputs): 0.12 ms at B=32, T=1598 in f32.
 //
 // Design.  A block of 256 threads works on 64 x 64 output tiles of every
 // product (tile_mma: 16-deep slabs of both operands staged in shared memory,
@@ -32,15 +32,10 @@
 //     row's denominator, then h = (W v + (q sp inv) C) / den; then it advances
 //     its columns of C (and the whole n, m, which every block keeps).  Every
 //     block recomputes W: dv/64 times the S work, for dv/64 times the blocks.
-//     With h == nullptr it only advances the state and writes each chunk's
-//     entry state, which the backward reads.
-//   * backward (mlstm_bwd_kernel): one block per (b, head) walks the chunks
-//     in reverse (its exit adjoint of C lives in dC0's buffer), with the
-//     chunk's L x L matrices (S, then Q = E (G/den + dqn)) and the products
-//     C dh, dC' v, dC'^T k in a global workspace: the adjoint of the chunk
-//     step written out (ops/mlstm_fused.py:mlstm_chunk_bwd_ref), in the same
-//     order of passes.  Sums over elements go through fixed trees; no float
-//     atomics.
+//   * backward (K9b, mlstm_fused.cu): the adjoint split along its data
+//     dependencies into chunk-parallel passes on the tensor cores (the entry
+//     states, the rows' terms and dq, the reverse scans of dC and dn, dk, dv,
+//     the gate chain and its dm fix-up); its design is written there.
 
 #pragma once
 
@@ -177,10 +172,8 @@ struct Rows {
 struct FwdParams {
   const void *q, *k, *v;
   const float *ic, *lf, *C0, *n0, *m0;
-  void* h;                  // nullptr: advance the state only
+  void* h;
   float *CT, *nT, *mT;
-  float* ent;               // nullptr, or each chunk's entry (C, n, m), per (b, head)
-  long long ent_stride;     // floats per (b, head) in ent: NC*dqk*dv + NC*dqk + NC
   Layout lay;
   int H, Tp, T, dqk, dv, L;
   float inv;
@@ -210,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_fwd_kernel(FwdParams p) {
   Rows<Tin> rows{static_cast<const Tin*>(p.q) + b * y.qk_b + hh * y.qk_h,
                  static_cast<const Tin*>(p.k) + b * y.qk_b + hh * y.qk_h,
                  static_cast<const Tin*>(p.v) + b * y.v_b + hh * y.v_h, y.qk_r, y.v_r, 0, p.T, L};
-  Tout* h = p.h == nullptr ? nullptr : static_cast<Tout*>(p.h) + b * y.v_b + hh * y.v_h;
+  Tout* h = static_cast<Tout*>(p.h) + b * y.v_b + hh * y.v_h;
   const float* ic = p.ic + static_cast<size_t>(bh) * p.Tp;
   const float* lf = p.lf + static_cast<size_t>(bh) * p.Tp;
   const size_t sC = static_cast<size_t>(bh) * dqk * dv;
@@ -225,22 +218,10 @@ __global__ void __launch_bounds__(kThreads) mlstm_fwd_kernel(FwdParams p) {
   const int NC = p.Tp / L;
   for (int c = 0; c < NC; ++c) {
     rows.t0 = c * L;
-    if (p.ent != nullptr) {
-      float* eC = p.ent + bh * p.ent_stride + static_cast<size_t>(c) * dqk * dv;
-      for (int e = tid; e < dqk * kTile; e += kThreads) {
-        const int d = e / kTile, col = e % kTile;
-        if (col < ncol) eC[static_cast<size_t>(d) * dv + c0 + col] = Cs[e];
-      }
-      if (blockIdx.x == 0) {
-        float* en = p.ent + bh * p.ent_stride + static_cast<size_t>(NC) * dqk * dv;
-        for (int d = tid; d < dqk; d += kThreads) en[static_cast<size_t>(c) * dqk + d] = ns[d];
-        if (tid == 0) en[static_cast<size_t>(NC) * dqk + c] = m;
-      }
-    }
     gate_prep(ic, lf, rows.t0, p.T, L, m, G);
     const float g = G.sc[3], m_new = G.sc[2];
 
-    for (int tt0 = 0; h != nullptr && tt0 < L; tt0 += kTile) {
+    for (int tt0 = 0; tt0 < L; tt0 += kTile) {
       const int s_end = min(L, tt0 + kTile);
       // W for the tile's rows, columns s < s_end (0 above the diagonal)
       for (int s0 = 0; s0 < s_end; s0 += kTile) {

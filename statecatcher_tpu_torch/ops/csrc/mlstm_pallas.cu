@@ -22,7 +22,6 @@ extern "C" int mlstm_pallas_fwd(const float* q, const float* k, const float* v, 
                                 int Tp, int dqk, int dv, int L, void* stream) {
   const long long sq = static_cast<long long>(Tp) * dqk, sv = static_cast<long long>(Tp) * dv;
   const Layout lay{sq, 0, dqk, sv, 0, dv};
-  FwdParams p{q, k, v, ic, lf, C0, n0, m0, h, CT, nT, mT, nullptr, 0, lay, 1, Tp, Tp, dqk, dv, L,
-              1.0f};
+  FwdParams p{q, k, v, ic, lf, C0, n0, m0, h, CT, nT, mT, lay, 1, Tp, Tp, dqk, dv, L, 1.0f};
   return launch_fwd<float, float>(p, BH, static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,8 @@ math of one chunk is ``mlstm_chunk_step`` (the JAX package's ``_chunk_step``,
 :50): every product in float32 whatever the inputs' dtype, q scaled by
 dqk^-½ inside.  The TPU backward takes ``jax.vjp`` of the chunk step in
 registers; here its adjoint is written out, ``mlstm_chunk_bwd_ref``, and the
-kernel transcribes it.
+kernels compute it split along its data dependencies, chunk-parallel on the
+tensor cores (``ops/csrc/mlstm_fused.cu``).
 
 ``mlstm_fused`` is the layer's entry (the JAX package's :417): it pads T to a
 chunk multiple, applies the soft cap and log-sigmoid to the gates in f32,
@@ -345,13 +346,13 @@ def mlstm_fused_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk:
     dq, dk, dv_ = (torch.empty_like(x) for x in ins[:3])
     dic, dlf = torch.empty_like(ins[3]), torch.empty_like(ins[4])
     dC0, dn0, dm0 = (torch.empty_like(x) for x in ins[5:8])
-    NC = Tp // L
-    # each (b, h)'s entry states, then its chunk scratch: S and Q (L×L), the
-    # products C·dh, dC'·v (L×dqk) and dC'ᵀ·k (L×dv)
-    per_bh = NC * (dqk * dv + dqk + 1) + 2 * L * L + 2 * L * dqk + L * dv
-    work = torch.empty(B * H * per_bh, dtype=torch.float32, device=dev)
+    lib = library("mlstm_fused")
+    # per (b, h): each chunk's entry state and exit adjoints (NC·(dqk·dv +
+    # dqk) floats each), per-row and per-chunk gate terms, dg's partial sums
+    work = torch.empty(lib.mlstm_fused_bwd_work(B, H, Tp, dqk, dv, L), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        err = library("mlstm_fused").mlstm_fused_bwd(
+        err = lib.mlstm_fused_bwd(
             _DTYPE_CODE[q.dtype], *_ptrs(*ins, *cots, dq, dk, dv_, dic, dlf, dC0, dn0, dm0, work),
             B, H, Tp, T, dqk, dv, L, _stream(dev))
     if err != 0:

@@ -48,8 +48,16 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("K8b band_dpred_kernel", "band_dpred"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),
-          ("K9a/K9b mlstm (fwd; bwd's entry states)", "mlstm_fwd"),
-          ("K9b mlstm_bwd", "mlstm_bwd"),
+          ("K9a mlstm_fwd_kernel", "mlstm_fwd"),
+          ("K9b bwd_rows_kernel (dq, the rows' terms)", "bwd_rows_kernel"),
+          ("K9b bwd_dk_kernel", "bwd_dk_kernel"),
+          ("K9b bwd_dv_kernel", "bwd_dv_kernel"),
+          ("K9b bwd_state/nterm_kernel (entry states, dC_c)", "bwd_state_kernel"),
+          ("K9b bwd_state/nterm_kernel (entry states, dC_c)", "bwd_nterm_kernel"),
+          ("K9b scans, gates, chain, fixup", "bwd_scan_"),
+          ("K9b scans, gates, chain, fixup", "bwd_gates_"),
+          ("K9b scans, gates, chain, fixup", "bwd_chain_kernel"),
+          ("K9b scans, gates, chain, fixup", "bwd_fixup_kernel"),
           ("GEMMs", "gemm"), ("GEMMs", "cutlass"), ("GEMMs", "xmma"), ("GEMMs", "nvjet"))
 
 

@@ -11,8 +11,10 @@ Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
 and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
 adjoint), K6a and K6b (the fused RNN-T joint's forward and backward), K7a
 and K7b (the transducer α and β lattice), K8a and K8b (the banded joint),
-the banded α and β lattice, K9a, K9b and K10 (the mLSTM), K12 (the fused
-masked cell) and K11 (the dual scan), each against its plain version; the
+the banded α and β lattice, K9a, K9b and K10 (the mLSTM; K9b also over
+the chunk lengths, head counts and widths of its chunk-parallel passes, with
+tied gates, and bit for bit between two calls), K12 (the fused masked cell)
+and K11 (the dual scan), each against its plain version; the
 autograd Functions' gradients on the card against the CPU; and the xLSTM
 and native LucyRNN encoders on the card against the CPU.
 
@@ -783,6 +785,80 @@ def test_mlstm_fused_kernels_match_plain_bf16(cuda_device):
                           scale_tol=1e-3)
     for name, a, c in zip(("dic", "dlogf", "dC0", "dn0", "dm0"), gb[3:], gr[3:]):
         assert_grad_close(a.cpu().numpy(), c.cpu().numpy(), name, rtol=1e-3, scale_tol=1e-4)
+
+
+# (T, H, dqk, dv, chunk) of K9b's chunk-parallel passes: L = 64, 128 and 256,
+# T a multiple of L and not, 1, 2 and 4 heads, (dqk, dv) = (64, 128),
+# (128, 256) and (256, 256)
+K9B_SHAPES = [(640, 2, 64, 128, 64), (600, 1, 128, 256, 64), (500, 4, 64, 128, 128),
+              (512, 2, 256, 256, 128), (700, 2, 128, 256, 256), (512, 1, 256, 256, 256),
+              (300, 4, 64, 128, 256)]
+K9B_NAMES = ("dq", "dk", "dv", "dic", "dlogf", "dC0", "dn0", "dm0")
+
+
+def _k9b_case(seed, T, H, dqk, dv, chunk, dtype, dev, ties=False):
+    ins, L, Tp = mlstm_kernel_data(seed, 2, T, H, dqk, dv, chunk, dtype)
+    if ties:                                    # every a_s equal, m0 equal to it
+        ins[3] = torch.full_like(ins[3], -0.3)
+        ins[4] = torch.zeros_like(ins[4])
+        ins[7] = torch.full_like(ins[7], -0.3)
+    ins = [x.to(dev) for x in ins]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cots = [torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+            for x in (ins[2], ins[5], ins[6], ins[7])]
+    cots[0][:, T:] = 0                          # rows past T are not outputs
+    return ins, cots, L
+
+
+def _assert_k9b_close(got, want, dtype):
+    """chip_smoke.py phase 17's tolerances: 1e-3 relative plus 1e-4 of each
+    output's largest value; under bf16, dq, dk, dv 2e-2 plus 1e-3."""
+    for i, (name, a, c) in enumerate(zip(K9B_NAMES, got, want)):
+        bf = dtype == torch.bfloat16 and i < 3
+        assert a.dtype == c.dtype, name
+        assert_grad_close(a.float().cpu().numpy(), c.float().cpu().numpy(), name,
+                          rtol=2e-2 if bf else 1e-3, scale_tol=1e-3 if bf else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,H,dqk,dv,chunk", K9B_SHAPES)
+def test_mlstm_bwd_kernel_matches_plain(cuda_device, T, H, dqk, dv, chunk, dtype):
+    """K9b against its plain version at B=2 over the chunk lengths, head
+    counts and widths of its chunk-parallel passes."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_bwd, mlstm_fused_bwd_ref
+
+    ins, cots, L = _k9b_case(T + H + dqk, T, H, dqk, dv, chunk, dtype, cuda_device)
+    n = mlstm_fused_bwd.launches
+    got = mlstm_fused_bwd(*ins, *cots, L, T)
+    torch.cuda.synchronize()
+    assert mlstm_fused_bwd.launches == n + 1
+    _assert_k9b_close(got, mlstm_fused_bwd_ref(*ins, *cots, L, T), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_bwd_kernel_with_tied_gates(cuda_device, dtype):
+    """Equal input gates and no forgetting: the running max ties along the
+    whole chunk, and max(m, R) and m' tie too (each tie an equal share)."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_bwd, mlstm_fused_bwd_ref
+
+    ins, cots, L = _k9b_case(3, 300, 2, 64, 128, 128, dtype, cuda_device, ties=True)
+    _assert_k9b_close(mlstm_fused_bwd(*ins, *cots, L, 300),
+                      mlstm_fused_bwd_ref(*ins, *cots, L, 300), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_bwd_kernel_is_deterministic(cuda_device, dtype):
+    """Two calls of K9b on the same inputs give bit-equal outputs: partial
+    sums in a fixed order, no atomics."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_bwd
+
+    ins, cots, L = _k9b_case(4, 700, 2, 128, 256, 256, dtype, cuda_device)
+    first = [x.clone() for x in mlstm_fused_bwd(*ins, *cots, L, 700)]
+    for name, a, c in zip(K9B_NAMES, first, mlstm_fused_bwd(*ins, *cots, L, 700)):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda
