@@ -11,8 +11,8 @@ kernels, and the 6-gate native variant) and the xLSTM of the config's
 defaults through the port's entry points:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills)
-     and the tensor-core (HMMA) instructions of the joint's and K9b's
-     backward kernels, each of which must hold some;
+     and the tensor-core (HMMA) instructions of the joint's forward and
+     backward kernels and of K9b's, each of which must hold some;
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
      batched shape (f32 and bf16) and the streaming shape, with times (CUDA
      events) beside the byte bound;
@@ -37,7 +37,8 @@ defaults through the port's entry points:
      and the transducer α/β lattice against their plain versions at the
      RNN-T training shape (B=32, T=1598, U=48, J=64, V=1024; f32, and bf16
      enc/pred for K6), a ragged shape (blank_id 5) and U=128, with times,
-     bounds and plain times;
+     bounds and plain times; beside each K6a bound, the exps' time at the
+     SFU rate and ``torch.matmul``'s time for the logits alone;
   9. RNN-T train step: ``make_segment_scan_step`` with ``--train.mode
      rnnt`` over one group of 2 carried 16 s segments at B=32, U=48 (the
      auto band resolves to the exact loss), the kernel path held against
@@ -56,8 +57,9 @@ defaults through the port's entry points:
      path;
  13. kernels K8a, K8b and the banded α/β lattice against their plain
      versions at the banded training shape (B=32, T=1598, U=128, band 32;
-     f32, and bf16 for K8), and the identity: with band ≥ U+1 the banded
-     loss and its gradients equal the exact K6/K7 loss;
+     f32, and bf16 for K8; beside each K8a bound, as in phase 8), and the
+     identity: with band ≥ U+1 the banded loss and its gradients equal the
+     exact K6/K7 loss;
  14. RNN-T train step at U=128 with the default band (32): one group of K=2
      at B=32 with a row_valid=False row and a degenerate row (its band
      prunes every path: masked out, finite gradients), kernel path against
@@ -258,6 +260,39 @@ def joint_bound_ms(R: int, V: int, J: int, dtype: torch.dtype, nbytes: float,
     t_ops = max(R * V * per_j * J / contraction_peak, R * V * elementwise / F32_OPS_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi`` clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def joint_fwd_yardsticks(tag: str, R: int, V: int, J: int, dtype: torch.dtype, dev) -> None:
+    """Two lines beside a K6a/K8a bound.  The exps' time at the SFU rate:
+    one exp per (row, v), R·V of them, at 16 a clock on each SM at the
+    card's highest clock; under bf16 it is about twice the operations bound,
+    which it does not enter (a polynomial exp2 on the FMA pipe could take
+    part of it).  And, as a yardstick only, the time of ``torch.matmul`` for
+    the same (R × J)·(J × V) logits product in the same dtype: not the same
+    function (it writes the R × V logits, which the kernel never stores, and
+    takes no log-sum-exp), so not the table's library time."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    sfu_ms = R * V / (16 * n_sm * clock) * 1e3
+    log(f"{tag} K6a/K8a exps at the SFU rate: {sfu_ms:.4f} ms ({R * V} exps at 16 a clock × "
+        f"{n_sm} SMs × {clock / 1e9:.3f} GHz)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    with torch.inference_mode():
+        a = torch.randn((R, J), generator=gen, device=dev).to(dtype)
+        k = torch.randn((J, V), generator=gen, device=dev).to(dtype)
+        out = torch.empty((R, V), dtype=dtype, device=dev)
+        ms = cuda_ms(lambda: torch.matmul(a, k, out=out), 3, warmup=1)
+    del a, k, out
+    log(f"{tag} yardstick, not the same function: torch.matmul of the ({R} × {J})·({J} × {V}) "
+        f"logits in {dtype}, {ms:.4f} ms")
 
 
 def sass_hmma(lib: str, family: str) -> dict[str, int]:
@@ -1077,6 +1112,7 @@ def phase_rnnt_kernels(dev) -> dict:
             f"{err_f:.3e}, bwd max|Δ| {err_b:.3e}; K6a {ms_f:.4f} ms (plain {plain_f:.2f}, bound "
             f"{bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K6b {ms_b:.4f} ms (plain "
             f"{plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, {bound_b / ms_b:.1%}); library_ms: none")
+        joint_fwd_yardsticks(f"[K6] {label}:", R, V, J, dtype, dev)
         out["K6a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
                                "bound_ms": bound_f, "bound_by": by_f}
         out["K6b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
@@ -1220,6 +1256,7 @@ def phase_band_kernels(dev) -> dict:
             f"{plain_f:.2f}, bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K8b "
             f"{ms_b:.4f} ms (plain {plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, "
             f"{bound_b / ms_b:.1%}); library_ms: none")
+        joint_fwd_yardsticks(f"[K8] {label}:", R, V, J, dtype, dev)
         out["K8a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
                                "bound_ms": bound_f, "bound_by": by_f}
         out["K8b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
@@ -1725,11 +1762,15 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {lib}: nvcc {info['seconds']:.1f} s; " + " | ".join(usage))
 
-    # the joint's backward kernels run on the tensor cores; its forward does not
+    # the joint's forward and backward kernels run on the tensor cores: every
+    # J and dtype instance of each
     for lib in ("rnnt_joint", "rnnt_band"):
         hmma = sass_hmma(lib, "joint_")
         log(f"[build] {lib} SASS, HMMA instructions per kernel: "
             + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+        fwd = {k: v for k, v in hmma.items() if "fwd_mma" in k}
+        if len(fwd) != 4 or min(fwd.values()) == 0:
+            raise AssertionError(f"{lib}: the forward's kernels hold no HMMA: {hmma}")
         bwd = {k: v for k, v in hmma.items() if "bwd_rows_mma" in k or "bwd_dk_mma" in k}
         if len(bwd) != 8 or min(bwd.values()) == 0:
             raise AssertionError(f"{lib}: the backward's kernels hold no HMMA: {hmma}")

@@ -48,14 +48,14 @@ SIGNATURES = {
         "rnnt_band_beta": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     },
     "rnnt_joint": {
-        "rnnt_joint_fwd": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+        "rnnt_joint_fwd": (_I, [_P] * 10 + [_I] * 7 + [_P]),
         "rnnt_joint_bwd": (_I, [_P] * 14 + [_I] * 8 + [_P]),
-        "rnnt_joint_bwd_sizes": (_I, [_I, _I, _I, _P]),
+        "rnnt_joint_sizes": (_I, [_I, _I, _I, _P]),
     },
     "rnnt_band": {
-        "rnnt_band_fwd": (_I, [_P] * 9 + [_I] * 10 + [_P]),
+        "rnnt_band_fwd": (_I, [_P] * 11 + [_I] * 10 + [_P]),
         "rnnt_band_bwd": (_I, [_P] * 16 + [_I] * 11 + [_P]),
-        "rnnt_band_bwd_sizes": (_I, [_I, _I, _I, _P]),
+        "rnnt_band_sizes": (_I, [_I, _I, _I, _P]),
     },
     "mlstm_fused": {
         "mlstm_fused_fwd": (_I, [_I] + [_P] * 12 + [_I] * 7 + [_P]),

@@ -1,5 +1,5 @@
 // Warp-level tensor-core fragments (mma.sync) for Hopper (sm_90a), shared by
-// the RNN-T joint's backward (rnnt_joint_core.cuh) and the mLSTM backward
+// the RNN-T joint's kernels (rnnt_joint_core.cuh) and the mLSTM backward
 // (mlstm_fused.cu): the fragment layouts, the 3xTF32 split, the tf32 and bf16
 // products, ldmatrix and 16-byte cp.async.
 
@@ -26,10 +26,12 @@ struct Split {
   uint32_t hi, lo;
 };
 
+// rna_tf32 in integer operations: cvt.rna.tf32.f32 rounds to nearest, ties
+// away from zero, which on the sign-magnitude bits of a finite x is adding
+// half a unit of the 13 dropped bits and clearing them (the same bits, off
+// the conversion instruction)
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 __device__ __forceinline__ Split split_tf32(float x) {

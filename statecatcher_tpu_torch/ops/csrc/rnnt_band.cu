@@ -5,8 +5,9 @@
 // geometry and the d_pred reduction over overlapping windows.
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_band.py:
-//   K8a  joint_fwd_kernel      <- _fwd_kernel (:80), launched by _banded_fwd_impl (:157)
-//   K8b  joint_bwd_kprep_kernel, joint_bwd_rows_mma_kernel, joint_bwd_rowrec_kernel,
+//   K8a  joint_kprep_kernel, joint_fwd_mma_kernel
+//        <- _fwd_kernel (:80), launched by _banded_fwd_impl (:157)
+//   K8b  joint_kprep_kernel, joint_bwd_rows_mma_kernel, joint_bwd_rowrec_kernel,
 //        joint_bwd_dk_mma_kernel, band_dpred_kernel
 //        <- _bwd_kernel (:100), launched by _banded_core_bwd (:206)
 //
@@ -70,17 +71,13 @@ __global__ void band_dpred_kernel(const float* __restrict__ part, const int* __r
 // be at most 128, blank_id in [0, V), Tb a multiple of 8 dividing Tp, Wp a
 // multiple of 8 (the wrapper checks).
 extern "C" int rnnt_band_fwd(const float* enc, const float* pred, const float* K,
-                             const float* bias, const int* labels, const int* o, float* blank,
-                             float* emit, float* lse, int B, int T, int U1, int J, int V, int Tp,
-                             int Wp, int Tb, int blank_id, int bf, void* stream) {
+                             const float* bias, const float* ke, const float* be, void* kop,
+                             const int* o, float* blank, float* emit, float* lse, int B, int T,
+                             int U1, int J, int V, int Tp, int Wp, int Tb, int blank_id, int bf,
+                             void* stream) {
   if (!band_ok(Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
-  const Geo g = band_geo(B, T, U1, J, V, o, Tp, Wp, Tb);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (J <= 64)
-    return launch_fwd<64>(enc, pred, K, bias, labels, g, blank_id, bf, blank, emit, lse, s);
-  if (J <= 128)
-    return launch_fwd<128>(enc, pred, K, bias, labels, g, blank_id, bf, blank, emit, lse, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd(enc, pred, K, bias, ke, be, band_geo(B, T, U1, J, V, o, Tp, Wp, Tb), blank_id,
+                    bf, kop, blank, emit, lse, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rnnt_band_bwd(const float* enc, const float* pred, const float* K,
@@ -102,8 +99,8 @@ extern "C" int rnnt_band_bwd(const float* enc, const float* pred, const float* K
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's sizes at this J, V and dtype (rnnt_joint_core.cuh's
-// bwd_sizes): out[0] d_K blocks per SM, out[1] words of K's operand form
-extern "C" int rnnt_band_bwd_sizes(int J, int V, int bf, int* out) {
-  return bwd_sizes(J, V, bf, out);
+// The sizes at this J, V and dtype (rnnt_joint_core.cuh's joint_sizes):
+// out[0] d_K blocks per SM, out[1] words of K's operand form
+extern "C" int rnnt_band_sizes(int J, int V, int bf, int* out) {
+  return joint_sizes(J, V, bf, out);
 }

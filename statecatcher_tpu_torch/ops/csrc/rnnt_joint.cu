@@ -4,8 +4,9 @@
 // bound and the design.
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_pallas.py:
-//   K6a  joint_fwd_kernel      <- _fwd_kernel (:72), launched by _core_fwd_impl (:155)
-//   K6b  joint_bwd_kprep_kernel, joint_bwd_rows_mma_kernel (d_enc, d_pred),
+//   K6a  joint_kprep_kernel, joint_fwd_mma_kernel
+//        <- _fwd_kernel (:72), launched by _core_fwd_impl (:155)
+//   K6b  joint_kprep_kernel, joint_bwd_rows_mma_kernel (d_enc, d_pred),
 //        joint_bwd_rowrec_kernel, joint_bwd_dk_mma_kernel (d_K, d_bias)
 //        <- _bwd_kernel (:92), launched by _core_bwd (:196)
 //
@@ -28,16 +29,11 @@ Geo exact_geo(int B, int T, int U1, int J, int V) {
 // Each returns the first cudaError_t of its launches (0 on success).  J must
 // be at most 128 and blank_id in [0, V) (the wrapper checks).
 extern "C" int rnnt_joint_fwd(const float* enc, const float* pred, const float* K,
-                              const float* bias, const int* labels, float* blank, float* emit,
-                              float* lse, int B, int T, int U1, int J, int V, int blank_id,
-                              int bf, void* stream) {
-  const Geo g = exact_geo(B, T, U1, J, V);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (J <= 64)
-    return launch_fwd<64>(enc, pred, K, bias, labels, g, blank_id, bf, blank, emit, lse, s);
-  if (J <= 128)
-    return launch_fwd<128>(enc, pred, K, bias, labels, g, blank_id, bf, blank, emit, lse, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                              const float* bias, const float* ke, const float* be, void* kop,
+                              float* blank, float* emit, float* lse, int B, int T, int U1, int J,
+                              int V, int blank_id, int bf, void* stream) {
+  return launch_fwd(enc, pred, K, bias, ke, be, exact_geo(B, T, U1, J, V), blank_id, bf, kop,
+                    blank, emit, lse, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rnnt_joint_bwd(const float* enc, const float* pred, const float* K,
@@ -51,8 +47,8 @@ extern "C" int rnnt_joint_bwd(const float* enc, const float* pred, const float* 
                     static_cast<cudaStream_t>(stream));
 }
 
-// The backward's sizes at this J, V and dtype (rnnt_joint_core.cuh's
-// bwd_sizes): out[0] d_K blocks per SM, out[1] words of K's operand form
-extern "C" int rnnt_joint_bwd_sizes(int J, int V, int bf, int* out) {
-  return bwd_sizes(J, V, bf, out);
+// The sizes at this J, V and dtype (rnnt_joint_core.cuh's joint_sizes):
+// out[0] d_K blocks per SM, out[1] words of K's operand form
+extern "C" int rnnt_joint_sizes(int J, int V, int bf, int* out) {
+  return joint_sizes(J, V, bf, out);
 }

@@ -1,6 +1,6 @@
 // The fused RNN-T joint -> (blank, emit) log-probs, shared by the exact joint
-// (rnnt_joint.cu, K6) and the banded joint (rnnt_band.cu, K8): the forward
-// kernel and the two kernels of its backward, over a grid of lattice rows.
+// (rnnt_joint.cu, K6) and the banded joint (rnnt_band.cu, K8): the kernels of
+// the forward and of its backward, over a grid of lattice rows.
 //
 //   enc    (B, T, J) f32, pred (B, U1, J) f32, U1 = U+1 (the wrappers cast)
 //   K      (J, V) f32 (the JAX layout), bias (V) f32, labels (B, U) int32
@@ -39,27 +39,45 @@
 // elementwise operations at the 67 TFLOP/s of f32 outside the tensor cores.
 // At R = 2.5M rows (B=32, T=1598, U=48 exact, or U=128 at band 32), J=64,
 // V=1024: forward 2.0 ms f32, 0.33 bf16; backward 6.0 ms f32, 1.0 bf16.
+// The forward's one exp per (row, v) on the SFU (16 a clock per SM) takes
+// ~0.6 ms there: under bf16 the exps, not the products, set its pace.
 //
-// Design.  Forward (a simple tiled kernel, f32 FMA, no tensor cores): a block
-// of 256 threads (16 x 16) owns tiles of 128 rows x 64 vocab columns; each
-// thread a 8 x 4 register micro-tile.  The rows' joint values (tanh
-// recomputed from enc and pred) and a 64-column tile of K sit in shared
-// memory, read as float4 broadcasts; it walks V in tiles with an online
-// max/sum per row, merged across the 16 threads of a row by shuffles.
+// Both directions take their products on the tensor cores through
+// warp-level mma.sync, 3xTF32 for f32 inputs (x = hi + lo, each rounded to
+// tf32; hi*hi + hi*lo + lo*hi in f32, ~2^-22 of each product dropped) and
+// bf16 for bf16 inputs (the operands the contract rounds, exact products, f32
+// sums: the same function, summed in another order).  The instance is chosen
+// by J and dtype at compile time.  exp is ex2.approx of a prescaled argument.
+// The tensor cores' f32 accumulator does not round to nearest, so no chain of
+// products runs long: each 64-column tile (logits) or 64-row tile (d_K) is
+// summed alone and added to the total in f32.
+//   kprep (joint_kprep_kernel): K and the bias once per call in the operand
+//         form that the forward and the backward's rows kernel stream
+//         (KTile), so that none of their blocks converts them.
+//
+// Forward (joint_fwd_mma_kernel): a block of 8 warps owns 256 consecutive
+// rows at J <= 64 (two m16 tiles per warp, which share each B fragment: half
+// the L2 reads of K and of shared-memory loads per product) or 128 at
+// J <= 128.  The joint (tanh once per element) goes to shared
+// memory in f32; each warp loads its A fragments from it once (bf16 packed,
+// or f32 split per k-step under 3xTF32) and keeps them in registers across
+// all of V.  K's tiles stream through rings of 2-3 stages by 16-byte
+// cp.async (under bf16 only the [v][j] half and the bias).  Per 64-column
+// tile a thread's rows each hold 16 logits in the accumulator's layout: the
+// tile max, the rescaled running sum and the exps stay in registers; each
+// row's (max, sum) merges over its 4 lanes once, at the end.  At J <= 64 the
+// block's two groups of 4 warps each stream K through a ring of their own
+// and take turns on the tensor cores (named barriers), so that one group's
+// exps run beside the other's products.  The per-element sequence of
+// products is the rows kernel's (same KTile, same k order, the bias added
+// after), so the backward recomputes the logits bit for bit against the
+// saved lse.  The blank logit is picked in tile blank_id / 64.  The emit
+// logit is the f32 dot of the joint with ke = K[:, label_u] (B, U, J),
+// gathered by the wrapper (zero where a label selects no column), 8 lanes to
+// a row on contiguous loads issued before the joint is formed.
 //
 // Backward (replacing a design of f32 FMA kernels, which took 66 ms at the
-// shape above against a 15 ms FMA bound): on the tensor cores through warp-level
-// mma.sync, 3xTF32 for f32 inputs (x = hi + lo, each rounded to tf32; hi*hi +
-// hi*lo + lo*hi in f32, ~2^-22 of each product dropped) and bf16 for bf16
-// inputs (the operands the contract rounds, exact products, f32 sums: the
-// same function, summed in another order).  The instance is chosen by J and
-// dtype at compile time.  exp is ex2.approx of a prescaled argument.  The
-// tensor cores' f32 accumulator does not round to nearest, so no chain of
-// products runs long: each 64-column tile (rows) or 64-row tile (d_K) is
-// summed alone and added to the total in f32.
-//   kprep (joint_bwd_kprep_kernel): K and the bias once per call in the
-//         operand form of the rows kernel (KTile), so that none of its
-//         blocks converts them;
+// shape above against a 15 ms FMA bound):
 //   rows  (joint_bwd_rows_mma_kernel): a PT x PU patch of (t, w) of one batch
 //         row (K6 16 x 8, K8 8 x 16), 8 warps of 16 rows.  Per 64-column
 //         tile of K (double-buffered by 16-byte cp.async) a warp takes its
@@ -100,13 +118,9 @@
 
 namespace {
 
-constexpr int kRT = 128;             // rows per tile
+constexpr int kRT = 128;             // rows of a backward patch
 constexpr int kVT = 64;              // vocab columns per tile
-constexpr int kThreads = 256;        // 16 (ty, rows) x 16 (tx, columns)
-constexpr int kRP = kRT + 4;         // padded stride of [j][row] and [v][row] arrays
-constexpr int kVP = kVT + 4;         // padded stride of [row][v] arrays
-constexpr int kRows = kRT / 16;      // 8 rows per thread
-constexpr int kCols = kVT / 16;      // 4 columns per thread
+constexpr int kThreads = 256;        // 8 warps
 
 struct Geo {
   long long R;
@@ -132,58 +146,20 @@ __device__ __forceinline__ RowPos row_pos(const Geo& g, long long r) {
   return p;
 }
 
-// The kRT rows a block owns: the linear rows r0 .. r0+kRT (b < 0), or the
-// patch of frames t0 .. t0+PT and positions w0 .. w0+PU of batch row b.
+// The kRT rows of a backward patch: frames t0 .. t0+PT and positions
+// w0 .. w0+PU of batch row b.
 struct Tile {
-  long long r0;
   int b, t0, w0;
 };
 
 // Global row of the tile's row `row`, or -1 outside the rows.
 __device__ __forceinline__ long long tile_row(const Tile& tl, const Geo& g, int row) {
-  if (tl.b < 0) {
-    const long long r = tl.r0 + row;
-    return r < g.R ? r : -1;
-  }
   const int t = tl.t0 + row / g.PU, w = tl.w0 + row % g.PU;
   return (t < g.TT && w < g.W) ? (static_cast<long long>(tl.b) * g.TT + t) * g.W + w : -1;
 }
 
-__device__ __forceinline__ Tile linear_tile(long long r0) { return Tile{r0, -1, 0, 0}; }
-
 __device__ __forceinline__ float rbf(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// The offsets of the tile's rows in enc and pred, s_off[0][row] and
-// s_off[1][row], -1 where the row reads 0 (a padded frame or position, or
-// no row): computed once per row, so the per-element loads do no division.
-__device__ void load_row_offsets(const Geo& g, const Tile& tl, long long (*s_off)[kRT]) {
-  for (int row = threadIdx.x; row < kRT; row += kThreads) {
-    const long long r = tile_row(tl, g, row);
-    long long eo = -1, po = -1;
-    if (r >= 0) {
-      const RowPos p = row_pos(g, r);
-      if (p.t < g.T) eo = (static_cast<long long>(p.b) * g.T + p.t) * g.J;
-      if (p.u < g.U1) po = (static_cast<long long>(p.b) * g.U1 + p.u) * g.J;
-    }
-    s_off[0][row] = eo;
-    s_off[1][row] = po;
-  }
-}
-
-// tanh(enc_t + pred_u)_j of the tile's row `row` (0 past J and where the
-// row reads 0)
-__device__ __forceinline__ float joint_at(const float* __restrict__ enc,
-                                          const float* __restrict__ pred, const Geo& g,
-                                          long long (*s_off)[kRT], int row, int j) {
-  if (j >= g.J) return 0.0f;
-  const long long eo = s_off[0][row], po = s_off[1][row];
-  return tanhf((eo >= 0 ? enc[eo + j] : 0.0f) + (po >= 0 ? pred[po + j] : 0.0f));
 }
 
 // The label of row position p, or -1 where it selects no column
@@ -199,61 +175,6 @@ __device__ __forceinline__ float logit_bias(const float* __restrict__ bias, cons
                                             bool round) {
   if (v >= g.V) return 0.0f;
   return round ? rbf(bias[v]) : bias[v];
-}
-
-// The joint of the tile's rows into jT[j][row] (and jR[row][j] when given),
-// through the row offsets s_off (filled here; valid until the next call).
-template <int JP>
-__device__ void load_joint(const float* __restrict__ enc, const float* __restrict__ pred,
-                           const Geo& g, const Tile& tl, bool round, long long (*s_off)[kRT],
-                           float* jT, float* jR) {
-  load_row_offsets(g, tl, s_off);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRT * JP; e += kThreads) {
-    const int row = e / JP;
-    const int j = e % JP;
-    float v = joint_at(enc, pred, g, s_off, row, j);
-    if (round) v = rbf(v);
-    jT[j * kRP + row] = v;
-    if (jR != nullptr) jR[row * (JP + 4) + j] = v;
-  }
-}
-
-// Columns v0 .. v0+kVT of K into kT[j][v] (and kvT[v][j] when given).
-template <int JP>
-__device__ void load_k(const float* __restrict__ K, const Geo& g, int v0, bool round, float* kT,
-                       float* kvT) {
-  for (int e = threadIdx.x; e < JP * kVT; e += kThreads) {
-    const int j = e / kVT;
-    const int vv = e % kVT;
-    const int v = v0 + vv;
-    float x = (j < g.J && v < g.V) ? K[static_cast<size_t>(j) * g.V + v] : 0.0f;
-    if (round) x = rbf(x);
-    kT[e] = x;
-    if (kvT != nullptr) kvT[vv * (JP + 4) + j] = x;
-  }
-}
-
-// acc[i][c] = sum_j jT[j][ty*8+i] * kT[j][tx*4+c]
-template <int JP>
-__device__ __forceinline__ void logits_tile(const float* jT, const float* kT, int ty, int tx,
-                                            float acc[kRows][kCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-#pragma unroll 4
-  for (int j = 0; j < JP; ++j) {
-    const float4 a0 = ld4(jT + j * kRP + ty * kRows);
-    const float4 a1 = ld4(jT + j * kRP + ty * kRows + 4);
-    const float4 bk = ld4(kT + j * kVT + tx * kCols);
-    const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float k[kCols] = {bk.x, bk.y, bk.z, bk.w};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(a[i], k[c], acc[i][c]);
-  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -274,126 +195,7 @@ __device__ __forceinline__ float dlogit(float l, float c, float ls2, float gb, f
 }
 
 // ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-template <int JP>
-__global__ void __launch_bounds__(kThreads)
-joint_fwd_kernel(const float* __restrict__ enc, const float* __restrict__ pred,
-                 const float* __restrict__ K, const float* __restrict__ bias,
-                 const int* __restrict__ labels, Geo g, int blank_id, int bf,
-                 float* __restrict__ blank_out, float* __restrict__ emit_out,
-                 float* __restrict__ lse_out) {
-  extern __shared__ float4 smem4[];
-  float* jT = reinterpret_cast<float*>(smem4);  // [JP][kRP]
-  float* kT = jT + JP * kRP;                     // [JP][kVT]
-  float* s_blank = kT + JP * kVT;                // [kRT] blank logit
-  float* s_emit = s_blank + kRT;                 // [kRT] emit logit
-  __shared__ long long s_off[2][kRT];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRT;
-  const bool round = bf != 0;
-
-  load_joint<JP>(enc, pred, g, linear_tile(r0), false, s_off, jT, nullptr);
-  __syncthreads();
-  // emit logit from the f32 joint and the f32 column of K and bias at the label
-  for (int row = tid; row < kRT; row += kThreads) {
-    const long long r = r0 + row;
-    float e = 0.0f;
-    if (r < g.R) {
-      const int lab = row_label(g, labels, row_pos(g, r));
-      if (lab >= 0) {  // never read K outside its columns
-        for (int j = 0; j < g.J; ++j)
-          e = fmaf(jT[j * kRP + row], K[static_cast<size_t>(j) * g.V + lab], e);
-        e += bias[lab];
-      }
-    }
-    s_emit[row] = e;
-  }
-  if (round) {
-    __syncthreads();
-    for (int e = tid; e < JP * kRT; e += kThreads) {
-      const int j = e / kRT, row = e % kRT;
-      jT[j * kRP + row] = rbf(jT[j * kRP + row]);
-    }
-  }
-
-  float m[kRows], s[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    s[i] = 0.0f;
-  }
-  for (int v0 = 0; v0 < g.V; v0 += kVT) {
-    __syncthreads();
-    load_k<JP>(K, g, v0, round, kT, nullptr);
-    __syncthreads();
-    float acc[kRows][kCols];
-    logits_tile<JP>(jT, kT, ty, tx, acc);
-    float bv[kCols];
-    bool ok[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int v = v0 + tx * kCols + c;
-      ok[c] = v < g.V;
-      bv[c] = logit_bias(bias, g, v, round);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        acc[i][c] += bv[c];
-        if (ok[c]) tmax = fmaxf(tmax, acc[i][c]);
-        if (ok[c] && v0 + tx * kCols + c == blank_id) s_blank[ty * kRows + i] = acc[i][c];
-      }
-      if (tmax > -INFINITY) {
-        const float mn = fmaxf(m[i], tmax);
-        float add = 0.0f;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (ok[c]) add += expf(acc[i][c] - mn);
-        s[i] = s[i] * expf(m[i] - mn) + add;
-        m[i] = mn;
-      }
-    }
-  }
-  // merge each row's (max, sum) over its 16 threads (lanes tx of one half-warp)
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float so = __shfl_xor_sync(0xffffffffu, s[i], off);
-      const float mn = fmaxf(m[i], mo);
-      if (mn > -INFINITY) {
-        s[i] = (m[i] > -INFINITY ? s[i] * expf(m[i] - mn) : 0.0f) +
-               (mo > -INFINITY ? so * expf(mo - mn) : 0.0f);
-        m[i] = mn;
-      }
-    }
-  }
-  __syncthreads();
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty * kRows + i;
-      const long long r = r0 + row;
-      if (r >= g.R) continue;
-      const float ls = m[i] + logf(s[i]);
-      lse_out[r] = ls;
-      blank_out[r] = s_blank[row] - ls;
-      if (g.o != nullptr) {
-        emit_out[r] = s_emit[row] - ls;
-      } else {
-        const RowPos p = row_pos(g, r);
-        if (p.u < g.U) emit_out[p.bt * g.U + p.u] = s_emit[row] - ls;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: tensor-core fragments (warp-level mma.sync)
+// Tensor-core fragments (warp-level mma.sync)
 // ---------------------------------------------------------------------------
 // The fragments and their helpers are in mma_frag.cuh.
 
@@ -494,28 +296,28 @@ __device__ __forceinline__ float op_f(__nv_bfloat16 x) { return __bfloat162float
 
 // jS[row*JS + j] = tanh(enc + pred) of the NR rows as operands of type T,
 // from the rows' offsets (-1: reads 0), 0 past J.  A thread keeps one j and
-// issues its loads 16 rows at a time before any tanh, so their latencies
+// issues its loads QB rows at a time before any tanh, so their latencies
 // overlap.
-template <int NR, int JP, int JS, typename T>
+template <int NR, int JP, int JS, int QB = 16, typename T>
 __device__ __forceinline__ void load_joint_rows(const float* __restrict__ enc,
                                                 const float* __restrict__ pred, const Geo& g,
                                                 const int* eo, const int* po, T* jS) {
   constexpr int kStride = kThreads / JP;          // rows per pass of the block
   constexpr int NQ = NR / kStride;                // rows per thread
-  static_assert(NQ % 16 == 0, "rows per thread");
+  static_assert(NQ % QB == 0, "rows per thread");
   const int j = threadIdx.x % JP, row0 = threadIdx.x / JP;
   const bool jok = j < g.J;
 #pragma unroll
-  for (int q0 = 0; q0 < NQ; q0 += 16) {
-    float x[16];
+  for (int q0 = 0; q0 < NQ; q0 += QB) {
+    float x[QB];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
+    for (int q = 0; q < QB; ++q) {
       const int row = row0 + (q0 + q) * kStride;
       const int e = eo[row], p = po[row];
       x[q] = (jok && e >= 0 ? enc[e + j] : 0.0f) + (jok && p >= 0 ? pred[p + j] : 0.0f);
     }
 #pragma unroll
-    for (int q = 0; q < 16; ++q) jS[(row0 + (q0 + q) * kStride) * JS + j] = to_op<T>(tanhf(x[q]));
+    for (int q = 0; q < QB; ++q) jS[(row0 + (q0 + q) * kStride) * JS + j] = to_op<T>(tanhf(x[q]));
   }
 }
 
@@ -566,14 +368,14 @@ __device__ __forceinline__ void warp_mma_3xtf32(const float* A, int sam, int sak
 }
 
 // ---------------------------------------------------------------------------
-// Backward, part 1: d_enc and d_pred, partial sums per (t, w) patch
+// K's operand form, for the forward and the backward's rows kernel
 // ---------------------------------------------------------------------------
-// One 64-column tile of K in the operand form of the tensor cores, as the
-// rows kernel reads it, in 32-bit words: f32 as tf32 hi and lo, each [j][v];
-// bf16 as [v][j] (the logits' B) and [j][v] (d_joint's B); then the tile's
-// bias as the logits see it (f32; bf16-rounded under bf16).  K changes every
-// step, so joint_bwd_kprep_kernel writes the ceil(V/64) tiles once per call
-// and every block of the rows kernel copies them as they are.
+// One 64-column tile of K in the operand form of the tensor cores, in 32-bit
+// words: f32 as tf32 hi and lo, each [j][v]; bf16 as [v][j] (the logits' B)
+// and [j][v] (d_joint's B); then the tile's bias as the logits see it (f32;
+// bf16-rounded under bf16).  K changes every step, so joint_kprep_kernel
+// writes the ceil(V/64) tiles once per call and every block of the forward
+// and of the rows kernel copies them as they are.
 template <int JP, bool BF>
 struct KTile {
   static constexpr int KS = kVT + 8;              // f32: hi, lo [j][v]
@@ -584,8 +386,8 @@ struct KTile {
 };
 
 template <int JP, bool BF>
-__global__ void joint_bwd_kprep_kernel(const float* __restrict__ K, const float* __restrict__ bias,
-                                       Geo g, uint32_t* __restrict__ kop) {
+__global__ void joint_kprep_kernel(const float* __restrict__ K, const float* __restrict__ bias,
+                                   Geo g, uint32_t* __restrict__ kop) {
   using KT = KTile<JP, BF>;
   uint32_t* dst = kop + static_cast<size_t>(blockIdx.x) * KT::WORDS;
   const int v0 = blockIdx.x * kVT;
@@ -605,6 +407,320 @@ __global__ void joint_bwd_kprep_kernel(const float* __restrict__ K, const float*
   for (int vv = threadIdx.x; vv < kVT; vv += blockDim.x)
     dst[KT::OPS + vv] = __float_as_uint(logit_bias(bias, g, v0 + vv, BF));
 }
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+// The forward's layout at J <= JP: MT m16 tiles of rows per warp (two at
+// J <= 64, sharing each B fragment; one at J <= 128, where two would not fit
+// shared memory beside the f32 stages), NR rows per block, the f32 joint
+// [row][j] and NG rings of NS stages of the KTile words the logits read
+// (f32: all of them; bf16: the [v][j] half), each followed by the tile's
+// bias.  PP (J <= 64): two groups of 4 warps, each with its own ring,
+// take turns on the tensor cores, so that one group's exps run beside the
+// other's products (with one ring, the barrier of each tile lines all warps
+// up: products, then exps).
+template <int JP, bool BF>
+struct FwdLayout {
+  static constexpr int MT = JP == 64 ? 2 : 1;
+  static constexpr int NR = 8 * 16 * MT;
+  static constexpr int JS = JP + 4;
+  static constexpr int KOPS = BF ? kVT * KTile<JP, BF>::KVS / 2 : KTile<JP, BF>::OPS;
+  static constexpr int STAGE = KOPS + kVT;
+  static constexpr bool PP = JP == 64;
+  static constexpr int NG = PP ? 2 : 1;
+  static constexpr int NS = (BF && !PP) ? 3 : 2;
+  static constexpr size_t bytes() { return sizeof(float) * (NR * JS + NG * NS * STAGE); }
+};
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The bias of a column past V: no logit (its exp is 0 against any real
+// logit); finite, so that a lane whose columns all lie past V adds no NaN
+constexpr float kNoLogit = -1e30f;
+
+// grid ceil(R / NR): block x owns rows x*NR .. x*NR+NR.  ke (B, U, J) and be
+// (B, U): the f32 column of K and the bias at each label, 0 where the label
+// selects no column.
+template <int JP, bool BF>
+__global__ void __launch_bounds__(kThreads, (BF && JP == 64) ? 2 : 1)
+joint_fwd_mma_kernel(const float* __restrict__ enc, const float* __restrict__ pred,
+                     const uint32_t* __restrict__ kop, const float* __restrict__ ke,
+                     const float* __restrict__ be, Geo g, int blank_id,
+                     float* __restrict__ blank_out, float* __restrict__ emit_out,
+                     float* __restrict__ lse_out) {
+  using L = FwdLayout<JP, BF>;
+  using KT = KTile<JP, BF>;
+  using AR = typename std::conditional<BF, uint32_t, float>::type;
+  constexpr int MT = L::MT, NR = L::NR, JS = L::JS, NS = L::NS, KS = KT::KS;
+  constexpr int GT = kThreads / L::NG;            // threads of a ring's group
+  constexpr int NV = kVT / 8;                     // n-tiles of a logits tile
+  constexpr int NK = JP / kStep<BF>;              // k-steps
+  extern __shared__ float4 smem4[];
+  float* jS = reinterpret_cast<float*>(smem4);   // [NR][JS] f32 joint
+  uint32_t* stage = reinterpret_cast<uint32_t*>(jS + NR * JS);  // [NG][NS][STAGE]
+  __shared__ int s_eo[NR], s_po[NR], s_ko[NR];
+  __shared__ float s_out[3][NR];                  // lse, blank, emit (the emit logit first)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r8 = tid & 7, hi8 = (tid >> 3) & 1, hi16 = (tid >> 4) & 1;  // ldmatrix rows
+  const long long r0 = static_cast<long long>(blockIdx.x) * NR;
+  const int nvt = (g.V + kVT - 1) / kVT;
+  const int gid = tid / GT, gtid = tid % GT;      // the thread's group and ring
+  uint32_t* ring = stage + gid * NS * L::STAGE;
+
+  auto issue_k = [&](int it) {                    // the words the logits read, and the bias
+    uint32_t* dst = ring + (it % NS) * L::STAGE;
+    const uint32_t* src = kop + static_cast<size_t>(it) * KT::WORDS;
+    for (int e = gtid; e < L::STAGE / 4; e += GT) {
+      const int w = 4 * e;
+      cp_async16(dst + w, src + (w < L::KOPS ? w : KT::OPS + (w - L::KOPS)));
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nvt) issue_k(s);
+    cp_async_commit();
+  }
+
+  // each row's offsets into enc, pred (-1: reads 0) and its ke row (-1: none)
+  for (int row = tid; row < NR; row += kThreads) {
+    const long long r = r0 + row;
+    int eo = -1, po = -1, ko = -1;
+    if (r < g.R) {
+      const RowPos p = row_pos(g, r);
+      if (p.t < g.T) eo = (p.b * g.T + p.t) * g.J;
+      if (p.u < g.U1) po = (p.b * g.U1 + p.u) * g.J;
+      if (p.u < g.U) ko = p.b * g.U + p.u;
+    }
+    s_eo[row] = eo;
+    s_po[row] = po;
+    s_ko[row] = ko;
+  }
+  __syncthreads();
+  // the emit logit: the f32 joint . ke + be, 8 lanes to a row (row warp*4 +
+  // grp + 32q), each lane every 8th j; its ke values are loaded before the
+  // joint is formed, so that their latency overlaps the joint's loads.  The
+  // joint's loads go out all at once under f32 (one block per SM, nothing
+  // else to hide them: on the H100 0.1-0.2 ms of 5.1 at phase 8's shape),
+  // 16 rows at a time under bf16 (two blocks per SM, 128 registers).  be is
+  // read after the joint: loaded beside ke, it took registers that the f32
+  // loads need, and the gain was lost.
+  constexpr int NQ = NR / 32, NJ8 = JP / 8, QB = BF ? 16 : NR * JP / kThreads;
+  const int grp = lane >> 3, l8 = lane & 7;
+  float kv[NQ][NJ8];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int ko = s_ko[warp * 4 + grp + 32 * q];
+#pragma unroll
+    for (int i = 0; i < NJ8; ++i) {
+      const int j = l8 + 8 * i;
+      kv[q][i] = (ko >= 0 && j < g.J) ? ke[static_cast<size_t>(ko) * g.J + j] : 0.0f;
+    }
+  }
+  load_joint_rows<NR, JP, JS, QB>(enc, pred, g, s_eo, s_po, jS);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int row = warp * 4 + grp + 32 * q, ko = s_ko[row];
+    float e = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NJ8; ++i) e = fmaf(jS[row * JS + l8 + 8 * i], kv[q][i], e);
+    e += __shfl_xor_sync(0xffffffffu, e, 4);
+    e += __shfl_xor_sync(0xffffffffu, e, 2);
+    e += __shfl_xor_sync(0xffffffffu, e, 1);
+    if (l8 == 0) s_out[2][row] = ko >= 0 ? e + be[ko] : 0.0f;
+  }
+
+  // the warp's A fragments, kept in registers across V: bf16 packed, or the
+  // f32 values that each k-step splits (into the rows kernel's frag_a bits)
+  const int wrow = warp * 16 * MT;
+  AR ar[MT][NK][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      const float* X = jS + (wrow + 16 * mt) * JS + ks * kStep<BF>;
+      if constexpr (BF) {
+        frag_a(X, JS, gq, tq, ar[mt][ks]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ar[mt][ks][e] = X[(gq + 8 * (e & 1)) * JS + tq + 4 * (e >> 1)];
+      }
+    }
+
+  // the thread's rows: gq and gq + 8 of each of its m-tiles; running max and
+  // sum of 2^((l - m) log2(e)) over its columns
+  float m[MT][2], s[MT][2], bl[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = kNoLogit;
+      s[mt][h] = 0.0f;
+      bl[mt][h] = 0.0f;
+    }
+  const int blank_tile = blank_id / kVT, blank_col = blank_id % kVT;
+  __syncthreads();                                // the emit logits are in s_out[2]
+
+  for (int it = 0; it < nvt; ++it) {
+    cp_async_wait<NS - 2>();
+    if constexpr (L::PP)                          // tile it has landed; tile it-1 is done
+      bar_sync(1 + gid, GT);
+    else
+      __syncthreads();
+    if (it + NS - 1 < nvt) issue_k(it + NS - 1);  // into the stage tile it-1 used
+    cp_async_commit();
+    const uint32_t* kt = ring + (it % NS) * L::STAGE;
+    const uint32_t* kHi = kt;                                   // f32
+    const uint32_t* kLo = kt + JP * KS;
+    const __nv_bfloat16* kV = reinterpret_cast<const __nv_bfloat16*>(kt);  // bf16
+    const float* sb = reinterpret_cast<const float*>(kt + L::KOPS);
+    float acc[MT][NV][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
+    // logits (16 rows x 64) = joint (16 x JP) . K_tile (JP x 64), per
+    // element the rows kernel's sequence of products.  PP: group 0 takes
+    // the tensor cores for tile it after group 1 has had them for tile
+    // it-1 (barrier 3), group 1 after group 0 for tile it (barrier 4)
+    if constexpr (L::PP)
+      if (gid == 1 || it > 0) bar_sync(3 + gid, kThreads);
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      const int k0 = ks * kStep<BF>;
+      if constexpr (BF) {
+#pragma unroll
+        for (int np = 0; np < NV / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, kV + (16 * np + r8 + 8 * hi16) * KT::KVS + k0 + 8 * hi8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * np], ar[mt][ks], b);
+            mma_bf16(acc[mt][2 * np + 1], ar[mt][ks], b + 2);
+          }
+        }
+      } else {
+        Split a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[mt][e] = split_tf32(ar[mt][ks][e]);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int o = (k0 + tq) * KS + 8 * n + gq;
+          const Split b[2] = {{kHi[o], kLo[o]}, {kHi[o + 4 * KS], kLo[o + 4 * KS]}};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][n], a[mt], b);
+        }
+      }
+    }
+    if constexpr (L::PP) {                        // the products done, hand over
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" ::"f"(acc[mt][n][e]));
+      bar_arrive(4 - gid, kThreads);
+    }
+    // + bias; columns past V (in the last tile only) take no logit
+    const int v0 = it * kVT;
+    float bv[NV][2];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(sb + 8 * n + 2 * tq);
+      bv[n][0] = x.x;
+      bv[n][1] = x.y;
+    }
+    if (v0 + kVT > g.V) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (v0 + 8 * n + 2 * tq + c >= g.V) bv[n][c] = kNoLogit;
+    }
+    // online log-sum-exp of each of the thread's rows over its 16 columns
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float tmax = kNoLogit;
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            acc[mt][n][2 * h + c] += bv[n][c];
+            tmax = fmaxf(tmax, acc[mt][n][2 * h + c]);
+          }
+        if (it == blank_tile) {
+#pragma unroll
+          for (int n = 0; n < NV; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (8 * n + 2 * tq + c == blank_col) bl[mt][h] = acc[mt][n][2 * h + c];
+        }
+        const float mn = fmaxf(m[mt][h], tmax), m2 = mn * kLog2e;
+        float add = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) add += ex2(fmaf(acc[mt][n][2 * h + c], kLog2e, -m2));
+        s[mt][h] = fmaf(s[mt][h], ex2(fmaf(m[mt][h], kLog2e, -m2)), add);
+        m[mt][h] = mn;
+      }
+  }
+  cp_async_wait<0>();
+  if constexpr (L::PP)
+    if (gid == 0) bar_sync(3, kThreads);          // group 1's last hand-over
+
+  // merge each row's (max, sum) over its 4 lanes; lane tq = 0 writes
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[mt][h], off);
+        const float so = __shfl_xor_sync(0xffffffffu, s[mt][h], off);
+        const float mn = fmaxf(m[mt][h], mo), m2 = mn * kLog2e;
+        s[mt][h] = s[mt][h] * ex2(fmaf(m[mt][h], kLog2e, -m2)) + so * ex2(fmaf(mo, kLog2e, -m2));
+        m[mt][h] = mn;
+      }
+      const float blank = __shfl_sync(0xffffffffu, bl[mt][h], (lane & ~3) | ((blank_col & 7) >> 1));
+      if (tq == 0) {
+        const int row = wrow + 16 * mt + gq + 8 * h;
+        const float ls = m[mt][h] + logf(s[mt][h]);
+        s_out[0][row] = ls;
+        s_out[1][row] = blank - ls;
+        s_out[2][row] -= ls;
+      }
+    }
+  __syncthreads();
+  for (int row = tid; row < NR; row += kThreads) {
+    const long long r = r0 + row;
+    if (r >= g.R) break;
+    lse_out[r] = s_out[0][row];
+    blank_out[r] = s_out[1][row];
+    if (g.o != nullptr) {
+      emit_out[r] = s_out[2][row];                // K8: every row
+    } else {
+      const RowPos p = row_pos(g, r);
+      if (p.u < g.U) emit_out[p.bt * g.U + p.u] = s_out[2][row];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, part 1: d_enc and d_pred, partial sums per (t, w) patch
+// ---------------------------------------------------------------------------
 
 // grid (ceil(W/PU), ceil(TT/PT), B); d_enc_part (B, TT, gridDim.x*PU/8, J),
 // d_pred_part (B, gridDim.y, W, J).  Warp w owns the patch's rows 16w ..
@@ -634,7 +750,7 @@ joint_bwd_rows_mma_kernel(const float* __restrict__ enc, const float* __restrict
   __shared__ RowsS<kRT> rs;
   const int tid = threadIdx.x, warp = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
   const int r8 = tid & 7, hi8 = (tid >> 3) & 1, hi16 = (tid >> 4) & 1;  // ldmatrix rows
-  const Tile tl{0, static_cast<int>(blockIdx.z), static_cast<int>(blockIdx.y) * g.PT,
+  const Tile tl{static_cast<int>(blockIdx.z), static_cast<int>(blockIdx.y) * g.PT,
                 static_cast<int>(blockIdx.x) * g.PU};
   const int nvt = (g.V + kVT - 1) / kVT;
 
@@ -986,21 +1102,45 @@ joint_bwd_dk_mma_kernel(const float* __restrict__ enc, const float* __restrict__
     }
 }
 
-size_t fwd_smem(int jp) { return sizeof(float) * (jp * kRP + jp * kVT + 2 * kRT); }
+// The kernels' offsets into enc, pred and ke are int32
+bool offsets_fit(const Geo& g) {
+  return static_cast<long long>(g.B) * g.T * g.J <= INT32_MAX &&
+         static_cast<long long>(g.B) * g.U1 * g.J <= INT32_MAX;
+}
 
-template <int JP>
-int launch_fwd(const float* enc, const float* pred, const float* K, const float* bias,
-               const int* labels, const Geo& g, int blank_id, int bf, float* blank,
-               float* emit, float* lse, cudaStream_t stream) {
-  const size_t smem = fwd_smem(JP);
-  cudaError_t err = cudaFuncSetAttribute(joint_fwd_kernel<JP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (g.R + kRT - 1) / kRT;
-  joint_fwd_kernel<JP><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      enc, pred, K, bias, labels, g, blank_id, bf, blank, emit, lse);
+template <int JP, bool BF>
+int launch_fwd_mma(const float* enc, const float* pred, const float* K, const float* bias,
+                   const float* ke, const float* be, const Geo& g, int blank_id, uint32_t* kop,
+                   float* blank, float* emit, float* lse, cudaStream_t stream) {
+  using L = FwdLayout<JP, BF>;
+  cudaError_t e = cudaFuncSetAttribute(joint_fwd_mma_kernel<JP, BF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::bytes()));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  joint_kprep_kernel<JP, BF><<<(g.V + kVT - 1) / kVT, kThreads, 0, stream>>>(K, bias, g, kop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (g.R + L::NR - 1) / L::NR;
+  joint_fwd_mma_kernel<JP, BF><<<static_cast<unsigned>(blocks), kThreads, L::bytes(), stream>>>(
+      enc, pred, kop, ke, be, g, blank_id, blank, emit, lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's kernels at J <= 64 or J <= 128, f32 (bf = 0) or bf16.  ke
+// (B, U, J) and be (B, U) from the wrapper: K's f32 column and the bias at
+// each label (0 where it selects no column); kop, joint_sizes' out[1] words
+// of scratch (K's operand form).
+int launch_fwd(const float* enc, const float* pred, const float* K, const float* bias,
+               const float* ke, const float* be, const Geo& g, int blank_id, int bf, void* kop,
+               float* blank, float* emit, float* lse, cudaStream_t stream) {
+  if (!offsets_fit(g)) return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* kw = static_cast<uint32_t*>(kop);
+#define SC_FWD(JP, BF) \
+  launch_fwd_mma<JP, BF>(enc, pred, K, bias, ke, be, g, blank_id, kw, blank, emit, lse, stream)
+  if (g.J <= 64) return bf ? SC_FWD(64, true) : SC_FWD(64, false);
+  if (g.J <= 128) return bf ? SC_FWD(128, true) : SC_FWD(128, false);
+#undef SC_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The patch grid of the rows kernel: (ceil(W/PU), ceil(TT/PT), B)
@@ -1021,9 +1161,10 @@ int set_bwd_smem() {
 
 // The sizes the wrappers allocate and launch by: out[0] = blocks of the d_K
 // kernel resident on one SM (its grid is sized from it), out[1] = 32-bit
-// words of K's operand form (KTile).  Returns a cudaError_t.
+// words of K's operand form (KTile), for both directions.  Returns a
+// cudaError_t.
 template <int JP, bool BF>
-int bwd_sizes(int V, int* out) {
+int joint_sizes(int V, int* out) {
   const int err = set_bwd_smem<JP, BF>();
   if (err != 0) return err;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1032,9 +1173,9 @@ int bwd_sizes(int V, int* out) {
   return static_cast<int>(e);
 }
 
-int bwd_sizes(int J, int V, int bf, int* out) {
-  if (J <= 64) return bf ? bwd_sizes<64, true>(V, out) : bwd_sizes<64, false>(V, out);
-  if (J <= 128) return bf ? bwd_sizes<128, true>(V, out) : bwd_sizes<128, false>(V, out);
+int joint_sizes(int J, int V, int bf, int* out) {
+  if (J <= 64) return bf ? joint_sizes<64, true>(V, out) : joint_sizes<64, false>(V, out);
+  if (J <= 128) return bf ? joint_sizes<128, true>(V, out) : joint_sizes<128, false>(V, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1046,7 +1187,7 @@ int launch_bwd_mma(const float* enc, const float* pred, const float* K, const fl
                    float* db_part, cudaStream_t stream) {
   const int err = set_bwd_smem<JP, BF>();
   if (err != 0) return err;
-  joint_bwd_kprep_kernel<JP, BF><<<(g.V + kVT - 1) / kVT, kThreads, 0, stream>>>(K, bias, g, kop);
+  joint_kprep_kernel<JP, BF><<<(g.V + kVT - 1) / kVT, kThreads, 0, stream>>>(K, bias, g, kop);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   joint_bwd_rows_mma_kernel<JP, BF><<<patch_grid(g), kThreads, rows_smem<JP, BF>(), stream>>>(
@@ -1066,16 +1207,14 @@ int launch_bwd_mma(const float* enc, const float* pred, const float* K, const fl
 
 // The backward's kernels at J <= 64 or J <= 128, f32 (bf = 0) or bf16.
 // Scratch from the wrapper: rec, 6 * ceil(R/64)*64 ints (the row records),
-// and kop, bwd_sizes' out[1] words (K's operand form).  The offsets into enc
+// and kop, joint_sizes' out[1] words (K's operand form).  The offsets into enc
 // and pred are int32.
 int launch_bwd(const float* enc, const float* pred, const float* K, const float* bias,
                const int* labels, const float* lse, const float* g_blank, const float* g_emit,
                const Geo& g, int blank_id, int bf, int nsplit, int* rec, void* kop,
                float* d_enc_part, float* d_pred_part, float* dk_part, float* db_part,
                cudaStream_t stream) {
-  if (static_cast<long long>(g.B) * g.T * g.J > INT32_MAX ||
-      static_cast<long long>(g.B) * g.U1 * g.J > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!offsets_fit(g)) return static_cast<int>(cudaErrorInvalidValue);
   uint32_t* kw = static_cast<uint32_t*>(kop);
 #define SC_BWD(JP, BF)                                                                     \
   launch_bwd_mma<JP, BF>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, nsplit, \

@@ -53,6 +53,7 @@ from statecatcher_tpu_torch.ops.rnnt_joint import (
     _kernel_args,
     _plain_inputs,
     bwd_plan,
+    fwd_operands,
     plain_logits,
 )
 from statecatcher_tpu_torch.ops.rnnt_lattice import NEG, chain_scan
@@ -126,9 +127,10 @@ def _block_chunks(nblk: int, time_block: int):
 
 
 def joint_blank_emit_banded_ref(enc_p, pred_p, join_kernel, join_bias, labels, o, Wp: int,
-                                time_block: int = 8, blank_id: int = 0):
+                                time_block: int = 8, blank_id: int = 0, matmul=torch.matmul):
     """Plain K8a: (blank, emit, lse), each (B, Tp, Wp), in f32 (f64 for f64
-    inputs); per chunk of blocks, tanh, matmul, logsumexp and gathers."""
+    inputs); per chunk of blocks, tanh, matmul, logsumexp and gathers.
+    ``matmul`` takes the logits' contraction, as in K6a's plain version."""
     cdt, bf, enc, pred, K, bias, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, J = enc.shape
     V = K.shape[1]
@@ -143,7 +145,7 @@ def joint_blank_emit_banded_ref(enc_p, pred_p, join_kernel, join_bias, labels, o
                         for _ in range(3))
     for k0, k1 in _block_chunks(nblk, Tb):
         joint = torch.tanh(encb[:, k0:k1] + predw[:, k0:k1, None])  # (B, nb, Tb, Wp, J)
-        _, logits = plain_logits(joint, Km, bias_m, bf)
+        _, logits = plain_logits(joint, Km, bias_m, bf, matmul)
         ls = torch.logsumexp(logits, dim=-1)
         lse[:, k0:k1] = ls
         blank[:, k0:k1] = logits[..., blank_id] - ls
@@ -215,8 +217,8 @@ def _stream(dev):
 def rnnt_band_fwd(enc_p, pred_p, join_kernel, join_bias, labels, o, Wp: int,
                   time_block: int = 8, blank_id: int = 0):
     """K8a on CUDA tensors: (blank, emit, lse), each (B, Tp, Wp) f32,
-    counted in ``rnnt_band_fwd.launches``; the plain version on CPU
-    tensors."""
+    counted in ``rnnt_band_fwd.launches`` (K's operand form and the forward,
+    one launch); the plain version on CPU tensors."""
     if not enc_p.is_cuda:
         return joint_blank_emit_banded_ref(enc_p, pred_p, join_kernel, join_bias, labels, o, Wp,
                                            time_block, blank_id)
@@ -226,11 +228,12 @@ def rnnt_band_fwd(enc_p, pred_p, join_kernel, join_bias, labels, o, Wp: int,
     o32, Tp = _band_args(o, B, T, Wp, time_block, dev)
     from statecatcher_tpu_torch.ops._kernels import library
 
+    ops = fwd_operands("rnnt_band", args, J, V, bf)
     blank, emit, lse = (torch.empty((B, Tp, Wp), dtype=torch.float32, device=dev)
                         for _ in range(3))
     with torch.cuda.device(dev):
         err = library("rnnt_band").rnnt_band_fwd(
-            *(a.data_ptr() for a in args), o32.data_ptr(), blank.data_ptr(), emit.data_ptr(),
+            *(a.data_ptr() for a in ops), o32.data_ptr(), blank.data_ptr(), emit.data_ptr(),
             lse.data_ptr(), B, T, U1, J, V, Tp, Wp, time_block, blank_id, int(bf), _stream(dev))
     _check_err("rnnt_band_fwd", err)
     rnnt_band_fwd.launches += 1

@@ -21,13 +21,14 @@ With bf16 enc/pred the joint, K, the bias and d_logits entering the logits or
 a product are rounded to bf16 and the sums are f32 (the JAX kernel's bf16
 matmul with f32 accumulation over its padded kernel matrix, whose row J holds
 the bias); the emit logit uses the f32 joint, K and bias (the JAX kernel's
-gathered emit column).  Outputs are float32 (float64 in the plain version for
-float64 inputs); gradients come back in the inputs' dtypes.
+gathered emit column, which ``emit_columns`` gathers here for the forward
+kernel).  Outputs are float32 (float64 in the plain version for float64
+inputs); gradients come back in the inputs' dtypes.
 
 Bounds on the card (operations; see the source): at B=32, T=1598, U=48,
 J=64, V=1024 the forward is 3.3e11 flops of contraction, the backward three
-times that (the logits once more, d_joint, d_K), which its kernels take on
-the tensor cores (3xTF32 for f32 inputs, bf16 for bf16 inputs).
+times that (the logits once more, d_joint, d_K); the kernels of both take
+them on the tensor cores (3xTF32 for f32 inputs, bf16 for bf16 inputs).
 
 ``joint_blank_emit_ref`` and ``joint_blank_emit_bwd_ref`` are the plain
 versions: per time chunk, tanh, matmul, logsumexp and gathers (backward:
@@ -77,8 +78,11 @@ def _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1, matmul=torch.matmul):
 # Plain versions
 # --------------------------------------------------------------------------- #
 def joint_blank_emit_ref(enc_p: torch.Tensor, pred_p: torch.Tensor, join_kernel: torch.Tensor,
-                         join_bias: torch.Tensor, labels: torch.Tensor, blank_id: int = 0):
-    """Plain K6a: (blank (B, T, U+1), emit (B, T, U), lse (B, T, U+1))."""
+                         join_bias: torch.Tensor, labels: torch.Tensor, blank_id: int = 0,
+                         matmul=torch.matmul):
+    """Plain K6a: (blank (B, T, U+1), emit (B, T, U), lse (B, T, U+1)).
+    ``matmul`` takes the logits' contraction (the tests pass an emulation of
+    the kernel's products)."""
     cdt, bf, enc, pred, K, bias, Km, bias_m = _plain_inputs(enc_p, pred_p, join_kernel, join_bias)
     B, T, _ = enc.shape
     U1 = pred.shape[1]
@@ -91,7 +95,7 @@ def joint_blank_emit_ref(enc_p: torch.Tensor, pred_p: torch.Tensor, join_kernel:
     lse = torch.empty((B, T, U1), dtype=cdt, device=enc.device)
     for t0 in range(0, T, _PLAIN_CHUNK):
         t1 = min(T, t0 + _PLAIN_CHUNK)
-        joint, _, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1)
+        joint, _, logits = _plain_chunk(enc, pred, Km, bias_m, bf, t0, t1, matmul)
         ls = torch.logsumexp(logits, dim=-1)
         lse[:, t0:t1] = ls
         blank[:, t0:t1] = logits[..., blank_id] - ls
@@ -195,18 +199,33 @@ def bwd_layout(B: int, TT: int, W: int, V: int, patch_frames: int, n_sm: int,
             "dk_grid": (n_vs, nsplit), "nsplit": nsplit, "rec_rows": n_tiles * _DK_ROWS}
 
 
+def emit_columns(join_kernel: torch.Tensor, join_bias: torch.Tensor, labels: torch.Tensor):
+    """The emit logit's f32 operands at each label, gathered outside the
+    forward kernel as the JAX kernels gather ``ke`` outside their Pallas
+    body: (ke (B, U, J) = K[:, label], be (B, U) = bias[label]), both 0
+    where a label lies outside [0, V) and so selects no column."""
+    V = join_kernel.shape[1]
+    lab = labels.to(torch.int64)
+    ok = (lab >= 0) & (lab < V)
+    idx = torch.where(ok, lab, 0)
+    ke = torch.where(ok[..., None], join_kernel.to(torch.float32).t()[idx], 0.0)
+    be = torch.where(ok, join_bias.to(torch.float32)[idx], 0.0)
+    return ke.contiguous(), be.contiguous()
+
+
 @functools.cache
-def _bwd_sizes(lib_name: str, device_index: int, J: int, V: int, bf: bool) -> tuple[int, int]:
+def _joint_sizes(lib_name: str, device_index: int, J: int, V: int, bf: bool) -> tuple[int, int]:
     """(blocks of the d_K kernel resident on one SM, 32-bit words of K's
-    operand form) at this J, V and dtype, from the library."""
+    operand form, which the forward and the backward both take as scratch)
+    at this J, V and dtype, from the library."""
     import ctypes
 
     from statecatcher_tpu_torch.ops._kernels import library
 
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        err = getattr(library(lib_name), f"{lib_name}_bwd_sizes")(J, V, int(bf), out)
-    _check_err(f"{lib_name}_bwd_sizes", err)
+        err = getattr(library(lib_name), f"{lib_name}_sizes")(J, V, int(bf), out)
+    _check_err(f"{lib_name}_sizes", err)
     if out[0] <= 0:
         raise RuntimeError(f"{lib_name}: the d_K kernel cannot be resident at J={J}")
     return out[0], out[1]
@@ -217,7 +236,7 @@ def bwd_plan(lib_name: str, dev: torch.device, B: int, TT: int, W: int, J: int, 
     """``bwd_layout`` on this card (its SM count and the d_K kernel's
     occupancy at this J and dtype), with ``kop_words``, the size of K's
     operand form."""
-    per_sm, kop_words = _bwd_sizes(lib_name, dev.index, J, V, bf)
+    per_sm, kop_words = _joint_sizes(lib_name, dev.index, J, V, bf)
     lay = bwd_layout(B, TT, W, V, patch_frames,
                      torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
     if max(lay["rows_grid"][1:]) > _MAX_GRID_YZ:
@@ -231,10 +250,21 @@ def _check_err(name, err):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def fwd_operands(lib_name: str, args, J: int, V: int, bf: bool) -> list[torch.Tensor]:
+    """The forward kernel's operands from ``_kernel_args``' tensors: enc,
+    pred, K, bias, the gathered emit columns (``emit_columns``) and the
+    scratch of K's operand form."""
+    enc, pred, K, bias, labels = args
+    kop = torch.empty(_joint_sizes(lib_name, enc.device.index, J, V, bf)[1], dtype=torch.int32,
+                      device=enc.device)
+    return [enc, pred, K, bias, *emit_columns(K, bias, labels), kop]
+
+
 def rnnt_joint_fwd(enc_p, pred_p, join_kernel, join_bias, labels, blank_id: int = 0):
     """K6a on CUDA tensors: (blank (B, T, U+1), emit (B, T, U), lse
-    (B, T, U+1)) f32, counted in ``rnnt_joint_fwd.launches``; the plain
-    version on CPU tensors."""
+    (B, T, U+1)) f32, counted in ``rnnt_joint_fwd.launches`` (its two
+    kernels, K's operand form and the forward, are one launch of K6a); the
+    plain version on CPU tensors."""
     if not enc_p.is_cuda:
         return joint_blank_emit_ref(enc_p, pred_p, join_kernel, join_bias, labels, blank_id)
     args, (B, T, U1, J, V, bf) = _kernel_args(enc_p, pred_p, join_kernel, join_bias, labels,
@@ -242,12 +272,13 @@ def rnnt_joint_fwd(enc_p, pred_p, join_kernel, join_bias, labels, blank_id: int 
     from statecatcher_tpu_torch.ops._kernels import library
 
     dev = enc_p.device
+    ops = fwd_operands("rnnt_joint", args, J, V, bf)
     blank = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     emit = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=dev)
     lse = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = library("rnnt_joint").rnnt_joint_fwd(
-            *(a.data_ptr() for a in args), blank.data_ptr(), emit.data_ptr(), lse.data_ptr(),
+            *(a.data_ptr() for a in ops), blank.data_ptr(), emit.data_ptr(), lse.data_ptr(),
             B, T, U1, J, V, blank_id, int(bf), torch.cuda.current_stream(dev).cuda_stream)
     _check_err("rnnt_joint_fwd", err)
     rnnt_joint_fwd.launches += 1

@@ -40,11 +40,13 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("K2 lucy_fused_lm_bwd", "lucy_fused_lm_bwd"),
           ("K3 ctc_alpha", "ctc_alpha"),
           ("K4 ctc_beta", "ctc_beta"),
-          ("K6a/K8a joint_fwd_kernel", "joint_fwd_kernel"),
+          ("K6a/K8a joint_fwd_mma_kernel", "joint_fwd_mma"),
           ("K6b/K8b joint_bwd_rows_mma_kernel (d_enc, d_pred)", "joint_bwd_rows_mma"),
           ("K6b/K8b joint_bwd_dk_mma_kernel (d_K, d_bias)", "joint_bwd_dk_mma"),
-          ("K6b/K8b joint_bwd_kprep/rowrec_kernel", "joint_bwd_kprep"),
-          ("K6b/K8b joint_bwd_kprep/rowrec_kernel", "joint_bwd_rowrec"),
+          ("K6/K8 joint_kprep_kernel (forward and backward), joint_bwd_rowrec_kernel",
+           "joint_kprep"),
+          ("K6/K8 joint_kprep_kernel (forward and backward), joint_bwd_rowrec_kernel",
+           "joint_bwd_rowrec"),
           ("K8b band_dpred_kernel", "band_dpred"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),

@@ -9,7 +9,9 @@ drops the ini file's ``-n auto``, which needs xdist.)
 
 Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
 and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
-adjoint), K6a and K6b (the fused RNN-T joint's forward and backward), K7a
+adjoint), K6a and K6b (the fused RNN-T joint's forward and backward; both
+on the tensor cores, also over ragged widths, the blank in any vocab tile
+and bit for bit between two calls), K7a
 and K7b (the transducer α and β lattice), K8a and K8b (the banded joint),
 the banded α and β lattice, K9a, K9b and K10 (the mLSTM; K9b also over
 the chunk lengths, head counts and widths of its chunk-parallel passes, with
@@ -585,6 +587,83 @@ def test_joint_bwd_is_deterministic(cuda_device, kind, dtype):
     first = [x.clone() for x in kernel(*args)]
     second = kernel(*args)
     for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), first, second):
+        assert torch.equal(x, y), name
+
+
+# The forward's tolerance per input dtype, as test_rnnt_joint_kernels_match_plain
+# (f32) and test_rnnt_joint_kernels_match_plain_bf16 hold it
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+def _fwd_args(kind, J, V, blank_id, dev, dtype, seed, U=12, band=8):
+    """The forward's arguments for K6a (``kind`` "joint", B=3, T=40) or K8a
+    ("band": B=3, T=40, time blocks of 8, a short and a degenerate row), and
+    the kernel and its plain version."""
+    if kind == "joint":
+        enc, pred, k, b, labels, _, _ = joint_data(seed, 3, 40, U, J, V, dev, dtype)
+        return (enc, pred, k, b, labels, blank_id), rnnt_joint_fwd, joint_blank_emit_ref
+    enc, pred, k, b, labels, o, Wp, Tb, _, _, _, _ = band_data(seed, 3, 40, U, J, V, band, 8, dev,
+                                                               dtype)
+    return ((enc, pred, k, b, labels, o, Wp, Tb, blank_id), rnnt_band_fwd,
+            joint_blank_emit_banded_ref)
+
+
+def _assert_fwd_close(got, want, dtype):
+    tol = FWD_TOL[dtype]
+    for name, x, y in zip(("blank", "emit", "lse"), got, want):
+        assert x.dtype == torch.float32 and x.shape == y.shape, name
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J", [40, 64, 100])
+@pytest.mark.parametrize("V", [70, 150, 1024])
+def test_joint_fwd_ragged_widths(cuda_device, kind, dtype, J, V):
+    """K6a/K8a on the tensor cores at J ragged in the 64-wide instance's
+    k-steps (40), full (64) and in the 128-wide instance (100), and V in one
+    partial vocab tile (70), two (150) and sixteen full ones (1024), f32
+    (3xTF32) and bf16, against their plain versions."""
+    args, kernel, plain = _fwd_args(kind, J, V, 0, cuda_device, dtype, 130 + J)
+    _assert_fwd_close(kernel(*args), plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("V,blank_id", [(70, 69), (150, 64), (1024, 517)])
+def test_joint_fwd_blank_in_any_vocab_tile(cuda_device, kind, V, blank_id):
+    """The blank logit picked from the tile that holds it: the last column
+    of a partial last tile (V=70), the first of the second tile, a middle
+    tile's (1024, 517)."""
+    args, kernel, plain = _fwd_args(kind, 64, V, blank_id, cuda_device, torch.float32, 140)
+    _assert_fwd_close(kernel(*args), plain(*args), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_fwd_degenerate_row_and_window_past_labels(cuda_device, dtype):
+    """K8a at a band whose window (Wp=24) reaches past U+1=10 (positions that
+    read pred as 0 and select no label), with a degenerate row (its last
+    frame in block 0) and labels outside [0, V)."""
+    args, kernel, plain = _fwd_args("band", 64, 150, 0, cuda_device, dtype, 150, U=9, band=16)
+    labels = args[4].clone()
+    labels[0, ::3] = -1
+    labels[2, 1::4] = 150 + 3
+    args = args[:4] + (labels,) + args[5:]
+    assert args[6] > 10
+    _assert_fwd_close(kernel(*args), plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_joint_fwd_is_deterministic(cuda_device, kind, dtype):
+    """Two calls of K6a/K8a on the same inputs give bit-equal outputs."""
+    args, kernel, _ = _fwd_args(kind, 64, 1024, 0, cuda_device, dtype, 160)
+    first = [x.clone() for x in kernel(*args)]
+    for name, x, y in zip(("blank", "emit", "lse"), first, kernel(*args)):
         assert torch.equal(x, y), name
 
 

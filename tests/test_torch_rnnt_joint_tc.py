@@ -1,15 +1,18 @@
-"""The arithmetic of K6b/K8b on the tensor cores, rehearsed on the CPU.
+"""The arithmetic of K6/K8 on the tensor cores, rehearsed on the CPU.
 
-The backward's kernels (``ops/csrc/rnnt_joint_core.cuh``) take their three
-contractions on the tensor cores: f32 inputs as three TF32 products
-(3xTF32: x = hi + lo, hi = rna_tf32(x), lo = rna_tf32(x − hi), a·b ≈
-hi·hi + hi·lo + lo·hi with f32 sums), bf16 inputs on operands rounded to
-bf16 once.  Here that rounding is emulated bit for bit on the int32 view and
-passed to the plain versions as their ``matmul``; the result is held to the
-plain versions at the card tests' tolerances (f32: 1e-4 relative plus 1e-5
-of each output's largest value), at the card tests' shapes and at J=64,
-V=1024.  Also checked: the Python that sizes the backward's grids and
-partial sums (``rnnt_joint.bwd_layout``), for every shape of the card tests.
+The joint's kernels (``ops/csrc/rnnt_joint_core.cuh``) take their
+contractions on the tensor cores (the forward the logits, the backward
+three): f32 inputs as three TF32 products (3xTF32: x = hi + lo, hi =
+rna_tf32(x), lo = rna_tf32(x − hi), a·b ≈ hi·hi + hi·lo + lo·hi with f32
+sums), bf16 inputs on operands rounded to bf16 once.  Here that rounding is
+emulated bit for bit on the int32 view and passed to the plain versions as
+their ``matmul``; the result is held to the plain versions at the card tests'
+tolerances (forward: 1e-5 in f32, 2e-3 in bf16; backward f32: 1e-4 relative
+plus 1e-5 of each output's largest value), at the card tests' shapes and at
+J=64, V=1024.  Also checked: the emit columns that the forward's wrapper
+gathers (``rnnt_joint.emit_columns``), and the Python that sizes the
+backward's grids and partial sums (``rnnt_joint.bwd_layout``), for every
+shape of the card tests.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from statecatcher_tpu_torch.ops.rnnt_band import (
 )
 from statecatcher_tpu_torch.ops.rnnt_joint import (
     bwd_layout,
+    emit_columns,
     joint_blank_emit_bwd_ref,
     joint_blank_emit_ref,
 )
@@ -38,6 +42,7 @@ BAND_SHAPES = [(3, 45, 40, 40, 150, 8, 8, 5), (2, 64, 30, 64, 1024, 32, 16, 0),
                (3, 40, 30, 40, 256, 8, 8, 0), (3, 40, 30, 100, 256, 8, 8, 0),
                (3, 45, 40, 64, 150, 8, 8, 0)]
 NAMES = ("d_enc", "d_pred", "d_kernel", "d_bias")
+FWD_NAMES = ("blank", "emit", "lse")
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +97,103 @@ def _band_case(B, T, U, J, V, band, Tb, blank_id, dtype):
         90 + J, B, T, U, J, V, band, Tb, "cpu", dtype)
     lse = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb, blank_id)[2]
     return (enc, pred, k, b, labels, o, lse, g_blank, g_emit, Tb, blank_id)
+
+
+# the forward's products on the card and its tolerance there, per input dtype
+FWD_PRODUCTS = {"3xtf32": (torch.float32, matmul_3xtf32, 1e-5),
+                "bf16": (torch.bfloat16, matmul_bf16, 2e-3)}
+
+
+@pytest.mark.parametrize("products", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("B,T,U,J,V,blank_id", JOINT_SHAPES)
+def test_joint_fwd_tensor_core_products_within_card_tolerance(single_torch_thread, products, B,
+                                                              T, U, J, V, blank_id):
+    dtype, matmul, tol = FWD_PRODUCTS[products]
+    enc, pred, k, b, labels, _, _ = joint_data(60 + J, B, T, U, J, V, "cpu", dtype)
+    got = joint_blank_emit_ref(enc, pred, k, b, labels, blank_id, matmul=matmul)
+    for name, x, y in zip(FWD_NAMES, got, joint_blank_emit_ref(enc, pred, k, b, labels, blank_id)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("products", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("B,T,U,J,V,band,Tb,blank_id", BAND_SHAPES)
+def test_band_fwd_tensor_core_products_within_card_tolerance(single_torch_thread, products, B,
+                                                             T, U, J, V, band, Tb, blank_id):
+    dtype, matmul, tol = FWD_PRODUCTS[products]
+    enc, pred, k, b, labels, o, Wp, Tb, _, _, _, _ = band_data(90 + J, B, T, U, J, V, band, Tb,
+                                                               "cpu", dtype)
+    args = (enc, pred, k, b, labels, o, Wp, Tb, blank_id)
+    got = joint_blank_emit_banded_ref(*args, matmul=matmul)
+    for name, x, y in zip(FWD_NAMES, got, joint_blank_emit_banded_ref(*args)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=tol, atol=tol, err_msg=name)
+
+
+def _emit_logit_from_columns(enc, pred, ke, be, b, t, u):
+    """The forward kernel's emit logit at rows (b, t, u): the f32 joint (0
+    past T and U+1) · ke[b, u] + be[b, u], 0 at u ≥ U."""
+    B, T, J = enc.shape
+    U1, U = pred.shape[1], ke.shape[1]
+    enc0 = torch.cat([enc.float(), torch.zeros(B, 1, J)], 1)
+    pred0 = torch.cat([pred.float(), torch.zeros(B, 1, J)], 1)
+    ke0, be0 = torch.cat([ke, torch.zeros(B, 1, J)], 1), torch.cat([be, torch.zeros(B, 1)], 1)
+    joint = torch.tanh(enc0[b, t.clamp(max=T)] + pred0[b, u.clamp(max=U1)])
+    uk = u.clamp(max=U)
+    return (joint * ke0[b, uk]).sum(-1) + be0[b, uk]
+
+
+def _check_emit_columns(k, b, labels, ke, be):
+    B, U = labels.shape
+    V = k.shape[1]
+    assert ke.shape == (B, U, k.shape[0]) and be.shape == (B, U)
+    assert ke.dtype == be.dtype == torch.float32 and ke.is_contiguous() and be.is_contiguous()
+    ok = (labels >= 0) & (labels < V)
+    assert ok.sum() < labels.numel() or U == 0                 # labels outside [0, V) too
+    lab = labels.clamp(0, V - 1).long()
+    assert torch.equal(ke[ok], k.t()[lab][ok]) and torch.equal(be[ok], b[lab][ok])
+    assert not ke[~ok].any() and not be[~ok].any()
+
+
+@pytest.mark.parametrize("B,T,U,J,V,blank_id", JOINT_SHAPES)
+def test_joint_emit_columns_give_the_emit_logit(single_torch_thread, B, T, U, J, V, blank_id):
+    """K6a's gathered columns at every card-test shape, with labels outside
+    [0, V) (no column), against the plain version's emit logit (emit + lse)
+    on the rows whose label lies inside."""
+    enc, pred, k, b, labels, _, _ = joint_data(60 + J, B, T, U, J, V, "cpu")
+    bad = labels.clone()
+    bad[:, ::4] = -1
+    bad[:, 1::5] = V + 3
+    ke, be = emit_columns(k, b, bad)
+    _check_emit_columns(k, b, bad, ke, be)
+    _, emit, lse = joint_blank_emit_ref(enc, pred, k, b, labels, blank_id)
+    bi, ti, ui = torch.meshgrid(torch.arange(B), torch.arange(T), torch.arange(U), indexing="ij")
+    got = _emit_logit_from_columns(enc, pred, ke, be, bi, ti, ui)
+    ok = ((bad >= 0) & (bad < V))[:, None, :].expand(B, T, U)
+    np.testing.assert_allclose(got[ok].numpy(), (emit + lse[..., :U])[ok].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert not got[~ok].any()
+
+
+@pytest.mark.parametrize("B,T,U,J,V,band,Tb,blank_id", BAND_SHAPES)
+def test_band_emit_columns_give_the_emit_logit(single_torch_thread, B, T, U, J, V, band, Tb,
+                                               blank_id):
+    """K8a's gathered columns at every card-test shape, with labels outside
+    [0, V) and window positions u ≥ U (no column), against the banded plain
+    version's emit logit (emit + lse) on every row."""
+    enc, pred, k, b, labels, o, Wp, Tb, _, _, _, _ = band_data(90 + J, B, T, U, J, V, band, Tb,
+                                                               "cpu")
+    labels = labels.clone()
+    labels[0, ::5] = -1
+    labels[-1, 1::7] = V + 3
+    ke, be = emit_columns(k, b, labels)
+    _check_emit_columns(k, b, labels, ke, be)
+    _, emit, lse = joint_blank_emit_banded_ref(enc, pred, k, b, labels, o, Wp, Tb, blank_id)
+    Tp = o.shape[1] * Tb
+    bi, ti, wi = torch.meshgrid(torch.arange(B), torch.arange(Tp), torch.arange(Wp),
+                                indexing="ij")
+    ui = o.long()[bi, ti // Tb] + wi
+    assert (ui >= U).any()                                     # window positions past the labels
+    got = _emit_logit_from_columns(enc, pred, ke, be, bi, ti, ui)
+    np.testing.assert_allclose(got.numpy(), (emit + lse).numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("B,T,U,J,V,blank_id", JOINT_SHAPES)

@@ -1,6 +1,7 @@
-"""Times of the RNN-T joint's kernels (K6a/K6b, K8a/K8b) and of the RNN-T
-training paths that run them, for one checkout of the port.  To compare two
-checkouts on one card, run it once per checkout, in turns, within one call:
+"""Times of the RNN-T joint's kernels, forward and backward (K6a/K6b,
+K8a/K8b), and of the RNN-T training paths that run them, for one checkout of
+the port.  To compare two checkouts on one card, run it once per checkout, in
+turns, within one call:
 
     PYTHONPATH=<checkout A> python tools/joint_bwd_ab.py --tag A
     PYTHONPATH=<checkout B> python tools/joint_bwd_ab.py --tag B
