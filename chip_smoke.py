@@ -12,14 +12,16 @@ defaults through the port's entry points:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills)
      and the tensor-core (HMMA) instructions of the joint's forward and
-     backward kernels and of K9b's, each of which must hold some;
+     backward kernels, of K9a's and K10's forward passes (in both mLSTM
+     libraries) and of K9b's, each of which must hold some;
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
      batched shape (f32 and bf16) and the streaming shape, with times (CUDA
      events) beside the byte bound;
   2. batched: ``SpeechModel`` over 3 carried 16 s segments at B=32, the
      kernel path held against the plain path on the card;
   3. streaming: ``StreamingRecognizer`` on three ~10 s streams, held against
-     an offline one-shot decode of the same frames;
+     an offline one-shot decode of the same frames (chunk latency p50/p90,
+     peak device memory);
   4. kernels K2, K3, K4: the cell's backward and the CTC α/β lattice against
      their plain versions at the training shapes (and a ragged shape, and
      one with S > 1024 states), with times, bounds, plain times and, for the
@@ -70,8 +72,10 @@ defaults through the port's entry points:
  17. kernels K9a, K9b and K10: the fused mLSTM forward and backward and the
      head-major chunkwise forward against their plain versions at the
      xLSTM's shape (B=32, T=1598, 2 heads, dqk=128, dv=256, chunk 128; f32,
-     and bf16 q/k/v for K9) and K9 at bench.py's xLSTM shape (B=64, chunk
-     256, bf16), with times, bounds and plain times;
+     and bf16 q/k/v for K9), K9 at bench.py's xLSTM shape (B=64, chunk
+     256, bf16) and K9a at the streaming shape (B=1, one chunk of 32 steps),
+     with times, bounds, plain times and the forward's device time by CUDA
+     kernel;
  18. the xLSTM (config defaults: E=512, 2 heads, 3 blocks, chunk 128, FFN
      factor 2.667, vocab 1024, 80 MFCC, float32): phase 2's batched encode,
      kernel path (``kernel_impl="auto"``: K9a) against plain path, and again
@@ -537,6 +541,8 @@ def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming
 
     latencies, results = [], []
     counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for audio in streams:
         rec = StreamingRecognizer(model, cfg, chunk_frames=32, device=dev)
         step = rec._step_chunk
@@ -556,6 +562,7 @@ def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming
         rec.finish()
         results.append(rec.tokens)
     launches = counter.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
     if launches == 0:
         raise AssertionError(f"the streaming path launched no {counter.__name__} kernel")
 
@@ -572,8 +579,8 @@ def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming
             raise AssertionError(f"stream {k}: edit distance {dist} > 1% of {len(want)}")
     lat = np.asarray(latencies) * 1e3
     log(f"{tag} {len(lat)} chunks of 32 frames (320 ms): latency p50 "
-        f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; "
-        f"{counter.__name__} launches {launches}")
+        f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; peak device "
+        f"memory {peak:.3f} GiB; {counter.__name__} launches {launches}")
     return launches
 
 
@@ -1568,19 +1575,60 @@ def check_scaled(got, want, names, tol) -> float:
     return worst
 
 
+def device_ms_by_kernel(fn) -> list[tuple[str, float]]:
+    """Device time (ms) of each CUDA kernel of one call of ``fn``, from
+    ``torch.profiler``, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda kv: -kv[1])
+
+
+def log_by_kernel(tag: str, fn) -> None:
+    """Log ``device_ms_by_kernel(fn)``, each kernel by its short name."""
+    short = lambda k: re.sub(r"^void |\(.*$", "", k.replace("(anonymous namespace)::", ""))
+    rows = [(short(k)[:70], v) for k, v in device_ms_by_kernel(fn)]
+    log(f"{tag} by CUDA kernel (ms, torch.profiler): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in rows) + f"; sum {sum(v for _, v in rows):.4f}")
+
+
 def phase_mlstm_kernels(dev) -> dict:
     """Phase 17: K9a/K9b and K10 against their plain versions, with times,
-    bounds and plain times.  The forward within 1e-4 of each output's scale
-    in f32 (f32 sums in other orders); the gradients within 1e-3 relative
-    plus 1e-4 of each output's largest value (as for K8).  Under bf16 both
-    versions compute in f32 from the same bf16 values and round h, dq, dk,
-    dv once: those to 2e-2 of their scale (h) and 2e-2 relative plus 1e-3
-    (gradients), the f32 outputs as in f32."""
+    bounds and plain times, and the forward's device time by CUDA kernel;
+    K9a also at the streaming shape (B=1, one chunk of 32 steps).  The
+    forward within 1e-4 of each output's scale in f32 (f32 sums in other
+    orders); the gradients within 1e-3 relative plus 1e-4 of each output's
+    largest value (as for K8).  Under bf16 both versions compute in f32 from
+    the same bf16 values and round h, dq, dk, dv once: those to 2e-2 of their
+    scale (h) and 2e-2 relative plus 1e-3 (gradients), the f32 outputs as in
+    f32."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     out = {}
     H, dqk, dv, T = 2, 128, 256, 1598
     fwd_names, bwd_names = ("h", "C_T", "n_T", "m_T"), ("dq", "dk", "dv", "dic", "dlogf",
                                                         "dC0", "dn0", "dm0")
+    # the streaming shape: one 32-frame chunk of one stream (L = 32, NC = 1)
+    B, Ts, chunk = 1, 32, 128
+    ins, Tp = mlstm_inputs(gen, B, Ts, H, dqk, dv, Ts, torch.float32, dev)
+    with torch.inference_mode():
+        got = list(mlstm_fused_fwd(*ins, chunk, Ts))
+        torch.cuda.synchronize()
+        err = check_scaled(got, mlstm_fused_fwd_ref(*ins, chunk, Ts), fwd_names, 1e-4)
+        ms = cuda_ms(lambda: mlstm_fused_fwd(*ins, chunk, Ts), 20)
+        plain_ms = cuda_ms(lambda: mlstm_fused_fwd_ref(*ins, chunk, Ts), 5, warmup=1)
+        log_by_kernel(f"[K9a] streaming f32 (B={B}, T={Ts})",
+                      lambda: mlstm_fused_fwd(*ins, chunk, Ts))
+    bound, by = mlstm_bound_ms(B, H, Tp, Ts, dqk, dv, torch.float32, False)
+    log(f"[K9a] streaming f32 (B={B}, T={Ts}, H={H}, dqk={dqk}, dv={dv}, one chunk of {Ts}): "
+        f"max|Δ| {err:.3e}; {ms:.4f} ms (plain {plain_ms:.2f}, bound {bound:.5f} ms {by}); "
+        f"library_ms: none")
+    out["K9a streaming f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": by}
     for label, B, L, dtype in (("f32", 32, 128, torch.float32), ("bf16", 32, 128, torch.bfloat16),
                                ("bench bf16", 64, 256, torch.bfloat16)):
         ins, Tp = mlstm_inputs(gen, B, T, H, dqk, dv, L, dtype, dev)
@@ -1607,6 +1655,7 @@ def phase_mlstm_kernels(dev) -> dict:
             ms_b = cuda_ms(lambda: mlstm_fused_bwd(*ins, *cots, L, T), 3)
             plain_f = cuda_ms(lambda: mlstm_fused_fwd_ref(*ins, L, T), 2, warmup=1)
             plain_b = cuda_ms(lambda: mlstm_fused_bwd_ref(*ins, *cots, L, T), 2, warmup=1)
+            log_by_kernel(f"[K9a] {label}", lambda: mlstm_fused_fwd(*ins, L, T))
         bound_f, by_f = mlstm_bound_ms(B, H, Tp, L, dqk, dv, dtype, False)
         bound_b, by_b = mlstm_bound_ms(B, H, Tp, L, dqk, dv, dtype, True)
         log(f"[K9] {label} (B={B}, T={T}, Tp={Tp}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): fwd "
@@ -1632,6 +1681,7 @@ def phase_mlstm_kernels(dev) -> dict:
         err = check_scaled(got, mlstm_chunkwise(*ins, L), fwd_names, 1e-4)
         ms = cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), 5)
         plain_ms = cuda_ms(lambda: mlstm_chunkwise(*ins, L), 2, warmup=1)
+        log_by_kernel("[K10] f32", lambda: mlstm_pallas_fwd(*ins, L))
     Tp = -(-T // L) * L
     bound, by = mlstm_bound_ms(B, H, Tp, L, dqk, dv, torch.float32, False)
     log(f"[K10] f32 (B={B}, T={T}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): max|Δ| {err:.3e}; "
@@ -1774,14 +1824,18 @@ def main() -> int:
         bwd = {k: v for k, v in hmma.items() if "bwd_rows_mma" in k or "bwd_dk_mma" in k}
         if len(bwd) != 8 or min(bwd.values()) == 0:
             raise AssertionError(f"{lib}: the backward's kernels hold no HMMA: {hmma}")
-    # so do K9b's product kernels (the chunk and state products)
-    hmma = sass_hmma("mlstm_fused", "bwd_")
-    log("[build] mlstm_fused SASS, HMMA instructions per K9b kernel: "
-        + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
-    products = ("bwd_state_kernel", "bwd_rows_kernel", "bwd_dk_kernel", "bwd_dv_kernel")
-    mma = {k: v for k, v in hmma.items() if k.split("<")[0] in products}
-    if {k.split("<")[0] for k in mma} != set(products) or min(mma.values()) == 0:
-        raise AssertionError(f"mlstm_fused: K9b's product kernels hold no HMMA: {hmma}")
+    # so do the mLSTM's product kernels (the chunk and state products): K9a's
+    # and K10's forward passes in both libraries, K9b's in mlstm_fused
+    fwd_products = ("state_kernel", "fwd_exit_kernel", "fwd_out_kernel")
+    bwd_products = ("state_kernel", "bwd_rows_kernel", "bwd_dk_kernel", "bwd_dv_kernel")
+    for lib, products in (("mlstm_fused", fwd_products + bwd_products[1:]),
+                          ("mlstm_pallas", fwd_products)):
+        hmma = sass_hmma(lib, "")
+        log(f"[build] {lib} SASS, HMMA instructions per kernel: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+        mma = {k: v for k, v in hmma.items() if k.split("<")[0] in products}
+        if {k.split("<")[0] for k in mma} != set(products) or min(mma.values()) == 0:
+            raise AssertionError(f"{lib}: a product kernel of the mLSTM holds no HMMA: {hmma}")
 
     k1 = phase_kernel(dev)
 

@@ -58,12 +58,14 @@ SIGNATURES = {
         "rnnt_band_sizes": (_I, [_I, _I, _I, _P]),
     },
     "mlstm_fused": {
-        "mlstm_fused_fwd": (_I, [_I] + [_P] * 12 + [_I] * 7 + [_P]),
+        "mlstm_fused_fwd": (_I, [_I] + [_P] * 13 + [_I] * 7 + [_P]),
+        "mlstm_fused_fwd_work": (ctypes.c_longlong, [_I] * 6),
         "mlstm_fused_bwd": (_I, [_I] + [_P] * 21 + [_I] * 7 + [_P]),
         "mlstm_fused_bwd_work": (ctypes.c_longlong, [_I] * 6),
     },
     "mlstm_pallas": {
-        "mlstm_pallas_fwd": (_I, [_P] * 12 + [_I] * 5 + [_P]),
+        "mlstm_pallas_fwd": (_I, [_P] * 13 + [_I] * 6 + [_P]),
+        "mlstm_pallas_fwd_work": (ctypes.c_longlong, [_I] * 5),
     },
     "linear_scan": {
         "linear_scan_fwd": (_I, [_I] + [_P] * 4 + [_I] * 3 + [_P]),

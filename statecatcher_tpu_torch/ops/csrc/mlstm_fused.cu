@@ -1,10 +1,12 @@
 // The fused lane-major chunkwise mLSTM for Hopper (sm_90a): K9a and K9b.  The
-// chunk math and its contract are in mlstm_chunk.cuh, with the forward's
-// design.
+// chunk math and its contract are in mlstm_chunk.cuh, with the passes both
+// directions share (1.-3. below) and the forward's design.
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/mlstm_fused.py:
-//   K9a  mlstm_fwd_kernel  <- _fwd_kernel (:158), launched by _fused_fwd_impl (:199)
-//   K9b  the eleven bwd_*_kernel below
+//   K9a  launch_fwd's passes (gates, gates_m or gates_one, state, nterm,
+//        scan_fwd, fwd_exit, fwd_out in mlstm_chunk.cuh)
+//                          <- _fwd_kernel (:158), launched by _fused_fwd_impl (:199)
+//   K9b  passes 1.-3. of mlstm_chunk.cuh and the bwd_*_kernel below
 //                          <- _bwd_kernel (:251), launched by _fused_bwd_impl (:322)
 //
 // Layout: q, k (B, Tp, H*dqk), v, h, dh (B, Tp, H*dv) in the model dtype
@@ -73,587 +75,11 @@
 // columns) and G in two (three past a row tile's second s-tile).
 // dq, dk, dv, dic, dlf are 0 on rows t >= T.
 
-#include <cmath>
-#include <type_traits>
-
 #include "mlstm_chunk.cuh"
-#include "mma_frag.cuh"
 
 namespace mlstm {
 namespace {
 
-// ---------------------------------------------------------------------------
-// Tensor-core tiles: 256 threads as 8 warps, 2 (rows) x 4 (columns), over an
-// output tile of 64 rows x N columns (N = 64, 128 or 256); each warp owns 32
-// rows x N/4 columns, i.e. 2 x N/32 fragments of 16 x 8.  acc[i][j][e] sits at
-// row 32*wm + 16*i + gq + 8*(e/2), column (N/4)*wn + 8*j + 2*tq + e%2.
-// ---------------------------------------------------------------------------
-constexpr int kKS = 32;              // contraction depth staged per step
-constexpr int kPF = kKS + 4;         // row pitch (in pairs) of a [row][k] slab
-constexpr int kPH = kKS + 8;         // bf16 row pitch of a [row][k] slab
-constexpr int kQP = kTile + 4;       // pitch of a 64 x 64 f32 operand tile
-
-template <int N>
-using Acc = float[2][N / 32][4];
-
-// floats of the staging area for tiles up to N columns: A and B slabs of
-// (hi, lo) tf32 pairs, each [row][k] with pitch kPF or [k][row] with pitch
-// rows + 4 (in pairs)
-__host__ __device__ constexpr int slab_floats(int rows) {
-  return 2 * (rows * kPF > kKS * (rows + 4) ? rows * kPF : kKS * (rows + 4));
-}
-__host__ __device__ constexpr int stage_floats(int N) {
-  return slab_floats(kTile) + slab_floats(N);
-}
-
-struct WarpPos {
-  int wm, wn, gq, tq;
-  __device__ WarpPos()
-      : wm((threadIdx.x >> 5) & 1), wn(threadIdx.x >> 6), gq((threadIdx.x & 31) >> 2),
-        tq(threadIdx.x & 3) {}
-};
-
-// f(row, column, value&) for each element of the thread's fragments
-template <int N, class F>
-__device__ __forceinline__ void each(Acc<N>& acc, F f) {
-  const WarpPos w;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < N / 32; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(32 * w.wm + 16 * i + w.gq + 8 * (e >> 1), (N / 4) * w.wn + 8 * j + 2 * w.tq + (e & 1),
-          acc[i][j][e]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(Acc<N>& acc) {
-  each<N>(acc, [](int, int, float& x) { x = 0.f; });
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A row-major operand: element (row, col) at p[row * ld + col], read as 0 at
-// row >= nrow or col >= ncol, times rs[row] when rs is given (not for the
-// bf16 products, which take their operands as they are).
-template <typename T>
-struct Mat {
-  const T* p;
-  long long ld;
-  int nrow, ncol;
-  const float* rs;
-};
-
-template <typename T>
-__device__ __forceinline__ Mat<T> mat(const T* p, long long ld, int nrow, int ncol,
-                                      const float* rs = nullptr) {
-  return Mat<T>{p, ld, nrow, ncol, rs};
-}
-
-// four consecutive elements of a row as floats (0 outside); vec: 4-wide loads
-__device__ __forceinline__ float4 ld4v(const float* q) {
-  return *reinterpret_cast<const float4*>(q);
-}
-__device__ __forceinline__ float4 ld4v(const __nv_bfloat16* q) {
-  const uint2 u = *reinterpret_cast<const uint2*>(q);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T>
-__device__ __forceinline__ float4 ld4(const Mat<T>& X, int row, int col, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < X.nrow && col < X.ncol) {
-    const T* q = X.p + row * X.ld + col;
-    if (vec && col + 3 < X.ncol) {
-      v = ld4v(q);
-    } else {
-      float* f = &v.x;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (col + u < X.ncol) f[u] = ld(q + u);
-    }
-    if (X.rs != nullptr) {
-      const float sc = X.rs[row];
-      v.x *= sc;
-      v.y *= sc;
-      v.z *= sc;
-      v.w *= sc;
-    }
-  }
-  return v;
-}
-
-// four consecutive bf16 elements of a row, as they are (0 outside)
-__device__ __forceinline__ uint2 ld4h(const Mat<__nv_bfloat16>& X, int row, int col, bool vec) {
-  if (row >= X.nrow || col >= X.ncol) return make_uint2(0u, 0u);
-  const __nv_bfloat16* q = X.p + row * X.ld + col;
-  if (vec && col + 3 < X.ncol) return *reinterpret_cast<const uint2*>(q);
-  float f[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) f[u] = col + u < X.ncol ? __bfloat162float(q[u]) : 0.f;
-  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
-}
-
-template <typename T>
-__device__ __forceinline__ bool aligned4(const Mat<T>& X) {
-  return X.ld % 4 == 0 && reinterpret_cast<uintptr_t>(X.p) % (4 * sizeof(T)) == 0;
-}
-
-// four staged operands as (hi, lo) tf32 pairs at p (16-byte aligned)
-__device__ __forceinline__ void st4_split(float* p, float4 v) {
-  const Split a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z), d = split_tf32(v.w);
-  reinterpret_cast<uint4*>(p)[0] = make_uint4(a.hi, a.lo, b.hi, b.lo);
-  reinterpret_cast<uint4*>(p)[1] = make_uint4(c.hi, c.lo, d.hi, d.lo);
-}
-
-__device__ __forceinline__ Split ld_split(const float* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return Split{v.x, v.y};
-}
-
-// c += a*b in 3xTF32 (mma_3xtf32), or with two products where one operand is
-// a bf16 value (kXA, kXB), whose tf32 lo is 0
-template <bool kXA, bool kXB>
-__device__ __forceinline__ void mma_split(float c[4], const Split a[4], const Split b[2]) {
-  if constexpr (!kXA && !kXB) {
-    mma_3xtf32(c, a, b);
-  } else {
-    if (!kXA) mma_tf32(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
-    if (!kXB) mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
-    mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
-  }
-}
-
-// acc(64 x N) += sum_{0 <= k < K} A(m, k) B(k, n).  A(m, k) is Am[m][k]
-// (kAKFast) or Am[k][m]; B(k, n) is Bm[k][n] (kBNFast) or Bm[n][k]: each
-// operand is read along its contiguous axis, four elements a load.  Slabs of
-// kKS are staged in shared memory, kept in the operand's own orientation
-// ([m][k] or [k][m], [n][k] or [k][n]) and padded so that the fragment loads
-// meet no bank conflict.  kBf: both operands bf16 ([m][k] and [n][k]),
-// staged as they are (m16n8k16); else 3xTF32, each operand split into its
-// tf32 (hi, lo) pair once, as it is staged (splitting at each fragment load
-// made the products wait on the conversions).
-template <int N, bool kBf, bool kAKFast, bool kBNFast, bool kXA, bool kXB, typename TA,
-          typename TB>
-__device__ __forceinline__ void mma_tile_x(int K, Mat<TA> Am, Mat<TB> Bm, float* stage,
-                                           Acc<N>& acc) {
-  static_assert(!kBf || (kAKFast && !kBNFast), "bf16 slabs are [m][k] and [n][k]");
-  constexpr int NT = N / 32;
-  constexpr int PA = kAKFast ? kPF : kTile + 4;      // A: [m][k] pitch, or [k][m] pitch
-  constexpr int PB = kBNFast ? N + 4 : kPF;          // B: [k][n] pitch, or [n][k] pitch
-  if (kAKFast) Am.ncol = min(Am.ncol, K); else Am.nrow = min(Am.nrow, K);
-  if (kBNFast) Bm.nrow = min(Bm.nrow, K); else Bm.ncol = min(Bm.ncol, K);
-  const bool va = aligned4(Am), vb = aligned4(Bm);
-  const int tid = threadIdx.x;
-  const WarpPos w;
-  float* As = stage;
-  float* Bs = stage + slab_floats(kTile);
-  auto* Ah = reinterpret_cast<__nv_bfloat16*>(As);
-  auto* Bh = reinterpret_cast<__nv_bfloat16*>(Bs);
-  for (int k0 = 0; k0 < K; k0 += kKS) {
-#pragma unroll
-    for (int r = 0; r < kTile * kKS / 4 / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      if constexpr (kBf) {
-        const int m = e / (kKS / 4), k = (e % (kKS / 4)) * 4;
-        *reinterpret_cast<uint2*>(Ah + m * kPH + k) = ld4h(Am, m, k0 + k, va);
-      } else if constexpr (kAKFast) {
-        const int m = e / (kKS / 4), k = (e % (kKS / 4)) * 4;
-        st4_split(As + 2 * (m * PA + k), ld4(Am, m, k0 + k, va));
-      } else {
-        const int k = e / (kTile / 4), m = (e % (kTile / 4)) * 4;
-        st4_split(As + 2 * (k * PA + m), ld4(Am, k0 + k, m, va));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < N * kKS / 4 / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      if constexpr (kBf) {
-        const int n = e / (kKS / 4), k = (e % (kKS / 4)) * 4;
-        *reinterpret_cast<uint2*>(Bh + n * kPH + k) = ld4h(Bm, n, k0 + k, vb);
-      } else if constexpr (kBNFast) {
-        const int k = e / (N / 4), n = (e % (N / 4)) * 4;
-        st4_split(Bs + 2 * (k * PB + n), ld4(Bm, k0 + k, n, vb));
-      } else {
-        const int n = e / (kKS / 4), k = (e % (kKS / 4)) * 4;
-        st4_split(Bs + 2 * (n * PB + k), ld4(Bm, n, k0 + k, vb));
-      }
-    }
-    __syncthreads();
-    Acc<N> part;
-    zero<N>(part);
-    if constexpr (kBf) {
-#pragma unroll
-      for (int kk = 0; kk < kKS; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* p = Ah + (32 * w.wm + 16 * i + w.gq) * kPH + kk + 2 * w.tq;
-          a[i][0] = ld32(p);
-          a[i][1] = ld32(p + 8 * kPH);
-          a[i][2] = ld32(p + 8);
-          a[i][3] = ld32(p + 8 * kPH + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const __nv_bfloat16* p = Bh + ((N / 4) * w.wn + 8 * j + w.gq) * kPH + kk + 2 * w.tq;
-          const uint32_t b[2] = {ld32(p), ld32(p + 8)};
-          mma_bf16(part[0][j], a[0], b);
-          mma_bf16(part[1][j], a[1], b);
-        }
-      }
-    } else {
-      auto A = [&](int m, int k) {
-        return ld_split(As + 2 * (kAKFast ? m * PA + k : k * PA + m));
-      };
-      auto B = [&](int k, int n) {
-        return ld_split(Bs + 2 * (kBNFast ? k * PB + n : n * PB + k));
-      };
-#pragma unroll
-      for (int kk = 0; kk < kKS; kk += 8) {
-        Split a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int m = 32 * w.wm + 16 * i + w.gq, k = kk + w.tq;
-          a[i][0] = A(m, k);
-          a[i][1] = A(m + 8, k);
-          a[i][2] = A(m, k + 4);
-          a[i][3] = A(m + 8, k + 4);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int n = (N / 4) * w.wn + 8 * j + w.gq, k = kk + w.tq;
-          const Split b[2] = {B(k, n), B(k + 4, n)};
-          mma_split<kXA, kXB>(part[0][j], a[0], b);
-          mma_split<kXA, kXB>(part[1][j], a[1], b);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-  }
-}
-
-// mma_tile_x with kXA / kXB set where an operand is a bf16 input taken as it
-// is (no scale): exact in tf32, so 3xTF32 needs two products, not three.
-template <int N, bool kBf, bool kAKFast, bool kBNFast, typename TA, typename TB>
-__device__ __forceinline__ void mma_tile(int K, Mat<TA> Am, Mat<TB> Bm, float* stage,
-                                         Acc<N>& acc) {
-  constexpr bool ha = std::is_same<TA, __nv_bfloat16>::value;
-  constexpr bool hb = std::is_same<TB, __nv_bfloat16>::value;
-  if constexpr (!kBf && ha) {
-    if (Am.rs == nullptr) {
-      mma_tile_x<N, kBf, kAKFast, kBNFast, true, false>(K, Am, Bm, stage, acc);
-      return;
-    }
-  }
-  if constexpr (!kBf && hb) {
-    if (Bm.rs == nullptr) {
-      mma_tile_x<N, kBf, kAKFast, kBNFast, false, true>(K, Am, Bm, stage, acc);
-      return;
-    }
-  }
-  mma_tile_x<N, kBf, kAKFast, kBNFast, false, false>(K, Am, Bm, stage, acc);
-}
-
-// out[r] += sum over the tile's columns of x's row r (r < 64), for every row:
-// the lanes of a row by shuffles, the four column warps through red (4 x 64)
-// in a fixed order.
-template <int N>
-__device__ void row_sums(Acc<N>& x, float* red, float* out) {
-  const WarpPos w;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < N / 32; ++j) s += x[i][j][2 * h] + x[i][j][2 * h + 1];
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (w.tq == 0) red[w.wn * kTile + 32 * w.wm + 16 * i + 8 * h + w.gq] = s;
-    }
-  __syncthreads();
-  if (threadIdx.x < kTile) {
-    const int r = threadIdx.x;
-    out[r] += (red[r] + red[kTile + r]) + (red[2 * kTile + r] + red[3 * kTile + r]);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// Block-wide scans and sums over 256 threads, in a fixed order
-// ---------------------------------------------------------------------------
-struct Add {
-  __device__ float operator()(float x, float y) const { return x + y; }
-};
-struct Max {
-  __device__ float operator()(float x, float y) const { return fmaxf(x, y); }
-};
-
-template <class Op>
-__device__ float block_scan(float x, float* sh, Op op) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x = op(y, x);
-  }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  if (warp > 0) {
-    float pre = sh[0];
-    for (int i = 1; i < warp; ++i) pre = op(pre, sh[i]);
-    x = op(pre, x);
-  }
-  __syncthreads();
-  return x;
-}
-
-__device__ float block_sum(float x, float* sh) {
-  x = warp_sum(x);
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < kThreads / 32; ++i) s += sh[i];
-  __syncthreads();
-  return s;
-}
-
-// ---------------------------------------------------------------------------
-// Parameters and the workspace
-// ---------------------------------------------------------------------------
-// Per-row fields (each Tp floats per (b, head)) and per-chunk fields (NC each)
-enum RowField { RB, RA, RR, RMU, RSP, RW, RDEN, RDQN, RDMU, RDSP, RROWD, RCOLD, RDZ, kRowFields };
-enum ChunkField { CM, CG, CBL, CA, CDMC, CTO1, CCNT, kChunkFields };
-
-// Floats per (b, head) in the workspace: each chunk's entry state (Cn: C then
-// n), each chunk's exit adjoints (Ln: first each chunk's own dC_c, dn_c),
-// the row and chunk fields, and dg's partial sums (NC x scan blocks).
-struct Work {
-  long long C, n, lam, lamn, rows, chunks, dgp, stride;
-  int nscan;
-};
-
-inline Work work_layout(int Tp, int dqk, int dv, int L) {
-  const long long NC = Tp / L, S = static_cast<long long>(dqk) * dv;
-  Work w{};
-  w.nscan = static_cast<int>((S + dqk + kThreads - 1) / kThreads);
-  w.C = 0;
-  w.n = w.C + NC * S;
-  w.lam = w.n + NC * dqk;
-  w.lamn = w.lam + NC * S;
-  w.rows = w.lamn + NC * dqk;
-  w.chunks = w.rows + static_cast<long long>(kRowFields) * Tp;
-  w.dgp = w.chunks + kChunkFields * NC;
-  w.stride = w.dgp + NC * w.nscan;
-  return w;
-}
-
-struct BwdParams {
-  const void *q, *k, *v, *dh;
-  const float *ic, *lf, *C0, *n0, *m0, *dCT, *dnT, *dmT;
-  void *dq, *dk, *dv;
-  float *dic, *dlf, *dC0, *dn0, *dm0;
-  float* work;
-  Work wk;
-  Layout lay;
-  int H, Tp, T, dqk, dv_, L;
-  float inv;
-};
-
-// One (b, head)'s view: its rows of the inputs, the workspace's parts
-template <typename Tin>
-struct Head {
-  Rows<Tin> rows;
-  const Tin* dh;
-  float *C, *n, *lam, *lamn, *row, *chunk, *dgp;
-  int bh, NC, dqk, dv;
-  long long v_r;
-  __device__ Head(const BwdParams& p, int bh_, int c)
-      : rows{static_cast<const Tin*>(p.q) + (bh_ / p.H) * p.lay.qk_b + (bh_ % p.H) * p.lay.qk_h,
-             static_cast<const Tin*>(p.k) + (bh_ / p.H) * p.lay.qk_b + (bh_ % p.H) * p.lay.qk_h,
-             static_cast<const Tin*>(p.v) + (bh_ / p.H) * p.lay.v_b + (bh_ % p.H) * p.lay.v_h,
-             p.lay.qk_r,
-             p.lay.v_r,
-             c * p.L,
-             p.T,
-             p.L},
-        dh(static_cast<const Tin*>(p.dh) + (bh_ / p.H) * p.lay.v_b + (bh_ % p.H) * p.lay.v_h),
-        bh(bh_),
-        NC(p.Tp / p.L),
-        dqk(p.dqk),
-        dv(p.dv_),
-        v_r(p.lay.v_r) {
-    float* w = p.work + bh_ * p.wk.stride;
-    C = w + p.wk.C;
-    n = w + p.wk.n;
-    lam = w + p.wk.lam;
-    lamn = w + p.wk.lamn;
-    row = w + p.wk.rows;
-    chunk = w + p.wk.chunks;
-    dgp = w + p.wk.dgp;
-  }
-  // the chunk's valid rows from row r0 on
-  __device__ int nvalid(int r0) const { return max(0, min(rows.L, rows.T - rows.t0) - r0); }
-  // the chunk's rows r0.. of q, k (dqk wide), v, dh (dv wide) as operands
-  __device__ Mat<Tin> qm(int r0, const float* rs = nullptr) const {
-    return mat(rows.q + (rows.t0 + r0) * rows.qk_r, rows.qk_r, nvalid(r0), dqk, rs);
-  }
-  __device__ Mat<Tin> km(int r0, const float* rs = nullptr) const {
-    return mat(rows.k + (rows.t0 + r0) * rows.qk_r, rows.qk_r, nvalid(r0), dqk, rs);
-  }
-  __device__ Mat<Tin> vm(int r0, const float* rs = nullptr) const {
-    return mat(rows.v + (rows.t0 + r0) * v_r, v_r, nvalid(r0), dv, rs);
-  }
-  __device__ Mat<Tin> dhm(int r0) const {
-    return mat(dh + (rows.t0 + r0) * v_r, v_r, nvalid(r0), dv);
-  }
-  __device__ float* field(int f) const { return row + static_cast<size_t>(f) * rows.L * NC; }
-  __device__ float* cfield(int f) const { return chunk + f * NC; }
-};
-
-// ---------------------------------------------------------------------------
-// 1. Each chunk's own gate rows (one block per chunk): b (the cumulative log
-// forget from the chunk's start), a = ic - b, R (the running max of a), and
-// bL = b_{L-1}, A = R_{L-1}
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) bwd_gates_kernel(BwdParams p) {
-  __shared__ float sh[kThreads / 32];
-  const int c = blockIdx.x, L = p.L, t = threadIdx.x;
-  const Head<float> hd(p, blockIdx.y, c);
-  const int g = c * L + t;
-  const bool in = t < L, valid = in && g < p.T;
-  const size_t o = static_cast<size_t>(hd.bh) * p.Tp;
-  const float b = block_scan(valid ? p.lf[o + g] : 0.f, sh, Add());
-  const float a = (valid ? p.ic[o + g] : kNeg) - b;
-  const float R = block_scan(in ? a : -INFINITY, sh, Max());
-  if (in) {
-    hd.field(RB)[g] = b;
-    hd.field(RA)[g] = a;
-    hd.field(RR)[g] = R;
-  }
-  if (t == L - 1) {
-    hd.cfield(CBL)[c] = b;
-    hd.cfield(CA)[c] = R;
-  }
-}
-
-// m at each chunk's entry, by a scalar walk over the earlier chunks' (bL, A)
-// (m' = max(m + bL, bL + A)); then mu, sp, w per row and m, g per chunk
-__global__ void __launch_bounds__(kThreads) bwd_gates_m_kernel(BwdParams p) {
-  const int c = blockIdx.x, L = p.L, t = threadIdx.x;
-  const Head<float> hd(p, blockIdx.y, c);
-  const float *cbl = hd.cfield(CBL), *ca = hd.cfield(CA);
-  float m = p.m0[hd.bh];
-  for (int cc = 0; cc < c; ++cc) m = fmaxf(m + cbl[cc], cbl[cc] + ca[cc]);
-  const float bL = cbl[c], mn = fmaxf(m + bL, bL + ca[c]);
-  if (t < L) {
-    const int g = c * L + t;
-    const float b = hd.field(RB)[g], mu = b + fmaxf(m, hd.field(RR)[g]);
-    hd.field(RMU)[g] = mu;
-    hd.field(RSP)[g] = expf(b + m - mu);
-    hd.field(RW)[g] = expf(bL + hd.field(RA)[g] - mn);
-  }
-  if (t == 0) {
-    hd.cfield(CM)[c] = m;
-    hd.cfield(CG)[c] = expf(m + bL - mn);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2./5. A chunk's state term, per 64 x 64 tile of (dqk, dv):
-//   forward (kBwd false, chunks 0..NC-2): sum_t w_t k_t v_t^T and sum_t w_t k_t
-//     into the entry-state slot of chunk c + 1;
-//   backward: dC_c = inv sum_t (sp_t/den_t) q_t dh_t^T and dn_c = inv sum_t
-//     sp_t dqn_t q_t into the exit-adjoint slot of chunk c - 1 (dC0, dn0 for
-//     chunk 0).
-// ---------------------------------------------------------------------------
-template <typename Tin, bool kBwd>
-__global__ void __launch_bounds__(kThreads, 3) bwd_state_kernel(BwdParams p) {
-  extern __shared__ float sm[];
-  float* stage = sm;
-  float* sc = stage + stage_floats(kTile);        // A's row scale (L)
-  const int c = blockIdx.y, L = p.L, dqk = p.dqk, dv = p.dv_, tid = threadIdx.x;
-  const Head<Tin> hd(p, blockIdx.z, c);
-  const int ntv = (dv + kTile - 1) / kTile;
-  const int d0 = (blockIdx.x / ntv) * kTile, v0 = (blockIdx.x % ntv) * kTile;
-  for (int t = tid; t < L; t += kThreads) {
-    const int g = c * L + t;
-    sc[t] = kBwd ? p.inv * hd.field(RSP)[g] / hd.field(RDEN)[g] : hd.field(RW)[g];
-  }
-  __syncthreads();
-  const Mat<Tin> X = kBwd ? hd.qm(0) : hd.km(0), Y = kBwd ? hd.dhm(0) : hd.vm(0);
-  Acc<kTile> acc;
-  zero<kTile>(acc);
-  mma_tile<kTile, false, false, true>(L, mat(X.p + d0, X.ld, X.nrow, dqk - d0, sc),
-                                   mat(Y.p + v0, Y.ld, Y.nrow, dv - v0), stage, acc);
-  const size_t S = static_cast<size_t>(dqk) * dv;
-  float* out = kBwd ? (c == 0 ? p.dC0 + hd.bh * S : hd.lam + (c - 1) * S) : hd.C + (c + 1) * S;
-  each<kTile>(acc, [&](int r, int col, float& x) {
-    if (d0 + r < dqk && v0 + col < dv) out[static_cast<size_t>(d0 + r) * dv + v0 + col] = x;
-  });
-}
-
-// The n terms of (2./5.): sum_t w_t k_t (forward, into chunk c + 1's entry
-// slot) or dn_c = inv sum_t sp_t dqn_t q_t (backward), 64 of dqk per block;
-// four threads per d take every fourth t, added in a fixed order.
-template <typename Tin, bool kBwd>
-__global__ void __launch_bounds__(kThreads) bwd_nterm_kernel(BwdParams p) {
-  __shared__ float sn[256], red[kThreads];
-  const int c = blockIdx.x, L = p.L, dqk = p.dqk, tid = threadIdx.x;
-  const int d = blockIdx.z * kTile + tid % kTile, part = tid / kTile;
-  const Head<Tin> hd(p, blockIdx.y, c);
-  for (int t = tid; t < L; t += kThreads) {
-    const int g = c * L + t;
-    sn[t] = kBwd ? p.inv * hd.field(RSP)[g] * hd.field(RDQN)[g] : hd.field(RW)[g];
-  }
-  __syncthreads();
-  const Rows<Tin>& rw = hd.rows;
-  float s = 0.f;
-  if (d < dqk)
-    for (int t = part; t < L; t += kThreads / kTile) s += (kBwd ? rw.Q(t, d) : rw.K(t, d)) * sn[t];
-  red[tid] = s;
-  __syncthreads();
-  if (tid < kTile && d < dqk) {
-    float* on = kBwd ? (c == 0 ? p.dn0 + hd.bh * dqk : hd.lamn + (c - 1) * dqk)
-                     : hd.n + (c + 1) * dqk;
-    on[d] = (red[tid] + red[kTile + tid]) + (red[2 * kTile + tid] + red[3 * kTile + tid]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3. Every chunk's entry state: C_c = g_{c-1} C_{c-1} + (2.)'s term, from C0
-// (one thread per element of C and n)
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) bwd_scan_fwd_kernel(BwdParams p) {
-  const Head<float> hd(p, blockIdx.y, 0);
-  const long long S = static_cast<long long>(p.dqk) * p.dv_;
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= S + p.dqk) return;
-  const bool isC = e < S;
-  float* slot = isC ? hd.C + e : hd.n + (e - S);
-  const long long step = isC ? S : p.dqk;
-  float x = isC ? p.C0[hd.bh * S + e] : p.n0[static_cast<long long>(hd.bh) * p.dqk + e - S];
-  slot[0] = x;
-#pragma unroll 4
-  for (int c = 1; c < hd.NC; ++c) {
-    x = hd.cfield(CG)[c - 1] * x + slot[c * step];
-    slot[c * step] = x;
-  }
-}
-
-// The chunk's gate rows in shared memory
 struct ChunkGates {
   float *b, *a, *mu, *aux0, *aux1;
 };
@@ -675,7 +101,7 @@ inline size_t tiles_smem_bytes(int N, int L) {
 }
 
 template <typename Tin, int DQ>
-__global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(Params p) {
   extern __shared__ float sm[];
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
@@ -824,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(BwdParams p) {
 // 6. The exit adjoints of every chunk, in reverse: dC'_{c-1} = g_c dC'_c +
 // dC_c (one thread per element of C and n), and dg's partial sums per block
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) bwd_scan_bwd_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads) bwd_scan_bwd_kernel(Params p) {
   __shared__ float sh[kThreads / 32];
   const Head<float> hd(p, blockIdx.y, 0);
   const long long S = static_cast<long long>(p.dqk) * p.dv_;
@@ -853,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) bwd_scan_bwd_kernel(BwdParams p) {
 // the t-tiles t >= s, and colD = sum_t S Q
 // ---------------------------------------------------------------------------
 template <typename Tin, int DQ>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dk_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads, 2) bwd_dk_kernel(Params p) {
   extern __shared__ float sm[];
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
@@ -949,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dk_kernel(BwdParams p) {
 // (S E/den)^T dh over the t-tiles t >= s
 // ---------------------------------------------------------------------------
 template <typename Tin, int NV>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dv_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads, 2) bwd_dv_kernel(Params p) {
   extern __shared__ float sm[];
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
@@ -1002,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dv_kernel(BwdParams p) {
 // ---------------------------------------------------------------------------
 // 9. The gate chain of each chunk with dm' = 0 (thread t = row t)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) bwd_chain_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads) bwd_chain_kernel(Params p) {
   __shared__ float sh[kThreads / 32], sa[256], sR[256], sdR[256], scnt[256], sx[256];
   const int c = blockIdx.x, L = p.L, t = threadIdx.x;
   const Head<float> hd(p, blockIdx.y, c);
@@ -1069,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) bwd_chain_kernel(BwdParams p) {
 // dm' enters db_{L-1} (every dlogf of the chunk) and, by (1 - to1), the tie
 // share of R_{L-1}
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) bwd_fixup_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads) bwd_fixup_kernel(Params p) {
   __shared__ float sh[kThreads / 32], sx[256];
   const int c = blockIdx.x, L = p.L, t = threadIdx.x;
   const Head<float> hd(p, blockIdx.y, c);
@@ -1102,36 +528,25 @@ Layout lane_layout(int H, int Tp, int dqk, int dv) {
 
 float inv_sqrt(int d) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(d))); }
 
-template <class K>
-int launch(K kernel, dim3 grid, size_t smem, const BwdParams& p, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<grid, kThreads, smem, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename Tin, int DQ, int NV>
-int launch_bwd(const BwdParams& p, int B, cudaStream_t s) {
+int launch_bwd(const Params& p, int B, cudaStream_t s) {
   const int BH = B * p.H, NC = p.Tp / p.L, nrt = (p.L + kTile - 1) / kTile;
   const int ndt = (p.dqk + kTile - 1) / kTile;
   const int nst = ndt * ((p.dv_ + kTile - 1) / kTile);
   const size_t state_smem = sizeof(float) * (stage_floats(kTile) + 256);
   const unsigned nscan = static_cast<unsigned>(p.wk.nscan);
-  int err = launch(bwd_gates_kernel, dim3(NC, BH), 0, p, s);
-  if (err == 0) err = launch(bwd_gates_m_kernel, dim3(NC, BH), 0, p, s);
+  int err = launch(gates_kernel, dim3(NC, BH), 0, p, s);
+  if (err == 0) err = launch(gates_m_kernel, dim3(NC, BH), 0, p, s);
   if (err == 0 && NC > 1)
-    err = launch(bwd_state_kernel<Tin, false>, dim3(nst, NC - 1, BH), state_smem, p, s);
+    err = launch(state_kernel<Tin, false>, dim3(nst, NC - 1, BH), state_smem, p, s);
   if (err == 0 && NC > 1)
-    err = launch(bwd_nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), 0, p, s);
-  if (err == 0) err = launch(bwd_scan_fwd_kernel, dim3(nscan, BH), 0, p, s);
+    err = launch(nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), 0, p, s);
+  if (err == 0) err = launch(scan_fwd_kernel, dim3(nscan, BH), 0, p, s);
   if (err == 0)
     err = launch(bwd_rows_kernel<Tin, DQ>, dim3(nrt, NC, BH),
                  tiles_smem_bytes(DQ, kKeptG * kTile), p, s);
-  if (err == 0) err = launch(bwd_state_kernel<Tin, true>, dim3(nst, NC, BH), state_smem, p, s);
-  if (err == 0) err = launch(bwd_nterm_kernel<Tin, true>, dim3(NC, BH, ndt), 0, p, s);
+  if (err == 0) err = launch(state_kernel<Tin, true>, dim3(nst, NC, BH), state_smem, p, s);
+  if (err == 0) err = launch(nterm_kernel<Tin, true>, dim3(NC, BH, ndt), 0, p, s);
   if (err == 0) err = launch(bwd_scan_bwd_kernel, dim3(nscan, BH), 0, p, s);
   if (err == 0)
     err = launch(bwd_dk_kernel<Tin, DQ>, dim3(nrt, NC, BH), tiles_smem_bytes(DQ, kTile), p, s);
@@ -1144,7 +559,7 @@ int launch_bwd(const BwdParams& p, int B, cudaStream_t s) {
 }
 
 template <typename Tin>
-int launch_bwd_for(const BwdParams& p, int B, cudaStream_t s) {
+int launch_bwd_for(const Params& p, int B, cudaStream_t s) {
   const bool wide_v = p.dv_ > kTile;
   if (p.dqk <= 64)
     return wide_v ? launch_bwd<Tin, 64, 128>(p, B, s) : launch_bwd<Tin, 64, 64>(p, B, s);
@@ -1161,21 +576,30 @@ using namespace mlstm;
 // Each returns the first cudaError_t of its launches (0 on success).  dtype 0
 // is float32, 1 bfloat16 (q, k, v, h, dh, dq, dk, dv).  L must divide Tp,
 // T > Tp - L, and L and dqk be at most 256 (the wrapper checks).
-extern "C" int mlstm_fused_fwd(int dtype, const void* q, const void* k, const void* v,
-                               const float* ic, const float* lf, const float* C0, const float* n0,
-                               const float* m0, void* h, float* CT, float* nT, float* mT, int B,
-                               int H, int Tp, int T, int dqk, int dv, int L, void* stream) {
-  FwdParams p{q,  k,  v,  ic, lf, C0, n0, m0, h, CT, nT, mT, lane_layout(H, Tp, dqk, dv),
-              H, Tp, T, dqk, dv, L,  inv_sqrt(dqk)};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float, float>(p, B, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16, __nv_bfloat16>(p, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The floats of K9a's and K9b's workspaces (the work argument) for these shapes.
+extern "C" long long mlstm_fused_fwd_work(int B, int H, int Tp, int dqk, int dv, int L) {
+  return static_cast<long long>(B) * H * work_layout(Tp, dqk, dv, L, false).stride;
+}
+extern "C" long long mlstm_fused_bwd_work(int B, int H, int Tp, int dqk, int dv, int L) {
+  return static_cast<long long>(B) * H * work_layout(Tp, dqk, dv, L, true).stride;
 }
 
-// The floats of K9b's workspace (mlstm_fused_bwd's work) for these shapes.
-extern "C" long long mlstm_fused_bwd_work(int B, int H, int Tp, int dqk, int dv, int L) {
-  return static_cast<long long>(B) * H * work_layout(Tp, dqk, dv, L).stride;
+extern "C" int mlstm_fused_fwd(int dtype, const void* q, const void* k, const void* v,
+                               const float* ic, const float* lf, const float* C0, const float* n0,
+                               const float* m0, void* h, float* CT, float* nT, float* mT,
+                               float* work, int B, int H, int Tp, int T, int dqk, int dv, int L,
+                               void* stream) {
+  Params p{};
+  p.q = q, p.k = k, p.v = v, p.ic = ic, p.lf = lf, p.C0 = C0, p.n0 = n0, p.m0 = m0;
+  p.h = h, p.CT = CT, p.nT = nT, p.mT = mT, p.work = work;
+  p.wk = work_layout(Tp, dqk, dv, L, false);
+  p.lay = lane_layout(H, Tp, dqk, dv);
+  p.H = H, p.Tp = Tp, p.T = T, p.Tg = T, p.Th = Tp, p.dqk = dqk, p.dv_ = dv, p.L = L;
+  p.inv = inv_sqrt(dqk);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_fwd_for<float>(p, B, s);
+  if (dtype == 1) return launch_fwd_for<__nv_bfloat16>(p, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int mlstm_fused_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -1186,10 +610,14 @@ extern "C" int mlstm_fused_bwd(int dtype, const void* q, const void* k, const vo
                                float* work, int B, int H, int Tp, int T, int dqk, int dv_, int L,
                                void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p{q,   k,    v,  dh,  ic,  lf,  C0,  n0,   m0,
-              dCT, dnT,  dmT, dq, dk,  dv,  dic, dlf, dC0,
-              dn0, dm0,  work, work_layout(Tp, dqk, dv_, L), lane_layout(H, Tp, dqk, dv_),
-              H,   Tp,   T,   dqk, dv_, L,  inv_sqrt(dqk)};
+  Params p{};
+  p.q = q, p.k = k, p.v = v, p.dh = dh, p.ic = ic, p.lf = lf, p.C0 = C0, p.n0 = n0, p.m0 = m0;
+  p.dCT = dCT, p.dnT = dnT, p.dmT = dmT, p.dq = dq, p.dk = dk, p.dv = dv;
+  p.dic = dic, p.dlf = dlf, p.dC0 = dC0, p.dn0 = dn0, p.dm0 = dm0, p.work = work;
+  p.wk = work_layout(Tp, dqk, dv_, L, true);
+  p.lay = lane_layout(H, Tp, dqk, dv_);
+  p.H = H, p.Tp = Tp, p.T = T, p.Tg = T, p.dqk = dqk, p.dv_ = dv_, p.L = L;
+  p.inv = inv_sqrt(dqk);
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_bwd_for<float>(p, B, s) : launch_bwd_for<__nv_bfloat16>(p, B, s);
 }

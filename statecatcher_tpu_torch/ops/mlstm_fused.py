@@ -15,10 +15,11 @@ Rows t ≥ T of the padded time axis are masked inside both (q, k, v and dh
 read as 0, ĩ as −1e30, log-forget as 0), and their gradients are 0.  The
 math of one chunk is ``mlstm_chunk_step`` (the JAX package's ``_chunk_step``,
 :50): every product in float32 whatever the inputs' dtype, q scaled by
-dqk^-½ inside.  The TPU backward takes ``jax.vjp`` of the chunk step in
-registers; here its adjoint is written out, ``mlstm_chunk_bwd_ref``, and the
-kernels compute it split along its data dependencies, chunk-parallel on the
-tensor cores (``ops/csrc/mlstm_fused.cu``).
+dqk^-½ inside.  The TPU kernels walk the chunks in order, the backward
+taking ``jax.vjp`` of the chunk step in registers; here the chunk step and
+its adjoint, written out as ``mlstm_chunk_bwd_ref``, are split along their
+data dependencies into chunk-parallel passes on the tensor cores
+(``ops/csrc/mlstm_chunk.cuh``, ``ops/csrc/mlstm_fused.cu``).
 
 ``mlstm_fused`` is the layer's entry (the JAX package's :417): it pads T to a
 chunk multiple, applies the soft cap and log-sigmoid to the gates in f32,
@@ -313,9 +314,14 @@ def mlstm_fused_fwd(q, k, v, i_c, logf, C0, n0, m0, chunk: int, T: int):
     C_T = torch.empty_like(ins[5])
     n_T = torch.empty_like(ins[6])
     m_T = torch.empty_like(ins[7])
+    lib = library("mlstm_fused")
+    # per (b, h): each chunk's entry state (NC·(dqk·dv + dqk) floats) and the
+    # per-row and per-chunk gate terms
+    work = torch.empty(lib.mlstm_fused_fwd_work(B, H, Tp, dqk, dv, L), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        err = library("mlstm_fused").mlstm_fused_fwd(
-            _DTYPE_CODE[q.dtype], *_ptrs(*ins, h, C_T, n_T, m_T), B, H, Tp, T, dqk, dv, L,
+        err = lib.mlstm_fused_fwd(
+            _DTYPE_CODE[q.dtype], *_ptrs(*ins, h, C_T, n_T, m_T, work), B, H, Tp, T, dqk, dv, L,
             _stream(dev))
     if err != 0:
         raise RuntimeError(f"mlstm_fused_fwd launch failed: cudaError {err}")

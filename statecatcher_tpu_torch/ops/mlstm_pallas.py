@@ -6,13 +6,14 @@ Replaces the TPU kernel ``_mlstm_kernel`` of
 ``ops/csrc/mlstm_pallas.cu``.  ``xlstm.kernel_impl="pallas"`` takes it.
 
 The wrapper does what ``_pallas_forward`` does around the kernel: it pads T
-to a chunk multiple (q, k, v with 0, the raw input gate with −1e30 and the
-raw forget gate with +30, *before* the soft cap: a padded step is ĩ = −15
-and logf ≈ −5e-7, not an exact no-op), scales q by dqk^-½, soft-caps the
-gates and takes the log-sigmoid of the forget gate, all in float32; the
-kernel runs the chunk loop over (B·H, Tp, d) with no mask and writes h in
-float32.  The backward is autograd of ``models/xlstm.py:mlstm_chunkwise`` on
-the saved inputs (recomputed, as the JAX package's ``_bwd``, :193).
+to a chunk multiple (the raw input gate with −1e30 and the raw forget gate
+with +30, *before* the soft cap: a padded step is ĩ = −15 and logf ≈ −5e-7,
+not an exact no-op), scales q by dqk^-½, soft-caps the gates and takes the
+log-sigmoid of the forget gate, all in float32.  q, k and v are not copied
+to the padded length: the kernels read their rows t ≥ T as 0, which is the
+JAX package's zero padding, and write h (B, H, T, dv) in float32.  The
+backward is autograd of ``models/xlstm.py:mlstm_chunkwise`` on the saved
+inputs (recomputed, as the JAX package's ``_bwd``, :193).
 
 The plain version of K10 is ``mlstm_chunkwise`` itself.  The wrapper runs it
 only for tensors on the CPU; on the card it launches or raises.
@@ -51,7 +52,6 @@ def mlstm_pallas_fwd(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size: int,
                          f"{q.dtype}, chunk {L}, dqk {dqk}")
     pad = (-T) % L
     if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
         i_raw = F.pad(i_raw, (0, pad), value=NEG)
         f_raw = F.pad(f_raw, (0, pad), value=30.0)
     Tp = T + pad
@@ -61,16 +61,20 @@ def mlstm_pallas_fwd(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size: int,
     ins = [x.contiguous() for x in (
         q * dqk ** -0.5, k, v, soft_cap(i_raw, gate_soft_cap),
         F.logsigmoid(soft_cap(f_raw, gate_soft_cap)), C0, n0, m0)]
-    h = torch.empty((B, H, Tp, dv), dtype=torch.float32, device=dev)
+    h = torch.empty((B, H, T, dv), dtype=torch.float32, device=dev)
     C_T, n_T, m_T = (torch.empty_like(x) for x in ins[5:])
+    lib = library("mlstm_pallas")
+    # per (b, h): each chunk's entry state and the per-row and per-chunk gate terms
+    work = torch.empty(lib.mlstm_pallas_fwd_work(B * H, Tp, dqk, dv, L), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        err = library("mlstm_pallas").mlstm_pallas_fwd(
-            *[t.data_ptr() for t in (*ins, h, C_T, n_T, m_T)], B * H, Tp, dqk, dv, L,
+        err = lib.mlstm_pallas_fwd(
+            *[t.data_ptr() for t in (*ins, h, C_T, n_T, m_T, work)], B * H, T, Tp, dqk, dv, L,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlstm_pallas_fwd launch failed: cudaError {err}")
     mlstm_pallas_fwd.launches += 1
-    return h[:, :, :T], C_T, n_T, m_T
+    return h, C_T, n_T, m_T
 
 
 mlstm_pallas_fwd.launches = 0

@@ -13,9 +13,10 @@ adjoint), K6a and K6b (the fused RNN-T joint's forward and backward; both
 on the tensor cores, also over ragged widths, the blank in any vocab tile
 and bit for bit between two calls), K7a
 and K7b (the transducer α and β lattice), K8a and K8b (the banded joint),
-the banded α and β lattice, K9a, K9b and K10 (the mLSTM; K9b also over
-the chunk lengths, head counts and widths of its chunk-parallel passes, with
-tied gates, and bit for bit between two calls), K12 (the fused masked cell)
+the banded α and β lattice, K9a, K9b and K10 (the mLSTM; K9a and K9b also
+over the chunk lengths, head counts and widths of their chunk-parallel
+passes, with tied gates, and bit for bit between two calls; K9a and K10 at
+the streaming shape of one chunk), K12 (the fused masked cell)
 and K11 (the dual scan), each against its plain version; the
 autograd Functions' gradients on the card against the CPU; and the xLSTM
 and native LucyRNN encoders on the card against the CPU.
@@ -940,8 +941,67 @@ def test_mlstm_bwd_kernel_is_deterministic(cuda_device, dtype):
         assert torch.equal(a, c), name
 
 
+# (B, T, H, dqk, dv, chunk, dtype, ties) of K9a's chunk-parallel passes: the
+# streaming shape (one chunk: three launches), T = Tp - L + 1 (one valid row
+# in the last chunk), L = 256 in bf16, tied gates, dv = 80 (a ragged column
+# tile) and a narrow dv
+K9A_CASES = [(1, 32, 2, 128, 256, 128, torch.float32, False),
+             (1, 32, 2, 128, 256, 128, torch.bfloat16, False),
+             (2, 257, 2, 128, 256, 128, torch.float32, False),
+             (2, 600, 2, 128, 256, 256, torch.bfloat16, False),
+             (2, 300, 2, 64, 128, 128, torch.float32, True),
+             (2, 300, 2, 64, 128, 128, torch.bfloat16, True),
+             (2, 70, 1, 32, 80, 32, torch.float32, False),
+             (2, 200, 2, 64, 48, 64, torch.bfloat16, False)]
+
+
+def _k9a_case(seed, B, T, H, dqk, dv, chunk, dtype, ties, dev):
+    ins, L, _ = mlstm_kernel_data(seed, B, T, H, dqk, dv, chunk, dtype)
+    if ties:                                    # every a_s equal, m0 equal to it
+        ins[3] = torch.full_like(ins[3], -0.3)
+        ins[4] = torch.zeros_like(ins[4])
+        ins[7] = torch.full_like(ins[7], -0.3)
+    return [x.to(dev) for x in ins], L
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", [(2, 45, 2, 16, 16, 16), (1, 300, 2, 128, 256, 128)])
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk,dtype,ties", K9A_CASES)
+def test_mlstm_fwd_kernel_matches_plain(cuda_device, B, T, H, dqk, dv, chunk, dtype, ties):
+    """K9a against its plain version, one launch counted a call: each output
+    within 1e-4 of its largest value (f32 sums in other orders), a bf16 h
+    within 2e-2 (both versions round it once from f32)."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_fwd, mlstm_fused_fwd_ref
+
+    ins, L = _k9a_case(T + dv, B, T, H, dqk, dv, chunk, dtype, ties, cuda_device)
+    n = mlstm_fused_fwd.launches
+    got = mlstm_fused_fwd(*ins, L, T)
+    torch.cuda.synchronize()
+    assert mlstm_fused_fwd.launches == n + 1
+    want = mlstm_fused_fwd_ref(*ins, L, T)
+    assert got[0].dtype == want[0].dtype == dtype
+    assert_scaled_close([got[0][:, :T]], [want[0][:, :T]], ("h",),
+                        1e-4 if dtype == torch.float32 else 2e-2)
+    assert_scaled_close(got[1:], want[1:], ("C_T", "n_T", "m_T"), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,chunk", [(1598, 128), (32, 128)])
+def test_mlstm_fwd_kernel_is_deterministic(cuda_device, dtype, T, chunk):
+    """Two calls of K9a on the same inputs give bit-equal outputs: sums in a
+    fixed order, no atomics."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_fwd
+
+    ins, L = _k9a_case(5, 2, T, 2, 128, 256, chunk, dtype, False, cuda_device)
+    first = [x.clone() for x in mlstm_fused_fwd(*ins, L, T)]
+    for name, a, c in zip(("h", "C_T", "n_T", "m_T"), first, mlstm_fused_fwd(*ins, L, T)):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", [(2, 45, 2, 16, 16, 16), (1, 300, 2, 128, 256, 128),
+                                                (1, 32, 2, 128, 256, 128),
+                                                (2, 500, 2, 64, 80, 256)])
 def test_mlstm_pallas_kernel_matches_plain(cuda_device, B, T, H, dqk, dv, chunk):
     """K10 against mlstm_chunkwise (its plain version) at ragged T with a
     nonzero carry, within 1e-4 of each output's scale; its gradients (the

@@ -1,6 +1,7 @@
-"""Times of the mLSTM kernels (K9a, K9b, K10) and of the xLSTM training paths
-that run K9b, for one checkout of the port.  To compare two checkouts on one
-card, run it once per checkout, in turns, within one call:
+"""Times of the mLSTM kernels (K9a, K9b, K10) and of the xLSTM paths that run
+them (streaming, training, bench.py's row), for one checkout of the port.  To
+compare two checkouts on one card, run it once per checkout, in turns, within
+one call:
 
     PYTHONPATH=<checkout A> python tools/mlstm_bwd_ab.py --tag A
     PYTHONPATH=<checkout B> python tools/mlstm_bwd_ab.py --tag B
@@ -13,14 +14,16 @@ helpers of this tree's ``chip_smoke.py`` (so both checkouts run the same
 phases, over their own package), times with
 CUDA events K9a and K9b at ``chip_smoke.py`` phase 17's three shapes (B=32,
 T=1598, 2 heads, dqk=128, dv=256, chunk 128, f32 and bf16; B=64, chunk 256,
-bf16; and the extra device memory of one K9b call) and K10 (f32, B=32), then
-drives phase 20's xLSTM CTC training group (B=32, K=2, f32: its
-kernel-vs-plain update difference; then the kernel path alone twice, the
-second run's ms per segment and peak memory) and ``bench.py``'s xLSTM row
-(phase 21: B=64, bf16, chunk 256, K=4).  With ``--profile`` it also prints
-the device time of each CUDA kernel of one K9b call at each shape
-(``torch.profiler``).  It prints the card's name and power limit, the
-phases' own log lines, and one JSON line of kernel times.
+bf16; and the extra device memory of one K9a and one K9b call), K9a at the
+streaming shape (B=1, one chunk of 32 steps, f32) and K10 (f32, B=32), then
+drives phase 19's xLSTM streams (chunk latency p50/p90, peak memory), phase
+20's xLSTM CTC training group (B=32, K=2, f32: its kernel-vs-plain update
+difference; then the kernel path alone twice, the second run's ms per
+segment and peak memory) and ``bench.py``'s xLSTM row (phase 21: B=64,
+bf16, chunk 256, K=4: audio-s/s, peak memory).  With ``--profile`` it also
+prints the device time of each CUDA kernel of one K9a and one K9b call at
+each shape (``torch.profiler``).  It prints the card's name and power limit,
+the phases' own log lines, and one JSON line of kernel times.
 """
 
 from __future__ import annotations
@@ -102,26 +105,25 @@ def main() -> int:
                     for x in (ins[2], ins[5], ins[6], ins[7])]
             cots[0][:, T:] = 0
             out["K9a " + label] = cs.cuda_ms(lambda: mlstm_fused_fwd(*ins, L, T), args.reps)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            mlstm_fused_bwd(*ins, *cots, L, T)
-            torch.cuda.synchronize()
-            out["K9b " + label + " MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            for name, fn in (("K9a", lambda: mlstm_fused_fwd(*ins, L, T)),
+                             ("K9b", lambda: mlstm_fused_bwd(*ins, *cots, L, T))):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                out[f"{name} {label} MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
             out["K9b " + label] = cs.cuda_ms(lambda: mlstm_fused_bwd(*ins, *cots, L, T),
                                              args.reps)
             if args.profile:
-                from torch.profiler import ProfilerActivity, profile
-
-                mlstm_fused_bwd(*ins, *cots, L, T)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    mlstm_fused_bwd(*ins, *cots, L, T)
-                    torch.cuda.synchronize()
-                rows = sorted(((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
-                               if e.device_time_total > 0), key=lambda kv: -kv[1])
-                print(f"[{args.tag}] K9b {label} by kernel (ms): "
-                      + "; ".join(f"{k[:60]} {v:.4f}" for k, v in rows), flush=True)
+                cs.log_by_kernel(f"[{args.tag}] K9a {label}", lambda: mlstm_fused_fwd(*ins, L, T))
+                cs.log_by_kernel(f"[{args.tag}] K9b {label}",
+                                 lambda: mlstm_fused_bwd(*ins, *cots, L, T))
+        ins, _ = cs.mlstm_inputs(gen, 1, 32, H, dqk, dv, 32, torch.float32, dev)
+        out["K9a streaming f32"] = cs.cuda_ms(lambda: mlstm_fused_fwd(*ins, 128, 32), 20)
+        if args.profile:
+            cs.log_by_kernel(f"[{args.tag}] K9a streaming f32",
+                             lambda: mlstm_fused_fwd(*ins, 128, 32))
         B, L = 32, 128
         r = lambda *shape: 0.5 * torch.randn(shape, generator=gen, device=dev)
         ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
@@ -133,6 +135,11 @@ def main() -> int:
         return 0
 
     xcfg = Config().apply_overrides(cs.XLSTM)
+    model = cs.build_speech_model(xcfg.model, xcfg.frontend.n_mfcc, "ctc", device=dev,
+                                  generator=torch.Generator().manual_seed(cs.SEED))
+    cs.randomize_(model, cs.SEED + 1)
+    cs.phase_streaming(model, xcfg, dev, mlstm_fused_fwd, f"[{args.tag}] [xlstm streaming]")
+    del model
     cs.phase_train_step(xcfg, dev, K=2, path="xlstm ctc")
     ms, peak = kernel_group(cs, xcfg, dev)
     print(f"[{args.tag}] xlstm train group, kernel path, second run: {ms:.1f} ms per segment, "
