@@ -15,17 +15,19 @@ defaults through the port's entry points:
      backward kernels, of K9a's and K10's forward passes (in both mLSTM
      libraries) and of K9b's, each of which must hold some;
   1. kernel K1: ``lucy_cell_fused_lm`` against its plain version at the
-     batched shape (f32 and bf16) and the streaming shape, with times (CUDA
-     events) beside the byte bound;
+     batched shape (f32 and bf16), the streaming shape, the edges of its
+     tiles (T=45 with D=100, T=1) and bench.py's shape (B=96, bf16), with
+     times (CUDA events) beside the byte bound;
   2. batched: ``SpeechModel`` over 3 carried 16 s segments at B=32, the
      kernel path held against the plain path on the card;
   3. streaming: ``StreamingRecognizer`` on three ~10 s streams, held against
      an offline one-shot decode of the same frames (chunk latency p50/p90,
      peak device memory);
   4. kernels K2, K3, K4: the cell's backward and the CTC α/β lattice against
-     their plain versions at the training shapes (and a ragged shape, and
-     one with S > 1024 states), with times, bounds, plain times and, for the
-     lattice, ``F.ctc_loss`` as the library yardstick;
+     their plain versions at the training shapes (and a ragged shape, K2 at
+     bench.py's B=96 bf16, and the lattice with S > 1024 states), with
+     times, bounds, plain times and, for the lattice, ``F.ctc_loss`` as the
+     library yardstick;
   5. train step: ``make_segment_scan_step`` over one group of 4 carried 16 s
      segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
      the kernel path held against the plain path;
@@ -397,7 +399,10 @@ def phase_kernel(dev) -> dict:
     out = {}
     cases = [("batched f32", 32, 1598, 512, torch.float32),
              ("batched bf16", 32, 1598, 512, torch.bfloat16),
-             ("streaming f32", 1, 32, 512, torch.float32)]
+             ("streaming f32", 1, 32, 512, torch.float32),
+             ("ragged f32", 3, 45, 100, torch.float32),
+             ("one step f32", 4, 1, 512, torch.float32),
+             ("bench bf16", 96, 1598, 512, torch.bfloat16)]
     for label, B, T, D, dtype in cases:
         gates, bias, h0, s0 = cell_inputs(gen, B, T, D, dtype, dev)
         with torch.inference_mode():
@@ -620,13 +625,15 @@ def check_grads(got, want, names, rtol, scale_tol) -> float:
 
 
 def phase_cell_bwd(dev) -> dict:
-    """Phase 4a: K2 against its plain version; the batched shapes with the
-    model path's null g_s, and a ragged shape with a real g_s."""
+    """Phase 4a: K2 against its plain version; the batched shapes and
+    bench.py's with the model path's null g_s, and a ragged shape with a
+    real g_s."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
     cases = [("batched f32", 32, 1598, 512, torch.float32, False),
              ("batched bf16", 32, 1598, 512, torch.bfloat16, False),
-             ("ragged f32 with g_s", 3, 45, 100, torch.float32, True)]
+             ("ragged f32 with g_s", 3, 45, 100, torch.float32, True),
+             ("bench bf16", 96, 1598, 512, torch.bfloat16, False)]
     names = ("d_gates", "dh0", "ds0", "d_bias")
     for label, B, T, D, dtype, with_gs in cases:
         gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, dtype, dev)

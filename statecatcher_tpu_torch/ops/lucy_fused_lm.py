@@ -18,8 +18,11 @@ the dtypes of the inputs.
 
 Bounds on the card (bytes both; see the sources): K1 moves 9 planes of
 B·T·D, 0.281 ms at (B=32, T=1598, D=512) f32; K2 moves 18, 0.563 ms.  Both
-walk time in registers, one thread per (b, d) column, and are limited by
-one memory round trip per step, not by bytes.
+give a block one batch row and a tile of columns and walk time in tiles of
+a few steps: a ring of shared-memory stages filled by ``cp.async`` tiles
+ahead, the state-free gate chain computed for a whole tile by most warps
+while one thread per column walks the previous tile's recurrence
+(``ops/csrc/lucy_tile.cuh`` holds what the two share).
 
 ``lucy_cell_fused_lm_ref`` and ``lucy_cell_fused_lm_bwd_ref`` are the plain
 versions (f32 math, f64 for f64 gates).  Each wrapper runs its plain version

@@ -7,7 +7,9 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 (``--noconftest`` because tests/conftest.py imports JAX; ``-o addopts=``
 drops the ini file's ``-n auto``, which needs xdist.)
 
-Kernels held here: K1 and K2 (the fused cell's forward and backward), K3
+Kernels held here: K1 and K2 (the fused cell's forward and backward; also
+at the edges of their time and column tiles, and bit for bit between two
+calls), K3
 and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
 adjoint), K6a and K6b (the fused RNN-T joint's forward and backward; both
 on the tensor cores, also over ragged widths, the blank in any vocab tile
@@ -236,6 +238,94 @@ def test_cell_function_grads_on_card_match_cpu(cuda_device):
         grads.append([a.grad.cpu().numpy() for a in args])
     for name, a, b in zip(("gates", "bias", "h0", "s0"), grads[1], grads[0]):
         assert_grad_close(a, b, name)
+
+
+# Shapes at the edges of K1's and K2's tiles (time tiles of 8 or 16 steps,
+# column tiles of 64 and 32): T not a multiple of the time tile and T below
+# it, D = 100 and 200 (a ragged column tile; bf16 rows of D = 100 start on 8
+# bytes, not 16), B = 1, and D = 5 / 6 (f32 rows on 4 / 8 bytes) and D = 33
+# (bf16 rows on 2 bytes, copied without cp.async).
+CELL_EDGE_SHAPES = [(1, 5, 200, torch.float32), (2, 1, 100, torch.float32),
+                    (3, 45, 100, torch.float32), (1, 77, 200, torch.float32),
+                    (2, 19, 5, torch.float32), (2, 23, 6, torch.float32),
+                    (1, 9, 100, torch.bfloat16), (3, 45, 200, torch.bfloat16),
+                    (2, 1, 200, torch.bfloat16), (2, 37, 33, torch.bfloat16)]
+
+
+def _edge_id(case):
+    B, T, D, dtype = case
+    return f"B{B}-T{T}-D{D}-{str(dtype).split('.')[-1]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype", CELL_EDGE_SHAPES, ids=map(_edge_id, CELL_EDGE_SHAPES))
+def test_kernel_edge_shapes(cuda_device, B, T, D, dtype):
+    """K1 at the edges of its tiles, against its plain version with the
+    tolerances of test_kernel_matches_plain_f32 and _bf16."""
+    gates, bias, h0, s0 = _on(cuda_device, cell_data(30 + T, B, T, D))
+    gates = gates.to(dtype)
+    with torch.inference_mode():
+        h, s = lucy_cell_fused_lm(gates, bias, h0, s0)
+        h_ref, s_ref = lucy_cell_fused_lm_ref(gates, bias, h0, s0)
+    torch.cuda.synchronize()
+    assert h.dtype == s.dtype == dtype and h.shape == s.shape == (B, T, D)
+    h, h_ref, s, s_ref = (t.float().cpu().numpy() for t in (h, h_ref, s, s_ref))
+    if dtype == torch.float32:
+        assert_cell_close(h, s, h_ref, s_ref)
+    else:
+        np.testing.assert_allclose(h, h_ref, rtol=2e-2, atol=2e-2)
+        assert (np.abs(s - s_ref) <= 1e-3 * np.abs(s_ref).max() + 1e-2 * np.abs(s_ref)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype", CELL_EDGE_SHAPES, ids=map(_edge_id, CELL_EDGE_SHAPES))
+@pytest.mark.parametrize("with_gs", [True, False])
+def test_bwd_kernel_edge_shapes(cuda_device, B, T, D, dtype, with_gs):
+    """K2 at the edges of its tiles, against its plain version with the
+    tolerances of test_bwd_kernel_matches_plain_f32 and _bf16."""
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(40 + T, B, T, D))
+    gates = gates.to(dtype)
+    rng = np.random.default_rng(41 + T)
+    g_h = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda_device)
+    g_s = (torch.from_numpy((0.1 * rng.standard_normal((B, T, D))).astype(np.float32))
+           .to(cuda_device).to(dtype) if with_gs else None)
+    g_h = g_h.to(dtype)
+    with torch.inference_mode():
+        h_all, s_all = lucy_cell_fused_lm_ref(gates, bias, h0, s0)
+        got = lucy_cell_fused_lm_bwd(gates, bias, h0, s0, h_all, s_all, g_h, g_s)
+        want = lucy_cell_fused_lm_bwd_ref(gates, bias, h0, s0, h_all, s_all, g_h, g_s)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[0].shape == (B, T, 7 * D)
+    names = ("d_gates", "dh0", "ds0", "d_bias")
+    if dtype == torch.float32:
+        for name, a, b in zip(names, got, want):
+            assert_grad_close(a.cpu().numpy(), b.cpu().numpy(), name)
+    else:
+        assert_grad_close(got[0].float().cpu().numpy(), want[0].float().cpu().numpy(),
+                          "d_gates", rtol=2e-2, scale_tol=1e-3)
+        for name, a, b in zip(names[1:], got[1:], want[1:]):
+            assert_grad_close(a.cpu().numpy(), b.cpu().numpy(), name, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_kernels_are_deterministic(cuda_device, dtype):
+    """Two calls of K1 and two of K2 on the same inputs give bit-equal
+    outputs: K2's d_bias partials are added in a fixed order, with no
+    atomics."""
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(50, 3, 301, 512))
+    gates = gates.to(dtype)
+    g_h = torch.randn((3, 301, 512), device=cuda_device).to(dtype)
+    g_s = 0.1 * torch.randn((3, 301, 512), device=cuda_device).to(dtype)
+    with torch.inference_mode():
+        first = [x.clone() for x in lucy_cell_fused_lm(gates, bias, h0, s0)]
+        for name, a, b in zip(("h_all", "s_all"), first, lucy_cell_fused_lm(gates, bias, h0, s0)):
+            assert torch.equal(a, b), name
+        args = (gates, bias, h0, s0, *first, g_h, g_s)
+        first = [x.clone() for x in lucy_cell_fused_lm_bwd(*args)]
+        second = lucy_cell_fused_lm_bwd(*args)
+    for name, a, b in zip(("d_gates", "dh0", "ds0", "d_bias"), first, second):
+        assert torch.equal(a, b), name
 
 
 def ctc_data(seed, B, T, U, V):
