@@ -61,9 +61,11 @@ defaults through the port's entry points:
      path;
  13. kernels K8a, K8b and the banded α/β lattice against their plain
      versions at the banded training shape (B=32, T=1598, U=128, band 32;
-     f32, and bf16 for K8; beside each K8a bound, as in phase 8), and the
-     identity: with band ≥ U+1 the banded loss and its gradients equal the
-     exact K6/K7 loss;
+     f32, and bf16 for K8; beside each K8a bound, as in phase 8), the
+     lattice also at bench.py's B=96 (U=64 and U=128), with its chain floor
+     (the diagonals it walks × one diagonal's latency, measured on one row)
+     beside its byte bound, and the identity: with band ≥ U+1 the banded
+     loss and its gradients equal the exact K6/K7 loss;
  14. RNN-T train step at U=128 with the default band (32): one group of K=2
      at B=32 with a row_valid=False row and a degenerate row (its band
      prunes every path: masked out, finite gradients), kernel path against
@@ -1225,12 +1227,74 @@ def band_problem(gen, B, T, U, J, V, band, Tb, dev, dtype):
     return enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, g_blank, g_emit
 
 
+def band_diagonals(o, t_lens, Tp: int, Wp: int, Tb: int) -> torch.Tensor:
+    """(B,) anti-diagonals the wavefront walks in each row: from f(0) to
+    f(t_last) + Wp − 1, f(t) = t + o(t)."""
+    last = torch.clamp(t_lens.to(torch.int64), 1, Tp) - 1
+    rows = torch.arange(o.shape[0], device=o.device)
+    o64 = o.to(torch.int64)
+    return last + o64[rows, last // Tb] + Wp - o64[:, 0]
+
+
+def band_chain_floor(blank_b, emit_b, o, t_lens, Tb: int) -> tuple[float, float, int]:
+    """The banded α's chain floor: the most diagonals any row walks times the
+    latency of one diagonal, measured on row 0 alone (one warp on the card)
+    as the slope between its whole walk and half of it.  Returns (floor ms,
+    ms per diagonal, diagonals)."""
+    _, Tp, Wp = blank_b.shape
+    one = (blank_b[:1].contiguous(), emit_b[:1].contiguous(), o[:1].contiguous())
+    full = torch.full((1,), Tp, dtype=torch.int32, device=o.device)
+    half = full // 2
+    n_full, n_half = (int(band_diagonals(one[2], t, Tp, Wp, Tb)[0]) for t in (full, half))
+    ms_full, ms_half = (cuda_ms(lambda t=t: rnnt_band_alpha(*one, t, Tb), 20) for t in (full, half))
+    per_diag = (ms_full - ms_half) / (n_full - n_half)
+    n_diag = int(band_diagonals(o, t_lens, Tp, Wp, Tb).max())
+    return n_diag * per_diag, per_diag, n_diag
+
+
+def band_lattice_bench_shapes(gen, J: int, V: int, dev) -> dict:
+    """The banded α/β at bench.py's RNN-T rows (B=96, T=1598, U=64 and
+    U=128, band 32) on K8a's f32 tables: held against their plain versions,
+    timed beside the byte bound and the chain floor."""
+    out = {}
+    B, T, band, Tb = 96, 1598, 32, 8
+    for U in (64, 128):
+        enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, *_ = band_problem(
+            gen, B, T, U, J, V, band, Tb, dev, torch.float32)
+        with torch.inference_mode():
+            blank_b, emit_b, _ = rnnt_band_fwd(enc, pred, k, b, labels, o, Wp, Tb)
+            del enc, pred
+            a = rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb)
+            bt = rnnt_band_beta(blank_b, emit_b, o, t_lens, u_lens, Tb)
+            torch.cuda.synchronize()
+            err_a = check_lattice(a, rnnt_band_alpha_ref(blank_b, emit_b, o, t_lens, Tb), 2e-5,
+                                  1e-5)
+            err_bt = check_lattice(bt, rnnt_band_beta_ref(blank_b, emit_b, o, t_lens, u_lens, Tb),
+                                   2e-5, 1e-5)
+            ms_a = cuda_ms(lambda: rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb), 20)
+            ms_bt = cuda_ms(lambda: rnnt_band_beta(blank_b, emit_b, o, t_lens, u_lens, Tb), 20)
+            floor, per_diag, n_diag = band_chain_floor(blank_b, emit_b, o, t_lens, Tb)
+        R = B * Tp * Wp
+        bound, bound_by = bytes_bound_ms(3 * R * 4 + o.numel() * 4 + 2 * B * 4,
+                                         RNNT_LATTICE_OPS_PER_STATE * R)
+        log(f"[band lattice] bench.py's shape (B={B}, T={T}, U={U}, band {band}: Tp={Tp}, "
+            f"Wp={Wp}): α max|Δ| {err_a:.3e}, β max|Δ| {err_bt:.3e}; α {ms_a:.4f} ms, β "
+            f"{ms_bt:.4f} ms, bound {bound:.4f} ms each ({bound_by}); chain floor {floor:.4f} "
+            f"ms ({n_diag} diagonals × {per_diag * 1e6:.1f} ns, measured on one row)")
+        for name, ms, err in (("alpha", ms_a, err_a), ("beta", ms_bt, err_bt)):
+            out[f"band {name} B=96 U={U}"] = {"max_abs_err": err, "ms": ms, "bound_ms": bound,
+                                             "bound_by": bound_by, "chain_floor_ms": floor}
+    return out
+
+
 def phase_band_kernels(dev) -> dict:
     """Phase 13: K8a/K8b and the banded lattice against their plain versions
     at the banded training shape (B=32, T=1598, U=128, band 32: Wp=48,
     Tp=1600; J=64, V=1024; f32, and bf16 for K8), with times, bounds and
-    plain times; and the identity: with band ≥ U+1 the banded loss and its
-    gradients equal the exact loss through K6/K7."""
+    plain times; the banded lattice also at bench.py's B=96 (U=64 and 128),
+    with its chain floor beside its byte bound; and the identity: with band
+    ≥ U+1 the banded loss and its gradients equal the exact loss through
+    K6/K7."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     out = {}
     B, T, U, J, V, band, Tb = 32, 1598, 128, 64, 1024, 32, 8
@@ -1296,13 +1360,17 @@ def phase_band_kernels(dev) -> dict:
                                1, warmup=1)
         nbytes = 3 * R * 4 + o.numel() * 4 + 2 * B * 4
         bound, bound_by = bytes_bound_ms(nbytes, RNNT_LATTICE_OPS_PER_STATE * R)
+        floor, per_diag, n_diag = band_chain_floor(blank_b, emit_b, o, t_lens, Tb)
         log(f"[band lattice] (B={B}, Tp={Tp}, Wp={Wp}): α max|Δ| {err_a:.3e}, β max|Δ| "
             f"{err_bt:.3e}; α {ms_a:.4f} ms, β {ms_bt:.4f} ms (plain {plain_a:.2f} / "
-            f"{plain_bt:.2f} ms), bound {bound:.4f} ms each ({bound_by}); library_ms: none")
+            f"{plain_bt:.2f} ms), bound {bound:.4f} ms each ({bound_by}); chain floor "
+            f"{floor:.4f} ms ({n_diag} diagonals × {per_diag * 1e6:.1f} ns, measured on one "
+            f"row); library_ms: none")
         out["band alpha"] = {"max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
-                             "bound_ms": bound, "bound_by": bound_by}
+                             "bound_ms": bound, "bound_by": bound_by, "chain_floor_ms": floor}
         out["band beta"] = {"max_abs_err": err_bt, "ms": ms_bt, "plain_ms": plain_bt,
-                            "bound_ms": bound, "bound_by": bound_by}
+                            "bound_ms": bound, "bound_by": bound_by, "chain_floor_ms": floor}
+        out.update(band_lattice_bench_shapes(gen, J, V, dev))
 
     # identity: a band of at least U+1 covers the lattice, so the banded loss
     # is the exact one.  The exact loss's occupancies divide by the forward's

@@ -3,8 +3,8 @@
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_dp_pallas.py:
 //   K7a  rnnt_alpha_kernel  <- _alpha_kernel (:69), launched by _alpha_all (:143)
 //   K7b  rnnt_beta_kernel   <- _beta_kernel (:93), launched by _beta_all (:182)
-// and holds the banded lattice of K8's tables (rnnt_band_alpha_kernel,
-// rnnt_band_beta_kernel; described at band_lattice below).
+// and launches the banded lattice of K8's tables (rnnt_band_alpha,
+// rnnt_band_beta: the anti-diagonal wavefront of rnnt_wavefront.cuh).
 //
 //   blank    (B, T, U1) f32, U1 = U+1: log P(blank | t, u)
 //   emit     (B, T, U) f32: log P(label_u | t, u)
@@ -43,6 +43,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "rnnt_wavefront.cuh"
 
 namespace {
 
@@ -211,130 +213,19 @@ __global__ void rnnt_beta_kernel(const float* __restrict__ blank,
 
 // The banded lattice over K8's tables (the port's own kernels; the JAX
 // package runs them as an XLA scan, statecatcher_tpu/ops/rnnt_band.py:
-// rnnt_nll_banded, :319).  Column w of frame t is label position
-// u = o(t) + w, o(t) = o[b, t / Tb], so the state moves between windows
-// where the band start steps by δ (a multiple of 8, >= 0):
-//   alpha: frame 0 from the start state (0, -1e30, ...); frame t >= 1 from
-//          base_w = (alpha(t-1) + blank(t-1))[w + δ] (-1e30 past the window),
-//          δ = o(t) - o(t-1), then the chain x_w = logaddexp(base_w,
-//          x_{w-1} + emit(t, w-1)); frames t >= max(t_len, 1) repeat the last.
-//   beta:  the virtual base 0 at the corner column w* = u_len - o(t_last),
-//          t_last = max(t_len, 1) - 1 (-1e30 everywhere when w* is outside the
-//          window), which frames t > t_last hold; frame t <= t_last from
-//          base_w = blank(t, w) + beta(t+1)[w - δ], δ = o(t+1) - o(t), then
-//          x_w = logaddexp(base_w, x_{w+1} + emit(t, w)), emit(t, Wp-1) unused.
-// One block of round_up(Wp, 32) threads per batch row, one column each
-// (Wp <= 1024): the chain is K7's scan; a window shift goes through shared
-// memory (double buffered), one barrier per shift, once per time block.
-template <bool kRev>
-__device__ void band_lattice(const float* __restrict__ blank, const float* __restrict__ emit,
-                             const int* __restrict__ o, const int* __restrict__ t_lens,
-                             const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
-                             int Wp, int Tb) {
-  __shared__ float agg_a[2][kMaxWarps];
-  __shared__ float agg_b[2][kMaxWarps];
-  __shared__ float win[2][1024];
-  const int b = blockIdx.x;
-  const int v = threadIdx.x;  // scan position
-  const int lane = v & 31, warp = v >> 5, nw = (blockDim.x + 31) >> 5;
-  const bool live = v < Wp;
-  const int w = kRev ? Wp - 1 - v : v;  // window column
-  const int* ob = o + static_cast<size_t>(b) * (Tp / Tb);
-  int tl = t_lens[b];
-  tl = tl < 1 ? 1 : (tl > Tp ? Tp : tl);
-  const size_t off = static_cast<size_t>(b) * Tp * Wp;
-  const float* bl = blank + off;
-  const float* em = emit + off;
-  float* ob_out = out + off;
-
-  float st;
-  if (kRev) {
-    const int ws = u_lens[b] - ob[(tl - 1) / Tb];
-    st = (live && w == ws) ? 0.0f : kNeg;
-    for (int t = tl; t < Tp; ++t)
-      if (live) ob_out[static_cast<size_t>(t) * Wp + w] = st;
-  } else {
-    st = w == 0 ? 0.0f : kNeg;
-  }
-  int it = 0, iw = 0;
-  for (int s = 0; s < tl; ++s) {
-    const int t = kRev ? tl - 1 - s : s;
-    float nb = st;
-    int delta = 0;
-    if (kRev) {
-      delta = (t + 1 < Tp ? ob[(t + 1) / Tb] : ob[t / Tb]) - ob[t / Tb];
-    } else if (t > 0) {
-      if (live) nb = st + bl[static_cast<size_t>(t - 1) * Wp + w];
-      delta = ob[t / Tb] - ob[(t - 1) / Tb];
-    }
-    if (delta != 0) {  // the same for the whole block
-      float* buf = win[iw & 1];
-      if (live) buf[w] = nb;
-      __syncthreads();
-      const int src = kRev ? w - delta : w + delta;
-      nb = (live && src >= 0 && src < Wp) ? buf[src] : kNeg;
-      ++iw;
-    }
-    float A = 0.0f, Bv = kNeg;
-    if (live) {
-      if (kRev) {
-        A = w < Wp - 1 ? em[static_cast<size_t>(t) * Wp + w] : kNeg;
-        Bv = bl[static_cast<size_t>(t) * Wp + w] + nb;
-      } else {
-        A = w > 0 ? em[static_cast<size_t>(t) * Wp + w - 1] : kNeg;
-        Bv = nb;
-      }
-    }
-    warp_chain(A, Bv, lane);
-    float x;
-    if (nw > 1) {
-      const int p = it & 1;
-      if (lane == 31) {
-        agg_a[p][warp] = A;
-        agg_b[p][warp] = Bv;
-      }
-      __syncthreads();
-      float s_in = kNeg;
-      for (int q = 0; q < warp; ++q) s_in = lae(agg_b[p][q], s_in + agg_a[p][q]);
-      x = lae(Bv, s_in + A);
-      ++it;
-    } else {
-      x = lae(Bv, kNeg + A);
-    }
-    if (live) {
-      st = x;
-      ob_out[static_cast<size_t>(t) * Wp + w] = x;
-    }
-  }
-  if (!kRev) {
-    for (int t = tl; t < Tp; ++t)
-      if (live) ob_out[static_cast<size_t>(t) * Wp + w] = st;
-  }
-}
-
-__global__ void rnnt_band_alpha_kernel(const float* __restrict__ blank,
-                                       const float* __restrict__ emit,
-                                       const int* __restrict__ o,
-                                       const int* __restrict__ t_lens,
-                                       float* __restrict__ alpha, int Tp, int Wp, int Tb) {
-  band_lattice<false>(blank, emit, o, t_lens, nullptr, alpha, Tp, Wp, Tb);
-}
-
-__global__ void rnnt_band_beta_kernel(const float* __restrict__ blank,
-                                      const float* __restrict__ emit, const int* __restrict__ o,
-                                      const int* __restrict__ t_lens,
-                                      const int* __restrict__ u_lens, float* __restrict__ beta,
-                                      int Tp, int Wp, int Tb) {
-  band_lattice<true>(blank, emit, o, t_lens, u_lens, beta, Tp, Wp, Tb);
-}
+// rnnt_nll_banded, :319): the anti-diagonal wavefront of rnnt_wavefront.cuh,
+// one warp a batch row.
 
 int block_threads(int U1) {
   int nt = ((U1 + 31) / 32) * 32;
   return nt > 1024 ? 1024 : nt;
 }
 
-bool band_ok(int Tp, int Wp, int Tb) {
-  return Wp > 0 && Wp <= 1024 && Tb > 0 && Tp % Tb == 0;
+bool band_ok(const float* blank, const float* emit, int Tp, int Wp, int Tb) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; };
+  return Wp > 0 && Wp % 4 == 0 && Wp <= rnnt_wavefront::kMaxWp && Tb > 0 && Tp % Tb == 0 &&
+         static_cast<long long>(Tp) * Tb < (1LL << 32) &&
+         static_cast<long long>(Tp) * Wp < (1LL << 31) && aligned(blank) && aligned(emit);
 }
 
 }  // namespace
@@ -359,23 +250,22 @@ extern "C" int rnnt_beta(const float* blank, const float* emit, const int* t_len
   return static_cast<int>(cudaGetLastError());
 }
 
-// The banded lattice: blank, emit (B, Tp, Wp) f32, o (B, Tp/Tb) int32 band
-// starts, t_lens (and u_lens) (B) int32 -> alpha or beta (B, Tp, Wp).  Wp at
-// most 1024 and Tb dividing Tp (the wrapper checks).
+// The banded lattice: blank, emit (B, Tp, Wp) f32, 16-byte aligned; o (B,
+// Tp/Tb) int32 band starts, t_lens (and u_lens) (B) int32 -> alpha or beta
+// (B, Tp, Wp).  Wp a multiple of 4, at most 1024; Tb dividing Tp (the wrapper
+// checks).
 extern "C" int rnnt_band_alpha(const float* blank, const float* emit, const int* o,
                                const int* t_lens, float* alpha, int B, int Tp, int Wp, int Tb,
                                void* stream) {
-  if (!band_ok(Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
-  rnnt_band_alpha_kernel<<<B, block_threads(Wp), 0, static_cast<cudaStream_t>(stream)>>>(
-      blank, emit, o, t_lens, alpha, Tp, Wp, Tb);
-  return static_cast<int>(cudaGetLastError());
+  if (!band_ok(blank, emit, Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rnnt_wavefront::launch<false>(
+      blank, emit, o, t_lens, nullptr, alpha, B, Tp, Wp, Tb, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int rnnt_band_beta(const float* blank, const float* emit, const int* o,
                               const int* t_lens, const int* u_lens, float* beta, int B, int Tp,
                               int Wp, int Tb, void* stream) {
-  if (!band_ok(Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
-  rnnt_band_beta_kernel<<<B, block_threads(Wp), 0, static_cast<cudaStream_t>(stream)>>>(
-      blank, emit, o, t_lens, u_lens, beta, Tp, Wp, Tb);
-  return static_cast<int>(cudaGetLastError());
+  if (!band_ok(blank, emit, Tp, Wp, Tb)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rnnt_wavefront::launch<true>(
+      blank, emit, o, t_lens, u_lens, beta, B, Tp, Wp, Tb, static_cast<cudaStream_t>(stream)));
 }

@@ -28,8 +28,9 @@ Replaces the TPU kernels ``_fwd_kernel`` (:80, launched by
 The banded lattice is an XLA scan with autodiff in the JAX package
 (``rnnt_nll_banded``, :319), no TPU kernel; here it runs in the port's own
 kernels ``rnnt_band_alpha`` and ``rnnt_band_beta`` of
-``ops/csrc/rnnt_lattice.cu``: α forward, β and the in-band occupancies
-backward, as K7 does for the exact lattice.
+``ops/csrc/rnnt_lattice.cu`` (an anti-diagonal wavefront, one warp a batch
+row, ``ops/csrc/rnnt_wavefront.cuh``): α forward, β and the in-band
+occupancies backward, as K7 does for the exact lattice.
 
 With bf16 projections the joint, K, the bias and d_logits entering the
 logits or a product are rounded to bf16 (the JAX kernel's bf16 matmul over
@@ -37,9 +38,9 @@ its padded kernel matrix, whose row J holds the bias); the emit logit uses
 the f32 joint, K and bias.
 
 Bounds on the card: the joint as K6 at R = B·Tp·Wp rows (operations); the
-lattice by its bytes, though its chain of frames sets its time (see the
-sources).  Each wrapper runs its plain version only for tensors on the CPU;
-on the card it launches its kernel or raises.
+lattice by its bytes, though its chain of anti-diagonals sets its time.
+Each wrapper runs its plain version only for tensors on the CPU; on the
+card it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from statecatcher_tpu_torch.ops.rnnt_joint import (
 )
 from statecatcher_tpu_torch.ops.rnnt_lattice import NEG, chain_scan
 
-_MAX_WP = 1024          # rnnt_lattice.cu: one thread per window column
+_MAX_WP = 1024          # rnnt_wavefront.cuh: at most 32 window cells a lane
 _SENTINEL = 1e30        # the NLL of a row whose band never holds its corner
 
 
@@ -416,6 +417,9 @@ def _lattice_args(blank_b, emit_b, o, lens, time_block):
 def _launch_lattice(fn_name, blank_b, emit_b, o, lens, time_block):
     (B, Tp, Wp), o32, lens32 = _lattice_args(blank_b, emit_b, o, lens, time_block)
     from statecatcher_tpu_torch.ops._kernels import library
+
+    # the kernel copies whole table rows 16 bytes at a time
+    blank_b, emit_b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (blank_b, emit_b))
 
     dev = blank_b.device
     out = torch.empty((B, Tp, Wp), dtype=torch.float32, device=dev)

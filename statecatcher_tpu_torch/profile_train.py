@@ -14,8 +14,8 @@ exact loss; int16 audio as the loop ships it) after a warm-up segment.  It
 prints the host wall time, the device's busy time (the sum of its kernels
 and copies, which run on one stream) and idle share, the device time by
 kernel name, largest first, and the same grouped by the port's kernels
-(K1..K4, K6/K8 by kernel, K7, K9), the GEMMs and the rest.  With ``--out`` it also writes the
-chrome trace there.
+(K1..K4, K6/K8 by kernel, K7, the banded lattice, K9), the GEMMs and
+the rest.  With ``--out`` it also writes the chrome trace there.
 """
 
 from __future__ import annotations
@@ -48,6 +48,10 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("K6/K8 joint_kprep_kernel (forward and backward), joint_bwd_rowrec_kernel",
            "joint_bwd_rowrec"),
           ("K8b band_dpred_kernel", "band_dpred"),
+          # the wavefront's kernel; the frame-scan kernels before it
+          ("band lattice rnnt_band_alpha/rnnt_band_beta", "band_wavefront"),
+          ("band lattice rnnt_band_alpha/rnnt_band_beta", "rnnt_band_alpha"),
+          ("band lattice rnnt_band_alpha/rnnt_band_beta", "rnnt_band_beta"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),
           ("K9a fwd_out_kernel (h)", "::fwd_out_kernel"),

@@ -15,7 +15,9 @@ adjoint), K6a and K6b (the fused RNN-T joint's forward and backward; both
 on the tensor cores, also over ragged widths, the blank in any vocab tile
 and bit for bit between two calls), K7a
 and K7b (the transducer α and β lattice), K8a and K8b (the banded joint),
-the banded α and β lattice, K9a, K9b and K10 (the mLSTM; K9a and K9b also
+the banded α and β lattice (one to 17 window cells a lane, through the
+frame ring and through the producer warp's own loads, and bit for bit
+between two calls), K9a, K9b and K10 (the mLSTM; K9a and K9b also
 over the chunk lengths, head counts and widths of their chunk-parallel
 passes, with tied gates, and bit for bit between two calls; K9a and K10 at
 the streaming shape of one chunk), K12 (the fused masked cell)
@@ -758,25 +760,65 @@ def test_joint_fwd_is_deterministic(cuda_device, kind, dtype):
         assert torch.equal(x, y), name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,U,band,Tb", [(3, 45, 40, 8, 8), (4, 200, 120, 32, 8),
-                                           (2, 70, 20, 40, 16)])
-def test_band_lattice_kernels_match_plain(cuda_device, B, T, U, band, Tb):
-    """The banded α/β against their plain versions: windows of one and of
-    several warps, window shifts, short and degenerate rows."""
-    from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha_ref, rnnt_band_beta_ref
+def band_lattice_data(seed, B, T, U, band, Tb, dev):
+    """``band_data``'s band and lengths with log-prob tables (B, Tp, Wp)
+    made from its cotangents; where B ≥ 5, row B − 2 runs one frame."""
+    from statecatcher_tpu_torch.ops.rnnt_band import band_offsets
 
-    *_, o, Wp, Tb, g_blank, g_emit, t_lens, u_lens = band_data(
-        100 + U, B, T, U, 8, 16, band, Tb, cuda_device)
+    *_, o, Wp, Tb, g_blank, g_emit, t_lens, u_lens = band_data(seed, B, T, U, 8, 16, band, Tb,
+                                                               dev)
+    if B >= 5:
+        t_lens[-2] = 1
+        o = band_offsets(t_lens, u_lens, g_blank.shape[1], -(-max(U + 1, Wp) // 8) * 8, Wp, Tb)
     blank = (torch.log_softmax(torch.stack([g_blank, g_emit], -1) * 10, -1)[..., 0]).contiguous()
     emit = (torch.log_softmax(torch.stack([g_emit, g_blank], -1) * 10, -1)[..., 0]).contiguous()
+    return blank, emit, o, Wp, t_lens, u_lens
+
+
+# (B, T, U, band, Tb): Wp = 24, 48, 32 (time blocks of 16), then 48 at T = 400
+# with band starts that step by 8 and 16, 80, 120 (past the frame ring,
+# kRingMaxWp = 104) and 520 (17 cells a lane)
+BAND_LATTICE_CASES = [(3, 45, 40, 8, 8), (4, 200, 120, 32, 8), (2, 70, 20, 40, 16),
+                      (5, 400, 500, 32, 8), (5, 300, 200, 64, 8), (5, 300, 150, 100, 8),
+                      (3, 120, 520, 500, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,band,Tb", BAND_LATTICE_CASES)
+def test_band_lattice_kernels_match_plain(cuda_device, B, T, U, band, Tb):
+    """The banded α/β against their plain versions: one to 17 window cells a
+    lane, through the frame ring and the producer's own loads, band starts
+    that step by 8 and by 16, short rows, a row of one frame (B ≥ 5) and a
+    degenerate row whose band misses its corner (B > 2)."""
+    from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha_ref, rnnt_band_beta_ref
+
+    blank, emit, o, Wp, t_lens, u_lens = band_lattice_data(100 + U, B, T, U, band, Tb,
+                                                           cuda_device)
+    if T >= 400:
+        assert {8, 16} <= set(torch.diff(o[0]).tolist())
     n = (rnnt_band_alpha.launches, rnnt_band_beta.launches)
     got_a = rnnt_band_alpha(blank, emit, o, t_lens, Tb)
     got_b = rnnt_band_beta(blank, emit, o, t_lens, u_lens, Tb)
     torch.cuda.synchronize()
     assert (rnnt_band_alpha.launches, rnnt_band_beta.launches) == (n[0] + 1, n[1] + 1)
     assert_lattice_close(got_a, rnnt_band_alpha_ref(blank, emit, o, t_lens, Tb))
-    assert_lattice_close(got_b, rnnt_band_beta_ref(blank, emit, o, t_lens, u_lens, Tb))
+    want_b = rnnt_band_beta_ref(blank, emit, o, t_lens, u_lens, Tb)
+    assert_lattice_close(got_b, want_b)
+    if B > 2 and U + 1 > Wp:                         # the degenerate row: β dead everywhere
+        assert (want_b[-1] <= -1e29).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,band,Tb", [(5, 400, 500, 32, 8), (3, 120, 520, 500, 8)])
+def test_band_lattice_kernels_are_deterministic(cuda_device, B, T, U, band, Tb):
+    """Two calls of the banded α and β give the same bits (frame ring and
+    the producer's own loads)."""
+    blank, emit, o, _, t_lens, u_lens = band_lattice_data(200 + U, B, T, U, band, Tb,
+                                                          cuda_device)
+    for fn, args in ((rnnt_band_alpha, (blank, emit, o, t_lens, Tb)),
+                     (rnnt_band_beta, (blank, emit, o, t_lens, u_lens, Tb))):
+        first = fn(*args).clone()
+        assert torch.equal(first, fn(*args)), fn.__name__
 
 
 @pytest.mark.cuda
