@@ -25,9 +25,11 @@ defaults through the port's entry points:
      peak device memory);
   4. kernels K2, K3, K4: the cell's backward and the CTC α/β lattice against
      their plain versions at the training shapes (and a ragged shape, K2 at
-     bench.py's B=96 bf16, and the lattice with S > 1024 states), with
-     times, bounds, plain times and, for the lattice, ``F.ctc_loss`` as the
-     library yardstick;
+     bench.py's B=96 bf16, the lattice at bench.py's B=96 and with S > 1024
+     states), with times, bounds, plain times and, for the lattice,
+     ``F.ctc_loss`` as the library yardstick (forward, and forward and
+     backward) and its chain floor (the frames it walks × one frame's
+     latency, measured on one row) beside its byte bound;
   5. train step: ``make_segment_scan_step`` over one group of 4 carried 16 s
      segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
      the kernel path held against the plain path;
@@ -697,13 +699,29 @@ def check_lattice(got, want, atol, rtol=2e-6) -> float:
     return d.max().item()
 
 
+def ctc_chain_floor(emit, skip, in_lens) -> tuple[float, float, int]:
+    """K3's chain floor: the most frames any row walks times the latency of
+    one frame, measured on row 0 alone (one block on the card) as the slope
+    between its whole walk and half of it.  Returns (floor ms, ms per frame,
+    frames)."""
+    T = emit.shape[1]
+    one, sk = emit[:1].contiguous(), skip[:1].contiguous()
+    full = torch.full((1,), T, dtype=torch.int32, device=emit.device)
+    ms_full, ms_half = (cuda_ms(lambda n=n: ctc_alpha(one, sk, n), 20) for n in (full, full // 2))
+    per_frame = (ms_full - ms_half) / (T - T // 2)
+    frames = int(torch.clamp(in_lens, 0, T).max())
+    return frames * per_frame, per_frame, frames
+
+
 def phase_lattice(dev) -> dict:
-    """Phase 4b: K3 and K4 against their plain versions, and F.ctc_loss."""
+    """Phase 4b: K3 and K4 against their plain versions at the training
+    shape, bench.py's B=96 and S > 1024, and F.ctc_loss."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     out = {}
-    for label, B, T, U, V in (("training", 32, 1598, 128, 1024), ("S>1024", 3, 700, 600, 64)):
+    for label, B, T, U, V in (("training", 32, 1598, 128, 1024),
+                              ("bench B=96", 96, 1598, 128, 1024), ("S>1024", 3, 700, 600, 64)):
         lp, labels, in_lens, label_lens = lattice_inputs(gen, B, T, U, V, dev)
         ext = expand_labels(labels, 0)
         skip = skip_allowed(ext, 0)
@@ -714,8 +732,11 @@ def phase_lattice(dev) -> dict:
             torch.cuda.synchronize()
             a_ref, b_ref = ctc_alpha_ref(emit, skip, in_lens), ctc_beta_ref(emit, skip, in_lens,
                                                                              label_lens)
-            # f32 log-sum-exp chains of up to T steps, in two operation orders
+            # f32 log-sum-exp chains of up to T steps; the kernels take the
+            # plain versions' operations in their order, so no value should
+            # differ (the count is printed), but the tolerance stays
             err_a, err_b = check_lattice(a, a_ref, 2e-5), check_lattice(b, b_ref, 2e-5)
+            n_unlike = int((a != a_ref).sum()) + int((b != b_ref).sum())
             ms_a = cuda_ms(lambda: ctc_alpha(emit, skip, in_lens), 20)
             ms_b = cuda_ms(lambda: ctc_beta(emit, skip, in_lens, label_lens), 20)
             plain_a = cuda_ms(lambda: ctc_alpha_ref(emit, skip, in_lens), 2, warmup=1)
@@ -728,6 +749,7 @@ def phase_lattice(dev) -> dict:
                                                     in_lens), in_lens, label_lens)
             d_nll = (ours() - lib()).abs().max().item()
             lib_fwd, ours_fwd = cuda_ms(lib, 10), cuda_ms(ours, 10)
+            floor, per_frame, frames = ctc_chain_floor(emit, skip, in_lens)
 
         def fwd_bwd(fn):
             x = lp.detach().requires_grad_()
@@ -740,8 +762,10 @@ def phase_lattice(dev) -> dict:
         nbytes = 2 * B * T * S * 4 + B * S + 2 * B * 4
         bound, bound_by = bytes_bound_ms(nbytes, LATTICE_OPS_PER_STATE * B * T * S)
         log(f"[K3/K4] {label} (B={B}, T={T}, U={U}, S={S}): α max|Δ| {err_a:.3e}, β max|Δ| "
-            f"{err_b:.3e}; K3 {ms_a:.4f} ms, K4 {ms_b:.4f} ms (plain {plain_a:.2f} / "
-            f"{plain_b:.2f} ms), bound {bound:.4f} ms each ({bound_by})")
+            f"{err_b:.3e} ({n_unlike} values unlike the plain versions'); K3 {ms_a:.4f} ms, K4 "
+            f"{ms_b:.4f} ms (plain {plain_a:.2f} / {plain_b:.2f} ms), bound {bound:.4f} ms each "
+            f"({bound_by}); chain floor {floor:.4f} ms ({frames} frames × {per_frame * 1e6:.1f} "
+            f"ns, measured on one row)")
         log(f"[K3/K4] {label}: NLL forward (gather + K3 + read-out) {ours_fwd:.4f} ms vs "
             f"F.ctc_loss {lib_fwd:.4f} ms (max |Δ nll| {d_nll:.3e}); forward+backward (+ K4 + γ "
             f"+ scatter) {ours_fb:.4f} ms vs F.ctc_loss {lib_fb:.4f} ms")

@@ -10,7 +10,9 @@ drops the ini file's ``-n auto``, which needs xdist.)
 Kernels held here: K1 and K2 (the fused cell's forward and backward; also
 at the edges of their time and column tiles, and bit for bit between two
 calls), K3
-and K4 (the CTC α and β lattice), K5a and K5b (the linear scan and its
+and K4 (the CTC α and β lattice; also over the states a lane and the edges
+of the warps' pipeline, rows with in_len 0 and in_len > T, bit for bit
+between two calls and bit for bit the plain versions run on the card), K5a and K5b (the linear scan and its
 adjoint), K6a and K6b (the fused RNN-T joint's forward and backward; both
 on the tensor cores, also over ragged widths, the blank in any vocab tile
 and bit for bit between two calls), K7a
@@ -331,7 +333,8 @@ def test_cell_kernels_are_deterministic(cuda_device, dtype):
 
 
 def ctc_data(seed, B, T, U, V):
-    """Log-probs and labels; row 1 has no labels, row 2 a short input."""
+    """Log-probs and labels; row 1 has no labels, row 2 a short input, row 3
+    (B ≥ 5) no input and row 4 an input longer than T."""
     rng = np.random.default_rng(seed)
     lp = torch.log_softmax(torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32)), -1)
     labels = torch.from_numpy(rng.integers(1, V, (B, U)).astype(np.int32))
@@ -342,20 +345,38 @@ def ctc_data(seed, B, T, U, V):
         labels[1] = 0
         in_lens[2] = T - 5
         label_lens[2] = max(U - 3, 0)
+    if B >= 5:
+        in_lens[3] = 0
+        in_lens[4] = T + 7
     return lp, labels, in_lens, label_lens
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,U,V", [(3, 50, 8, 20), (4, 200, 40, 30), (3, 700, 600, 40)])
-def test_ctc_kernels_match_plain(cuda_device, B, T, U, V):
-    """α and β on the card against their plain versions: 2e-5 of each value
-    where it is a lattice value (above −1e29), and the same dead states."""
-    lp, labels, in_lens, label_lens = ctc_data(30 + U, B, T, U, V)
+def ctc_lattice_args(seed, B, T, U, V):
+    """``ctc_data``'s emit (B, T, 2U+1), allow_skip and lengths."""
+    lp, labels, in_lens, label_lens = ctc_data(seed, B, T, U, V)
     ext = expand_labels(labels, 0)
-    skip = skip_allowed(ext, 0)
-    emit = emit_log_probs(lp, ext).contiguous()
+    return emit_log_probs(lp, ext).contiguous(), skip_allowed(ext, 0), in_lens, label_lens
+
+
+def ctc_states_args(seed, B, T, S, V=30):
+    """emit (B, T, S) for any S (blank at even states, labels at odd ones, so
+    an even S ends on a label), allow_skip and lengths as ``ctc_data``'s."""
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32)), -1)
+    ext = torch.zeros((B, S), dtype=torch.int64)
+    ext[:, 1::2] = torch.from_numpy(rng.integers(1, V, (B, S // 2)))
+    in_lens = torch.tensor([T, T, T - 5, 0, T + 7][:B], dtype=torch.int32)
+    label_lens = torch.tensor([S // 2, 0, S // 2 - 3, S // 2, S // 2][:B], dtype=torch.int32)
+    return (emit_log_probs(lp, ext).contiguous(), skip_allowed(ext, 0), in_lens,
+            label_lens.clamp(min=0))
+
+
+def assert_ctc_kernels_match_plain(dev, emit, skip, in_lens, label_lens):
+    """α and β on the card against their plain versions: 2e-5 + 2e-6 of each
+    value where it is a lattice value (above −1e29), and the same dead
+    states; one launch each."""
     want_a, want_b = ctc_alpha_ref(emit, skip, in_lens), ctc_beta_ref(emit, skip, in_lens, label_lens)
-    on = [t.to(cuda_device) for t in (emit, skip, in_lens, label_lens)]
+    on = [t.to(dev) for t in (emit, skip, in_lens, label_lens)]
     n = (ctc_alpha.launches, ctc_beta.launches)
     got_a, got_b = ctc_alpha(*on[:3]), ctc_beta(*on)
     torch.cuda.synchronize()
@@ -365,6 +386,55 @@ def test_ctc_kernels_match_plain(cuda_device, B, T, U, V):
         live = want > -1e29
         assert np.array_equal(live, got > -1e29)
         np.testing.assert_allclose(got[live], want[live], rtol=2e-6, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V", [(3, 50, 8, 20), (4, 200, 40, 30), (3, 700, 600, 40),
+                                     (5, 40, 15, 20), (5, 45, 16, 20), (5, 80, 31, 40),
+                                     (5, 80, 32, 40), (32, 1598, 128, 1024),
+                                     (96, 64, 128, 1024), (5, 300, 600, 40)])
+def test_ctc_kernels_match_plain(cuda_device, B, T, U, V):
+    """α and β on the card against their plain versions: S = 2U+1 from one
+    warp's states (31, 33) to three (63, 65), the training shape (B=32,
+    T=1598, S=257), bench.py's batch (B=96) at a short T and S = 1201 (two
+    states a lane); rows with in_len 0 and in_len > T where B ≥ 5."""
+    assert_ctc_kernels_match_plain(cuda_device, *ctc_lattice_args(30 + U, B, T, U, V))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 64, 1024, 1025, 2048, 2049, 3072, 4096])
+def test_ctc_kernels_match_plain_any_states(cuda_device, S):
+    """Even S (a last label state) and the S where the states a lane step
+    from 1 to 4 (1024, 2048, 3072 a block of 32 warps; 1025, 2049 the next),
+    with in_len T, < T, 0 and > T and label_len 0."""
+    assert_ctc_kernels_match_plain(cuda_device, *ctc_states_args(60 + S, 5, 24, S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V", [(5, 400, 128, 1024), (5, 80, 600, 40)])
+def test_ctc_kernels_are_the_plain_versions_bit_for_bit(cuda_device, B, T, U, V):
+    """On the card, α and β equal their plain versions run there bit for bit:
+    the kernels take the plain version's f32 operations in its order (the
+    training checks compare Adam's first updates, which turn any other
+    rounding of the CTC gradient into sign flips)."""
+    emit, skip, in_lens, label_lens = (t.to(cuda_device)
+                                       for t in ctc_lattice_args(80 + U, B, T, U, V))
+    with torch.inference_mode():
+        assert torch.equal(ctc_alpha(emit, skip, in_lens), ctc_alpha_ref(emit, skip, in_lens))
+        assert torch.equal(ctc_beta(emit, skip, in_lens, label_lens),
+                           ctc_beta_ref(emit, skip, in_lens, label_lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V", [(32, 1598, 128, 1024), (5, 80, 600, 40)])
+def test_ctc_kernels_are_deterministic(cuda_device, B, T, U, V):
+    """Two calls of α and β give the same bits."""
+    emit, skip, in_lens, label_lens = (t.to(cuda_device)
+                                       for t in ctc_lattice_args(70 + U, B, T, U, V))
+    for fn, args in ((ctc_alpha, (emit, skip, in_lens)),
+                     (ctc_beta, (emit, skip, in_lens, label_lens))):
+        first = fn(*args).clone()
+        assert torch.equal(first, fn(*args)), fn.__name__
 
 
 @pytest.mark.cuda
