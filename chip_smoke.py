@@ -42,9 +42,12 @@ defaults through the port's entry points:
   8. kernels K6a, K6b, K7a, K7b: the fused RNN-T joint (forward, backward)
      and the transducer α/β lattice against their plain versions at the
      RNN-T training shape (B=32, T=1598, U=48, J=64, V=1024; f32, and bf16
-     enc/pred for K6), a ragged shape (blank_id 5) and U=128, with times,
+     enc/pred for K6), a ragged shape (blank_id 5; for K7 with a t_len = 0
+     row) and U=128, and K7 at U+1 > 1024 (its scan route), with times,
      bounds and plain times; beside each K6a bound, the exps' time at the
-     SFU rate and ``torch.matmul``'s time for the logits alone;
+     SFU rate and ``torch.matmul``'s time for the logits alone; beside each
+     K7 bound its chain floor (the diagonals it walks × one diagonal's
+     latency, measured on one row);
   9. RNN-T train step: ``make_segment_scan_step`` with ``--train.mode
      rnnt`` over one group of 2 carried 16 s segments at B=32, U=48 (the
      auto band resolves to the exact loss), the kernel path held against
@@ -243,10 +246,11 @@ K12_MASK_OPS_PER_ELEMENT = 7
 K11_OPS_PER_ELEMENT = 8
 # K3/K4 per (b, t, s): three exp, one log and ~12 adds/compares/selects.
 LATTICE_OPS_PER_STATE = 16
-# K7a/K7b per (b, t, u): the chain's own logaddexp (exp, log1p, ~6
-# adds/compares and selects): ~10.  The kernel's log-step scan does five warp
-# shuffle rounds and the cross-warp application, each such a logaddexp: that
-# is its design's overhead, not counted here.
+# K7a/K7b per (b, t, u), and the banded lattice per window cell: one
+# logaddexp (an exp, a log, ~6 adds, compares and selects): ~10.  The
+# wavefront computes each cell once with one such logaddexp, so its
+# operations are these; the scan route (U+1 > 1024) does ~5 more a cell in
+# its log-step rounds, its design's overhead, not counted here.
 RNNT_LATTICE_OPS_PER_STATE = 10
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")                 # ignored by git
@@ -900,7 +904,11 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     The learning rate is 1e-6 here: at the default 3e-4, Adam's first,
     sign-like steps turn f32 round-off in near-zero gradient components into
     lr-sized parameter differences between the two paths, and the later
-    segments' grad norms then differ by up to 2 % (measured on the card)."""
+    segments' grad norms then differ by up to 2 % (measured on the card).
+
+    Returns each kernel's launches on the kernel path's run, and the update
+    difference: ``update_rel`` (of the update's norm) and ``frac_off`` (the
+    share of elements beyond 0.1·lr·K)."""
     path = path or mode
     tag = f"[{'train' if path == 'ctc' else path + ' train'}]"
     cfg, state, step, group = train_setup(cfg, dev, K, B, S, U, mode, degenerate)
@@ -981,7 +989,7 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
             for _, per_layer in TRAIN_KERNELS[path].values()]
     if launches != want:
         raise AssertionError(f"launches {names} = {launches}; want {want}")
-    return dict(zip(names, launches))
+    return {**dict(zip(names, launches)), "update_rel": rel_upd, "frac_off": frac_off}
 
 
 def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None:
@@ -1102,8 +1110,8 @@ def check_close(got, want, names, rtol, atol) -> float:
 
 
 def phase_rnnt_kernels(dev) -> dict:
-    """Phase 8: K6a/K6b and K7a/K7b against their plain versions, with
-    times, bounds and plain times."""
+    """Phase 8: K6a/K6b and K7a/K7b (``phase_exact_lattice``) against their
+    plain versions, with times, bounds and plain times."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     out = {}
     joint_cases = [("training f32", 32, 1598, 48, 64, 1024, 0, torch.float32),
@@ -1158,8 +1166,34 @@ def phase_rnnt_kernels(dev) -> dict:
         out["K6b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
                                "bound_ms": bound_b, "bound_by": by_b}
 
-    for label, B, T, U in (("training", 32, 1598, 48), ("ragged", 3, 45, 11),
-                           ("U=128", 32, 1598, 128)):
+    out.update(phase_exact_lattice(dev, gen))
+    return out
+
+
+def exact_chain_floor(blank, emit, t_lens) -> tuple[float, float, int]:
+    """K7a's chain floor: the most anti-diagonals any row walks (t_len − 1 +
+    U+1) times the latency of one diagonal, measured on row 0 alone (one
+    block on the card) as the slope between its whole walk and half of it.
+    Returns (floor ms, ms per diagonal, diagonals)."""
+    T, U1 = blank.shape[1], blank.shape[2]
+    one = (blank[:1].contiguous(), emit[:1].contiguous())
+    full = torch.full((1,), T, dtype=torch.int32, device=blank.device)
+    ms_full, ms_half = (cuda_ms(lambda n=n: rnnt_alpha(*one, n), 20) for n in (full, full // 2))
+    per_diag = (ms_full - ms_half) / (T - T // 2)
+    n_diag = int(torch.clamp(t_lens, 0, T).max()) - 1 + U1
+    return n_diag * per_diag, per_diag, n_diag
+
+
+def phase_exact_lattice(dev, gen=None) -> dict:
+    """Phase 8's K7a/K7b: against their plain versions at the RNN-T training
+    shape (B=32, T=1598, U=48), a ragged shape with a t_len = 0 row, U=128
+    (five cells a lane) and U+1 > 1024 (the scan route), with times, the
+    byte bound, plain times, the chain floor and the count of live values
+    unlike the plain versions'."""
+    gen = gen or torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    for label, B, T, U in (("training", 32, 1598, 48), ("ragged", 4, 45, 11),
+                           ("U=128", 32, 1598, 128), ("U+1 > 1024", 4, 400, 1100)):
         blank = torch.log_softmax(torch.randn((B, T, U + 1, 2), generator=gen, device=dev), -1)[..., 0]
         emit = torch.log_softmax(torch.randn((B, T, U, 2), generator=gen, device=dev), -1)[..., 0]
         blank, emit = blank.contiguous(), emit.contiguous()
@@ -1168,30 +1202,39 @@ def phase_rnnt_kernels(dev) -> dict:
         t_lens[1] = T - T // 7
         u_lens[1] = U - U // 4
         u_lens[2] = 0
+        if label == "ragged":
+            t_lens[3] = 0                       # no frame: the start state and the base
         with torch.inference_mode():
             a, bt = rnnt_alpha(blank, emit, t_lens), rnnt_beta(blank, emit, t_lens, u_lens)
             torch.cuda.synchronize()
             a_ref, b_ref = rnnt_alpha_ref(blank, emit, t_lens), rnnt_beta_ref(blank, emit, t_lens,
                                                                                 u_lens)
-            # f32 chains of T frames of log-sum-exp scans in two operation
-            # orders (warp shuffles, then warps in turn; one log-step scan):
-            # the round-off of values ~T·log 2 grows like √T ulps of them
+            # the plain versions take the wavefront's operations (no live
+            # value unlike theirs with the accurate log-sum-exp); the scan
+            # route rounds f32 chains of values ~T·log 2 in another order,
+            # whose round-off grows like √T ulps of them
             err_a = check_lattice(a, a_ref, 2e-5, 1e-5)
             err_b = check_lattice(bt, b_ref, 2e-5, 1e-5)
+            n_unlike = sum(int((x != y)[y > -1e29].sum()) for x, y in ((a, a_ref), (bt, b_ref)))
             ms_a = cuda_ms(lambda: rnnt_alpha(blank, emit, t_lens), 20)
             ms_b = cuda_ms(lambda: rnnt_beta(blank, emit, t_lens, u_lens), 20)
             plain_a = cuda_ms(lambda: rnnt_alpha_ref(blank, emit, t_lens), 2, warmup=1)
             plain_b = cuda_ms(lambda: rnnt_beta_ref(blank, emit, t_lens, u_lens), 2, warmup=1)
+            floor, per_diag, n_diag = exact_chain_floor(blank, emit, t_lens)
         U1 = U + 1
         nbytes = B * T * (2 * U1 + U) * 4 + 2 * B * 4
         bound, bound_by = bytes_bound_ms(nbytes, RNNT_LATTICE_OPS_PER_STATE * B * T * U1)
-        log(f"[K7] {label} (B={B}, T={T}, U={U}): α max|Δ| {err_a:.3e}, β max|Δ| {err_b:.3e}; "
-            f"K7a {ms_a:.4f} ms, K7b {ms_b:.4f} ms (plain {plain_a:.2f} / {plain_b:.2f} ms), bound "
-            f"{bound:.4f} ms each ({bound_by}); library_ms: none")
-        out["K7a " + label] = {"max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
-                               "bound_ms": bound, "bound_by": bound_by}
-        out["K7b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-                               "bound_ms": bound, "bound_by": bound_by}
+        route = "wavefront" if U1 <= 1024 else "scan"
+        log(f"[K7] {label} (B={B}, T={T}, U={U}; the {route} route): α max|Δ| {err_a:.3e}, β "
+            f"max|Δ| {err_b:.3e} ({n_unlike} live values unlike the plain versions'); K7a "
+            f"{ms_a:.4f} ms, K7b {ms_b:.4f} ms (plain {plain_a:.2f} / "
+            f"{plain_b:.2f} ms), bound {bound:.4f} ms each ({bound_by}); chain floor "
+            f"{floor:.4f} ms ({n_diag} diagonals × {per_diag * 1e6:.1f} ns, measured on one "
+            f"row); library_ms: none")
+        for name, err, ms, plain in (("K7a", err_a, ms_a, plain_a), ("K7b", err_b, ms_b, plain_b)):
+            out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                      "bound_ms": bound, "bound_by": bound_by,
+                                      "chain_floor_ms": floor, "unlike": n_unlike}
     return out
 
 

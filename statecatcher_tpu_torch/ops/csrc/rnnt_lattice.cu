@@ -1,10 +1,17 @@
-// RNN-T (transducer) alpha/beta lattice for Hopper (sm_90a): two kernels.
+// RNN-T (transducer) alpha/beta lattice for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of statecatcher_tpu/ops/rnnt_dp_pallas.py:
-//   K7a  rnnt_alpha_kernel  <- _alpha_kernel (:69), launched by _alpha_all (:143)
-//   K7b  rnnt_beta_kernel   <- _beta_kernel (:93), launched by _beta_all (:182)
+//   K7a  rnnt_alpha  <- _alpha_kernel (:69), launched by _alpha_all (:143)
+//   K7b  rnnt_beta   <- _beta_kernel (:93), launched by _beta_all (:182)
 // and launches the banded lattice of K8's tables (rnnt_band_alpha,
-// rnnt_band_beta: the anti-diagonal wavefront of rnnt_wavefront.cuh).
+// rnnt_band_beta).  Two routes, chosen from the shape alone before launch:
+//
+//   route       shapes                          kernels
+//   wavefront   U1 <= 1024, T * U1 < 2^31       exact_wavefront_kernel<kRev, C, kRing, kFast>
+//                                               (rnnt_wavefront.cuh; the banded lattice's
+//                                               band_wavefront_kernel is the same walk)
+//   scan        U1 > 1024 (up to 4096), or      rnnt_alpha_kernel, rnnt_beta_kernel (below)
+//               T * U1 >= 2^31
 //
 //   blank    (B, T, U1) f32, U1 = U+1: log P(blank | t, u)
 //   emit     (B, T, U) f32: log P(label_u | t, u)
@@ -15,7 +22,8 @@
 //   alpha: start state (0, -1e30, ...); frame t solves the chain
 //          x_u = logaddexp(base_u, x_{u-1} + a_u) with base_u = alpha(t-1, u)
 //          + blank(t-1, u) (the start state at t = 0) and a_u = emit(t, u-1);
-//          rows t >= t_len repeat the last row.
+//          rows t >= t_len repeat the last row (every row is the start state
+//          when t_len <= 0).
 //   beta:  start (virtual base) 0 at u = u_len, -1e30 elsewhere, which rows
 //          t >= t_len keep; frame t (walked downwards) solves
 //          x_u = logaddexp(base_u, x_{u+1} + a_u) with base_u = blank(t, u) +
@@ -23,10 +31,18 @@
 //
 // Bound on the card: bytes, blank and emit read and alpha (or beta) written
 // once: about 3*B*T*U1*4 bytes, 30 MB at B=32, T=1598, U=48, 0.009 ms at
-// 3.35 TB/s.  But the T-long chain of dependent frames sets the time, and
-// within a frame the u-chain is a scan.
+// 3.35 TB/s.  But a row is one chain of dependent cells.
 //
-// Design: one block per batch row; its threads stride over the U1 lattice
+// The wavefront (rnnt_wavefront.cuh) walks the anti-diagonals d = t + u, a
+// block of two warps a row: a producer warp builds each diagonal's cell
+// records from a cp.async ring of frame rows (its own device loads where the
+// ring does not fit in shared memory, U1 above ~140), a consumer warp walks
+// the chain, one shuffle and one logaddexp a diagonal: T + U diagonals a
+// row.  kK7Fast picks its logaddexp's form; with false, torch.logaddexp's
+// own operations, the plain versions (ops/rnnt_lattice.py, which walk the
+// same diagonals) give its bits.
+//
+// The scan: one block per batch row; its threads stride over the U1 lattice
 // columns (up to 4 columns each, so U1 <= 4096 with 1024 threads).  A frame's
 // chain is a prefix scan of affine maps s -> logaddexp(b, s + a) in the
 // (logaddexp, +) semiring: a log-step (Hillis-Steele) scan within each warp
@@ -35,9 +51,9 @@
 // state matters across warps (the chain starts from s = -inf), so a warp's
 // aggregate is applied as s <- logaddexp(b_w, s + a_w).  One
 // __syncthreads() per frame and chunk, with the aggregates double
-// buffered; none at all when U1 <= 32.  Each column's state stays in its
-// thread's registers from frame to frame; blank and emit of the next frame
-// are loaded before the current frame's scan.
+// buffered.  Each column's state stays in its thread's registers from frame
+// to frame; blank and emit of the next frame are loaded before the current
+// frame's scan.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +66,9 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kMaxPer = 4;
+// The wavefront's logaddexp: false, the accurate expf/log1pf; true, the
+// fast __expf/__logf (rnnt_wavefront.cuh lae)
+constexpr bool kK7Fast = false;
 constexpr int kMaxWarps = 32;
 
 // torch.logaddexp for finite arguments
@@ -214,7 +233,7 @@ __global__ void rnnt_beta_kernel(const float* __restrict__ blank,
 // The banded lattice over K8's tables (the port's own kernels; the JAX
 // package runs them as an XLA scan, statecatcher_tpu/ops/rnnt_band.py:
 // rnnt_nll_banded, :319): the anti-diagonal wavefront of rnnt_wavefront.cuh,
-// one warp a batch row.
+// a block of two warps a batch row.
 
 int block_threads(int U1) {
   int nt = ((U1 + 31) / 32) * 32;
@@ -228,12 +247,20 @@ bool band_ok(const float* blank, const float* emit, int Tp, int Wp, int Tb) {
          static_cast<long long>(Tp) * Wp < (1LL << 31) && aligned(blank) && aligned(emit);
 }
 
+// The wavefront takes the shape (the scan the rest)
+bool wavefront_ok(int T, int U1) {
+  return U1 <= rnnt_wavefront::kMaxWp && static_cast<long long>(T) * U1 < (1LL << 31);
+}
+
 }  // namespace
 
 // Each returns the cudaError_t of its launch (0 on success); U1 must be at
 // most 4 * 1024 (the wrapper checks).
 extern "C" int rnnt_alpha(const float* blank, const float* emit, const int* t_lens,
                           float* alpha, int B, int T, int U1, void* stream) {
+  if (wavefront_ok(T, U1))
+    return static_cast<int>(rnnt_wavefront::launch_exact<false, kK7Fast>(
+        blank, emit, t_lens, nullptr, alpha, B, T, U1, static_cast<cudaStream_t>(stream)));
   const int nt = block_threads(U1);
   if (U1 > kMaxPer * nt) return static_cast<int>(cudaErrorInvalidValue);
   rnnt_alpha_kernel<<<B, nt, 0, static_cast<cudaStream_t>(stream)>>>(blank, emit, t_lens,
@@ -243,6 +270,9 @@ extern "C" int rnnt_alpha(const float* blank, const float* emit, const int* t_le
 
 extern "C" int rnnt_beta(const float* blank, const float* emit, const int* t_lens,
                          const int* u_lens, float* beta, int B, int T, int U1, void* stream) {
+  if (wavefront_ok(T, U1))
+    return static_cast<int>(rnnt_wavefront::launch_exact<true, kK7Fast>(
+        blank, emit, t_lens, u_lens, beta, B, T, U1, static_cast<cudaStream_t>(stream)));
   const int nt = block_threads(U1);
   if (U1 > kMaxPer * nt) return static_cast<int>(cudaErrorInvalidValue);
   rnnt_beta_kernel<<<B, nt, 0, static_cast<cudaStream_t>(stream)>>>(blank, emit, t_lens,

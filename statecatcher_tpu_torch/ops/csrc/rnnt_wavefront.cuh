@@ -1,11 +1,14 @@
-// The banded RNN-T alpha/beta lattice as an anti-diagonal wavefront, for
-// Hopper (sm_90a): one warp walks one batch row.
+// The RNN-T alpha/beta lattice as an anti-diagonal wavefront, for Hopper
+// (sm_90a): one block of two warps walks one batch row.  Two lattices share
+// the walk: the banded one (the port's own kernels over K8's tables) and the
+// exact one (K7a/K7b, rnnt_lattice.cu), which is the banded walk with no
+// band.
 //
-// Tables in window coordinates: blank, emit (B, Tp, Wp) f32, where column w
-// of frame t is label position u = o(t) + w, o(t) = o[b, t / Tb] the band
-// start of frame t's time block (non-decreasing); the outputs alpha or beta
-// (B, Tp, Wp) likewise.  The function (ops/rnnt_band.py holds the plain
-// versions, rnnt_band_alpha_ref and rnnt_band_beta_ref):
+// Banded tables in window coordinates: blank, emit (B, Tp, Wp) f32, where
+// column w of frame t is label position u = o(t) + w, o(t) = o[b, t / Tb]
+// the band start of frame t's time block (non-decreasing); the outputs alpha
+// or beta (B, Tp, Wp) likewise.  The function (ops/rnnt_band.py holds the
+// plain versions, rnnt_band_alpha_ref and rnnt_band_beta_ref):
 //   alpha(t, u) = logaddexp(alpha(t-1, u) + blank(t-1, u),
 //                           alpha(t, u-1) + emit(t, u-1)),
 //   an edge that leaves the band counting as -1e30, frame 0 starting from 0
@@ -16,6 +19,13 @@
 //   o(t_last) moved by o(t_last+1) - o(t_last), -1e30 elsewhere and
 //   everywhere when w* is outside the window; frames t > t_last hold the
 //   base (0 at w*).
+//
+// The exact lattice (kBand false): o = 0 and Wp = U+1, so w = u; blank and
+// the output are (B, T, U+1), emit is (B, T, U) (rows of U floats; column U
+// has no emit and reads -1e30); t_len is clamped to T, and a row with
+// t_len <= 0 runs no frame: every row of it holds alpha's start state (0 at
+// u = 0) or beta's base (0 at u = u_len).  A u_len outside [0, U] gives a
+// base of -1e30 everywhere.
 //
 // Bound on the card: bytes, about 3 * B * Tp * Wp * 4 (the two tables read
 // once, the output written once), 0.009 ms at B=32, Tp=1600, Wp=48.  The
@@ -69,6 +79,19 @@
 // Stores are fire-and-forget; alpha's tail rows read its last row back after
 // the walk.  No atomics; each cell is computed once, in a fixed order, so two
 // calls give the same bits.
+//
+// With no band the producer needs neither ballots nor moved offsets: t_lo(d)
+// = max(0, d - U) and t_hi(d) = min(d, t_last) in closed form, and a cell's
+// column is w = d - t.  Its ring (ExactRing) holds R rows of each table, R
+// any count >= Wp + 3 * kChunk and >= 32 * C (so that one diagonal's cells
+// wrap once at most), which lets it take U+1 up to ~140 in shared memory
+// (the banded ring's power of two stops at 104); each table's rows at an
+// even stride: the lanes of a diagonal read cells C frames and -C columns
+// apart, C * (stride - 1) floats, and at U = 48 an unpadded blank row (49
+// floats) put all 32 lanes on one bank.  Rows of U+1 or U floats are rarely
+// 16-byte aligned in the tables, so a chunk's frames, one run in each table,
+// are copied in 4-byte copies, a float a lane.  The consumer is the same code
+// for both lattices.
 
 #pragma once
 
@@ -93,13 +116,19 @@ __host__ __device__ constexpr int chunk_of() {
   return C <= 16 ? 8 : 4;
 }
 
-// torch.logaddexp for finite arguments, by the fast intrinsics: ex2.approx
-// and lg2.approx (an absolute error of ~1e-7 in the log term, below half an
-// ulp of any |m| >= 2; the accurate expf and log1pf put ~200 more cycles and
-// a branch for special values on every diagonal's chain)
+// torch.logaddexp for finite arguments, in one of two forms.  kFast: by the
+// fast intrinsics, ex2.approx and lg2.approx (an absolute error of ~1e-7 in
+// the log term, below half an ulp of any |m| >= 2); else by the accurate
+// expf and log1pf, torch's own operations, which put ~200 more cycles and a
+// branch for special values on every diagonal's chain.
+template <bool kFast>
 __device__ __forceinline__ float lae(float x, float y) {
   const float m = fmaxf(x, y);
-  return m + __logf(1.0f + __expf(-fabsf(x - y)));
+  if constexpr (kFast) {
+    return m + __logf(1.0f + __expf(-fabsf(x - y)));
+  } else {
+    return m + log1pf(expf(-fabsf(x - y)));
+  }
 }
 
 // A store that only `ok` lanes make, with no branch around it
@@ -148,89 +177,179 @@ struct Frames {
   }
 };
 
+// The exact lattice's ring: rows (frames mod R) of blank at stride sb, then
+// rows of emit at stride se, both even; its bytes rounded up to 16 (the
+// records follow)
+struct ExactRing {
+  int R, sb, se;
+  __host__ __device__ ExactRing(int Wp, int C) {
+    const int chunk = C <= 16 ? 8 : 4;  // chunk_of<C>()
+    R = Wp + (kRingAhead + 1) * chunk > 32 * C ? Wp + (kRingAhead + 1) * chunk : 32 * C;
+    sb = (Wp + 1) & ~1;
+    se = Wp & ~1;                       // U = Wp - 1 rounded up to even
+  }
+  __host__ __device__ size_t bytes() const {
+    return (static_cast<size_t>(R) * (sb + se) * 4 + 15) & ~static_cast<size_t>(15);
+  }
+};
+
+// The exact ring's copies: n rows of `width` floats, contiguous in the table
+// from src on, into ring rows row0, row0 + 1, ... (mod R) at `stride`, in
+// 4-byte copies, lane l taking floats l, l + 32, ... of the run: its first
+// float's row f0 and column c0, and a step of 32 floats as q rows and r
+// columns, found once a kernel
+struct RowSweep {
+  int width, q, r, f0, c0;
+  __device__ RowSweep(int w, int lane)
+      : width(w), q(w ? 32 / w : 0), r(w ? 32 % w : 0), f0(w ? lane / w : 0),
+        c0(w ? lane % w : 0) {}
+  __device__ __forceinline__ void copy(float* ring, int stride, int R, int row0,
+                                       const float* src, int n, int lane) const {
+    int f = f0, col = c0;
+    for (int e = lane; e < n * width; e += 32) {
+      const int row = row0 + f < R ? row0 + f : row0 + f - R;
+      lucy_tile::cp_async<4>(ring + row * stride + col, src + e, true);
+      f += q;
+      col += r;
+      if (col >= width) {
+        col -= width;
+        ++f;
+      }
+    }
+  }
+};
+
 // Shared memory of one row (one block), in bytes: the frame ring, the
 // records, each chunk's lo steps, the band starts.
-template <int C, bool kRing>
-size_t smem_bytes(int Wp, int nblk) {
-  constexpr int chunk = chunk_of<C>();
-  const size_t frames = kRing ? static_cast<size_t>(ring_frames(Wp, chunk)) * 2 * Wp * 4 : 0;
+inline size_t smem_bytes(int C, bool ring, bool band, int Wp, int nblk) {
+  const int chunk = C <= 16 ? 8 : 4;  // chunk_of<C>()
+  const size_t frames = !ring ? 0
+                        : band ? static_cast<size_t>(ring_frames(Wp, chunk)) * 2 * Wp * 4
+                               : ExactRing(Wp, C).bytes();
   return frames + static_cast<size_t>(2) * chunk * C * 32 * sizeof(Rec) +
-         (2 * chunk + static_cast<size_t>(nblk)) * sizeof(int);
+         (2 * chunk + static_cast<size_t>(band ? nblk : 0)) * sizeof(int);
 }
 
-template <bool kRev, int C, bool kRing>
-__global__ void __launch_bounds__(64, 1)
-    band_wavefront_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
-                          const int* __restrict__ o, const int* __restrict__ t_lens,
-                          const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
-                          int Wp, int Tb, unsigned magic) {
+// The walk of one row.  kBand: the banded lattice (o, Tb and magic give the
+// band starts); else the exact one, Tp = T and Wp = U+1 (o unused).  kFast:
+// lae's form.
+template <bool kRev, int C, bool kRing, bool kBand, bool kFast>
+__device__ __forceinline__ void walk(const float* __restrict__ blank,
+                                     const float* __restrict__ emit, const int* __restrict__ o,
+                                     const int* __restrict__ t_lens,
+                                     const int* __restrict__ u_lens, float* __restrict__ out,
+                                     int Tp, int Wp, int Tb, unsigned magic) {
   constexpr int kChunk = chunk_of<C>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const bool producer = threadIdx.x >= 32;
   const int nblk = Tp / Tb;
-  const int R = kRing ? ring_frames(Wp, kChunk) : 0;
+  const int We = kBand ? Wp : Wp - 1;  // floats of an emit row
+  const ExactRing xr(Wp, C);
+  const int R = !kRing ? 0 : kBand ? ring_frames(Wp, kChunk) : xr.R;
   float* ring = reinterpret_cast<float*>(smem);
-  Rec* recs = reinterpret_cast<Rec*>(ring + (kRing ? static_cast<size_t>(R) * 2 * Wp : 0));
+  float* ring_em = ring + static_cast<size_t>(R) * xr.sb;  // the exact ring's emit rows
+  Rec* recs = reinterpret_cast<Rec*>(
+      ring + (!kRing ? 0 : kBand ? static_cast<size_t>(R) * 2 * Wp : xr.bytes() / 4));
   int* dls = reinterpret_cast<int*>(recs + 2 * kChunk * C * 32);
   int* os = dls + 2 * kChunk;
-  for (int i = threadIdx.x; i < nblk; i += 64) os[i] = o[static_cast<size_t>(b) * nblk + i];
-  __syncthreads();
+  if constexpr (kBand) {
+    for (int i = threadIdx.x; i < nblk; i += 64) os[i] = o[static_cast<size_t>(b) * nblk + i];
+    __syncthreads();
+  }
   const Frames fr{os, magic};
+  const auto f = [&](int t) {
+    if constexpr (kBand) {
+      return fr.f(t);
+    } else {
+      return t;
+    }
+  };
 
   int tl = t_lens[b];
+  if constexpr (!kBand) {
+    // no frame runs: every row holds alpha's start state or beta's base
+    if (tl <= 0) {
+      const int ws = kRev ? u_lens[b] : 0;
+      float* o_row = out + static_cast<size_t>(b) * Tp * Wp;
+      for (int w = threadIdx.x; w < Wp; w += 64) {
+        const float v = w == ws ? 0.0f : kNeg;
+        for (int t = 0; t < Tp; ++t) o_row[static_cast<size_t>(t) * Wp + w] = v;
+      }
+      return;
+    }
+  }
   tl = tl < 1 ? 1 : (tl > Tp ? Tp : tl);
   const int last = tl - 1;
   const size_t row = static_cast<size_t>(b) * Tp * Wp;
   const float* bl_g = blank + row;
-  const float* em_g = emit + row;
+  const float* em_g = emit + static_cast<size_t>(b) * Tp * We;
   float* out_g = out + row;
   const int sgn = kRev ? -1 : 1;
-  const int d_first = kRev ? fr.f(last) + Wp - 1 : fr.f(0);
-  const int n_diag = kRev ? d_first - fr.f(0) + 1 : fr.f(last) + Wp - d_first;
+  const int d_first = kRev ? f(last) + Wp - 1 : f(0);
+  const int n_diag = kRev ? d_first - f(0) + 1 : f(last) + Wp - d_first;
   const int n_chunks = (n_diag + kChunk - 1) / kChunk;
 
   if (producer) {
     // beta's virtual base
     int w_virt = -1;
     if constexpr (kRev) {
-      const int o_last = os[last / Tb];
-      const int ws = u_lens[b] - o_last;
-      if (ws >= 0 && ws < Wp)
-        w_virt = ws + (last + 1 < Tp ? os[(last + 1) / Tb] : o_last) - o_last;
+      if constexpr (kBand) {
+        const int o_last = os[last / Tb];
+        const int ws = u_lens[b] - o_last;
+        if (ws >= 0 && ws < Wp)
+          w_virt = ws + (last + 1 < Tp ? os[(last + 1) / Tb] : o_last) - o_last;
+      } else {
+        const int ws = u_lens[b];
+        if (ws >= 0 && ws < Wp) w_virt = ws;
+      }
     }
     // The frame ring copies, at the start of chunk c, the frames that enter
     // the walk up to the end of chunk c + kRingAhead (alpha: f(t) <= limit;
-    // beta: f(t) + Wp - 1 >= limit): each lane tests one candidate, a ballot
-    // counts them (f increases, so they are a prefix), the warp copies them.
+    // beta: f(t) + Wp - 1 >= limit).  Banded: each lane tests one candidate,
+    // a ballot counts them (f increases, so they are a prefix), the warp
+    // copies them; exact: in closed form.
     int loaded = kRev ? last + 1 : -1;  // the frames copied so far end here
+    const RowSweep sweep_bl(kRing && !kBand ? Wp : 0, lane);
+    const RowSweep sweep_em(kRing && !kBand ? We : 0, lane);
     auto ring_copy = [&](int limit) {
-      const int t = loaded + sgn * (1 + lane);
-      const int tc = t < 0 ? 0 : (t > last ? last : t);
-      const bool in = t >= 0 && t <= last &&
-                      (kRev ? fr.f(tc) + Wp - 1 >= limit : fr.f(tc) <= limit);
-      const int n = __popc(__ballot_sync(0xffffffffu, in));
-      // frames first .. first + n - 1: contiguous in the tables, and in the
-      // ring but for one wrap
-      const int first = kRev ? loaded - n : loaded + 1;
-      const int rows = R * Wp, gbase = first * Wp, rbase = (first & (R - 1)) * Wp;
-      for (int u = 4 * lane; u < n * Wp; u += 4 * 32) {  // 16-byte copies
-        const int r = rbase + u < rows ? rbase + u : rbase + u - rows;
-        lucy_tile::cp_async<16>(ring + r, bl_g + gbase + u, true);
-        lucy_tile::cp_async<16>(ring + rows + r, em_g + gbase + u, true);
+      if constexpr (kBand) {
+        const int t = loaded + sgn * (1 + lane);
+        const int tc = t < 0 ? 0 : (t > last ? last : t);
+        const bool in = t >= 0 && t <= last &&
+                        (kRev ? fr.f(tc) + Wp - 1 >= limit : fr.f(tc) <= limit);
+        const int n = __popc(__ballot_sync(0xffffffffu, in));
+        // frames first .. first + n - 1: contiguous in the tables, and in the
+        // ring but for one wrap
+        const int first = kRev ? loaded - n : loaded + 1;
+        const int rows = R * Wp, gbase = first * Wp, rbase = (first & (R - 1)) * Wp;
+        for (int u = 4 * lane; u < n * Wp; u += 4 * 32) {  // 16-byte copies
+          const int r = rbase + u < rows ? rbase + u : rbase + u - rows;
+          lucy_tile::cp_async<16>(ring + r, bl_g + gbase + u, true);
+          lucy_tile::cp_async<16>(ring + rows + r, em_g + gbase + u, true);
+        }
+        loaded += sgn * n;
+      } else {
+        const int end = kRev ? max(limit - (Wp - 1), 0) : min(limit, last);
+        const int n = max(sgn * (end - loaded), 0);
+        const int first = kRev ? loaded - n : loaded + 1;
+        const int row0 = first % R;
+        sweep_bl.copy(ring, xr.sb, R, row0, bl_g + static_cast<size_t>(first) * Wp, n, lane);
+        sweep_em.copy(ring_em, xr.se, R, row0, em_g + static_cast<size_t>(first) * We, n, lane);
+        loaded += sgn * n;
       }
-      loaded += sgn * n;
       lucy_tile::cp_async_commit();
     };
     if constexpr (kRing) {
       for (int c = 0; c < kRingAhead; ++c) ring_copy(d_first + sgn * ((c + 1) * kChunk - 1));
     }
     // The span lo..hi of the diagonal before the chunk (no cells before the
-    // walk's first diagonal).  A chunk's spans come from ballots: lane k
-    // holds f of the k-th frame that may leave or enter, and each diagonal
+    // walk's first diagonal).  A banded chunk's spans come from ballots: lane
+    // k holds f of the k-th frame that may leave or enter, and each diagonal
     // counts the lanes whose frame has (f increases, so they are a prefix).
     int lo0 = kRev ? last + 1 : 0, hi0 = kRev ? last : -1, hprev = hi0;
+    int lo0_row = kRing && !kBand ? lo0 % R : 0;  // the exact ring's row of lo0
     int g[C], a[C];  // each cell's table offset and ring address (see below)
 #pragma unroll
     for (int i = 0; i < C; ++i) g[i] = a[i] = 0;
@@ -241,29 +360,42 @@ __global__ void __launch_bounds__(64, 1)
         __syncwarp();                                // ... those of the other lanes too
         ring_copy(d_first + sgn * ((c + kRingAhead + 1) * kChunk - 1));
       }
-      const int ta = kRev ? lo0 - 1 - lane : lo0 + lane;    // may leave (alpha) or enter
-      const int tb = kRev ? hi0 - lane : hi0 + 1 + lane;    // may enter (alpha) or leave
-      const int fa = fr.f(ta < 0 ? 0 : (ta > last ? last : ta));
-      const int fb = fr.f(tb < 0 ? 0 : (tb > last ? last : tb));
-      const bool a_ok = ta >= 0 && ta <= last, b_ok = tb >= 0 && tb <= last;
       int lo[kChunk], hi[kChunk], hraw[kChunk], dl[kChunk];
+      if constexpr (kBand) {
+        const int ta = kRev ? lo0 - 1 - lane : lo0 + lane;    // may leave (alpha) or enter
+        const int tb = kRev ? hi0 - lane : hi0 + 1 + lane;    // may enter (alpha) or leave
+        const int fa = fr.f(ta < 0 ? 0 : (ta > last ? last : ta));
+        const int fb = fr.f(tb < 0 ? 0 : (tb > last ? last : tb));
+        const bool a_ok = ta >= 0 && ta <= last, b_ok = tb >= 0 && tb <= last;
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int n = c * kChunk + j;
-        const int d = d_first + sgn * n;
-        int h;
-        if (!kRev) {
-          lo[j] = lo0 + __popc(__ballot_sync(0xffffffffu, a_ok && fa + Wp - 1 < d));
-          h = hi0 + __popc(__ballot_sync(0xffffffffu, b_ok && fb <= d));
-        } else {
-          lo[j] = lo0 - __popc(__ballot_sync(0xffffffffu, a_ok && fa + Wp - 1 >= d));
-          h = hi0 - __popc(__ballot_sync(0xffffffffu, b_ok && fb > d));
+        for (int j = 0; j < kChunk; ++j) {
+          const int n = c * kChunk + j;
+          const int d = d_first + sgn * n;
+          int h;
+          if (!kRev) {
+            lo[j] = lo0 + __popc(__ballot_sync(0xffffffffu, a_ok && fa + Wp - 1 < d));
+            h = hi0 + __popc(__ballot_sync(0xffffffffu, b_ok && fb <= d));
+          } else {
+            lo[j] = lo0 - __popc(__ballot_sync(0xffffffffu, a_ok && fa + Wp - 1 >= d));
+            h = hi0 - __popc(__ballot_sync(0xffffffffu, b_ok && fb > d));
+          }
+          hraw[j] = h;
+          hi[j] = n < n_diag ? h : -1;  // past the walk's end: no cell
+          dl[j] = sgn * (lo[j] - (j ? lo[j > 0 ? j - 1 : 0] : lo0));  // how far lo moved
+          if (j == kChunk - 1) hi0 = h;
         }
-        hraw[j] = h;
-        hi[j] = n < n_diag ? h : -1;  // past the walk's end: no cell
-        dl[j] = sgn * (lo[j] - (j ? lo[j > 0 ? j - 1 : 0] : lo0));  // how far lo moved
-        if (j == kChunk - 1) hi0 = h;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const int n = c * kChunk + j;
+          const int d = d_first + sgn * n;
+          lo[j] = max(d - (Wp - 1), 0);
+          hraw[j] = min(d, last);
+          hi[j] = n < n_diag ? hraw[j] : -1;  // past the walk's end: no cell
+          dl[j] = sgn * (lo[j] - (j ? lo[j > 0 ? j - 1 : 0] : lo0));  // how far lo moved
+        }
       }
+      [[maybe_unused]] const int lo_prev = lo0;      // lo before the chunk
       lo0 = lo[kChunk - 1];
       if (c >= 2) bar_sync(kEmpty + slot, 64);       // the consumer is done with the slot
       if (lane == 0) {
@@ -271,51 +403,77 @@ __global__ void __launch_bounds__(64, 1)
         for (int j = 0; j < kChunk; ++j) dls[slot * kChunk + j] = dl[j];
       }
       Rec* rs = recs + static_cast<size_t>(slot) * kChunk * C * 32;
-      // the records.  Each cell's table offset g = t * Wp + w (and its ring
-      // address a) follows from the previous diagonal's without a lookup: the
-      // same frame one column on (alpha: +1; beta: -1), the neighbour cell's
-      // where lo moved (one shuffle for the end cell), and fresh for the frame
-      // that enters (alpha: at hi, w = 0; beta: at lo, w = Wp - 1).  Cells
-      // outside the span carry garbage, read a harmless address, and are
-      // masked.
-#pragma unroll(kRing ? kChunk : 1)
+      // the records.  Banded: each cell's table offset g = t * Wp + w (and
+      // its ring address a) follows from the previous diagonal's without a
+      // lookup: the same frame one column on (alpha: +1; beta: -1), the
+      // neighbour cell's where lo moved (one shuffle for the end cell), and
+      // fresh for the frame that enters (alpha: at hi, w = 0; beta: at lo, w
+      // = Wp - 1).  Cells outside the span carry garbage, read a harmless
+      // address, and are masked.  Exact: w = d - t.
+#pragma unroll(kRing || C <= 8 ? kChunk : 1)
       for (int j = 0; j < kChunk; ++j) {
-        const int h = j ? hraw[j > 0 ? j - 1 : 0] : hprev;
-        const int g_nb = kRev ? __shfl_up_sync(0xffffffffu, g[C - 1], 1)
-                              : __shfl_down_sync(0xffffffffu, g[0], 1);
-        const int a_nb = kRev ? __shfl_up_sync(0xffffffffu, a[C - 1], 1)
-                              : __shfl_down_sync(0xffffffffu, a[0], 1);
         float bl[C], em[C];
         int t[C];
         bool ok[C];
+        if constexpr (kBand) {
+          const int h = j ? hraw[j > 0 ? j - 1 : 0] : hprev;
+          const int g_nb = kRev ? __shfl_up_sync(0xffffffffu, g[C - 1], 1)
+                                : __shfl_down_sync(0xffffffffu, g[0], 1);
+          const int a_nb = kRev ? __shfl_up_sync(0xffffffffu, a[C - 1], 1)
+                                : __shfl_down_sync(0xffffffffu, a[0], 1);
 #pragma unroll
-        for (int i = 0; i < C; ++i) {  // alpha reads cell i + 1 before it moves, beta i - 1
-          const int ii = kRev ? C - 1 - i : i;
-          t[ii] = lo[j] + lane * C + ii;
-          ok[ii] = t[ii] <= hi[j];
-          int gi = g[ii], ai = a[ii];
-          if (dl[j]) {
-            if (!kRev) {
-              gi = ii + 1 < C ? g[ii + 1 < C ? ii + 1 : ii] : g_nb;
-              ai = ii + 1 < C ? a[ii + 1 < C ? ii + 1 : ii] : a_nb;
+          for (int i = 0; i < C; ++i) {  // alpha reads cell i + 1 before it moves, beta i - 1
+            const int ii = kRev ? C - 1 - i : i;
+            t[ii] = lo[j] + lane * C + ii;
+            ok[ii] = t[ii] <= hi[j];
+            int gi = g[ii], ai = a[ii];
+            if (dl[j]) {
+              if (!kRev) {
+                gi = ii + 1 < C ? g[ii + 1 < C ? ii + 1 : ii] : g_nb;
+                ai = ii + 1 < C ? a[ii + 1 < C ? ii + 1 : ii] : a_nb;
+              } else {
+                gi = ii > 0 ? g[ii > 0 ? ii - 1 : 0] : g_nb;
+                ai = ii > 0 ? a[ii > 0 ? ii - 1 : 0] : a_nb;
+              }
+            }
+            const bool enters = kRev ? dl[j] && t[ii] == lo[j] : hraw[j] > h && t[ii] == hraw[j];
+            const int w0 = kRev ? Wp - 1 : 0;
+            gi = enters ? t[ii] * Wp + w0 : gi + sgn;
+            ai = enters ? (t[ii] & (R - 1)) * Wp + w0 : ai + sgn;
+            g[ii] = gi;
+            a[ii] = ai;
+            if constexpr (kRing) {
+              const float* q = ring + (ok[ii] ? ai : 0);
+              bl[ii] = q[0];
+              em[ii] = q[R * Wp];
             } else {
-              gi = ii > 0 ? g[ii > 0 ? ii - 1 : 0] : g_nb;
-              ai = ii > 0 ? a[ii > 0 ? ii - 1 : 0] : a_nb;
+              bl[ii] = __ldg(bl_g + (ok[ii] ? gi : 0));
+              em[ii] = __ldg(em_g + (ok[ii] ? gi : 0));
             }
           }
-          const bool enters = kRev ? dl[j] && t[ii] == lo[j] : hraw[j] > h && t[ii] == hraw[j];
-          const int w0 = kRev ? Wp - 1 : 0;
-          gi = enters ? t[ii] * Wp + w0 : gi + sgn;
-          ai = enters ? (t[ii] & (R - 1)) * Wp + w0 : ai + sgn;
-          g[ii] = gi;
-          a[ii] = ai;
-          if constexpr (kRing) {
-            const float* q = ring + (ok[ii] ? ai : 0);
-            bl[ii] = q[0];
-            em[ii] = q[R * Wp];
-          } else {
-            bl[ii] = __ldg(bl_g + (ok[ii] ? gi : 0));
-            em[ii] = __ldg(em_g + (ok[ii] ? gi : 0));
+        } else {
+          const int d = d_first + sgn * (c * kChunk + j);
+          if constexpr (kRing) {  // lo's ring row, moved on by how far lo moved (a step at most)
+            lo0_row += lo[j] - (j ? lo[j > 0 ? j - 1 : 0] : lo_prev);
+            lo0_row = lo0_row < 0 ? lo0_row + R : (lo0_row >= R ? lo0_row - R : lo0_row);
+          }
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            t[i] = lo[j] + lane * C + i;
+            ok[i] = t[i] <= hi[j];
+            const int tc = ok[i] ? t[i] : 0, wc = ok[i] ? d - t[i] : 0;
+            const bool has_em = ok[i] && wc < We;  // column U has no emit
+            g[i] = tc * Wp + wc;
+            em[i] = kNeg;
+            if constexpr (kRing) {
+              int row = lo0_row + lane * C + i;
+              row = row >= R ? row - R : row;
+              bl[i] = ring[row * xr.sb + wc];
+              if (has_em) em[i] = ring_em[row * xr.se + wc];
+            } else {
+              bl[i] = __ldg(bl_g + g[i]);
+              if (has_em) em[i] = __ldg(em_g + (tc * We + wc));
+            }
           }
         }
 #pragma unroll
@@ -377,11 +535,11 @@ __global__ void __launch_bounds__(64, 1)
         const float up = fmaxf(in_up[i], r[i].floor_up);
         float x;
         if (!kRev) {
-          x = lae(up, in_rt[i]);
+          x = lae<kFast>(up, in_rt[i]);
           m0[i] = x + r[i].bl;
           m1[i] = x + r[i].em;
         } else {
-          x = lae(r[i].bl + up, r[i].em + in_rt[i]);
+          x = lae<kFast>(r[i].bl + up, r[i].em + in_rt[i]);
           m0[i] = x;
         }
         store_if(out_g + (r[i].off < 0 ? 0 : r[i].off), x, r[i].off >= 0);
@@ -393,7 +551,7 @@ __global__ void __launch_bounds__(64, 1)
   // frames past the last: alpha repeats its last row (read back from this
   // warp's own stores), beta holds the base
   int ws = -1;
-  if constexpr (kRev) ws = u_lens[b] - os[last / Tb];
+  if constexpr (kRev) ws = kBand ? u_lens[b] - os[last / Tb] : u_lens[b];
   __syncwarp();
   for (int w = lane; w < Wp; w += 32) {
     const float v = kRev ? (w == ws ? 0.0f : kNeg) : out_g[static_cast<size_t>(last) * Wp + w];
@@ -401,36 +559,65 @@ __global__ void __launch_bounds__(64, 1)
   }
 }
 
+// The banded lattice's kernel (the fast log-sum-exp) and the exact one's,
+// separate names for the profiler
 template <bool kRev, int C, bool kRing>
+__global__ void __launch_bounds__(64, 1)
+    band_wavefront_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                          const int* __restrict__ o, const int* __restrict__ t_lens,
+                          const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
+                          int Wp, int Tb, unsigned magic) {
+  walk<kRev, C, kRing, true, true>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
+}
+
+template <bool kRev, int C, bool kRing, bool kFast>
+__global__ void __launch_bounds__(64, 1)
+    exact_wavefront_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
+                           const int* __restrict__ o, const int* __restrict__ t_lens,
+                           const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
+                           int Wp, int Tb, unsigned magic) {
+  walk<kRev, C, kRing, false, kFast>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
+}
+
+template <bool kRev, int C, bool kRing, bool kBand, bool kFast>
 cudaError_t launch_one(const float* blank, const float* emit, const int* o, const int* t_lens,
                        const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
                        cudaStream_t stream) {
-  auto kernel = band_wavefront_kernel<kRev, C, kRing>;
-  const size_t bytes = smem_bytes<C, kRing>(Wp, Tp / Tb);
+  void (*kernel)(const float*, const float*, const int*, const int*, const int*, float*, int, int,
+                 int, unsigned);
+  if constexpr (kBand) {
+    kernel = band_wavefront_kernel<kRev, C, kRing>;
+  } else {
+    kernel = exact_wavefront_kernel<kRev, C, kRing, kFast>;
+  }
+  const size_t bytes = smem_bytes(C, kRing, kBand, Wp, Tp / Tb);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   const cudaError_t err = lucy_tile::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<B, 64, bytes, stream>>>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb,
-                                   div_magic(Tb));
+                                   kBand ? div_magic(Tb) : 0u);
   return cudaGetLastError();
 }
 
-// The banded lattice for any Wp <= kMaxWp (a multiple of 4, Tb dividing Tp,
-// Tp * Tb < 2^32, the tables 16-byte aligned; the caller checks): the frame
-// ring with C = ceil(Wp / 32) up to kRingMaxWp, else the producer's own
-// loads with the least instantiated C >= Wp / 32.
-template <bool kRev>
-cudaError_t launch(const float* blank, const float* emit, const int* o, const int* t_lens,
-                   const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
-                   cudaStream_t stream) {
+// Either lattice for any Wp <= kMaxWp: the frame ring with C = ceil(Wp / 32)
+// up to kRingMaxWp (banded) or as far as the exact ring fits in shared
+// memory (C <= 5), else the producer's own loads with the least instantiated
+// C >= Wp / 32.
+template <bool kRev, bool kBand, bool kFast>
+cudaError_t launch_walk(const float* blank, const float* emit, const int* o, const int* t_lens,
+                        const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
+                        cudaStream_t stream) {
   const int c = (Wp + 31) / 32;
-#define RNNT_WAVEFRONT_CASE(COND, C, RING) \
-  if (COND) return launch_one<kRev, C, RING>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, Tb, stream)
-  if (Wp <= kRingMaxWp) {
+#define RNNT_WAVEFRONT_CASE(COND, C, RING)                                                      \
+  if (COND)                                                                                     \
+  return launch_one<kRev, C, RING, kBand, kFast>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, \
+                                                 Tb, stream)
+  if (kBand ? Wp <= kRingMaxWp : smem_bytes(c, true, false, Wp, 0) <= 227 * 1024) {
     RNNT_WAVEFRONT_CASE(c == 1, 1, true);
     RNNT_WAVEFRONT_CASE(c == 2, 2, true);
     RNNT_WAVEFRONT_CASE(c == 3, 3, true);
     RNNT_WAVEFRONT_CASE(c == 4, 4, true);
+    if constexpr (!kBand) RNNT_WAVEFRONT_CASE(c == 5, 5, true);
   }
   RNNT_WAVEFRONT_CASE(c <= 4, 4, false);
   RNNT_WAVEFRONT_CASE(c <= 6, 6, false);
@@ -441,6 +628,25 @@ cudaError_t launch(const float* blank, const float* emit, const int* o, const in
   RNNT_WAVEFRONT_CASE(c <= 32, 32, false);
 #undef RNNT_WAVEFRONT_CASE
   return cudaErrorInvalidValue;
+}
+
+// The banded lattice (Wp a multiple of 4, Tb dividing Tp, Tp * Tb < 2^32,
+// the tables 16-byte aligned; the caller checks)
+template <bool kRev>
+cudaError_t launch(const float* blank, const float* emit, const int* o, const int* t_lens,
+                   const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
+                   cudaStream_t stream) {
+  return launch_walk<kRev, true, true>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, Tb, stream);
+}
+
+// The exact lattice: blank (B, T, U1), emit (B, T, U1 - 1), U1 <= kMaxWp and
+// T * U1 < 2^31 (the caller checks); any alignment of 4 bytes
+template <bool kRev, bool kFast>
+cudaError_t launch_exact(const float* blank, const float* emit, const int* t_lens,
+                         const int* u_lens, float* out, int B, int T, int U1,
+                         cudaStream_t stream) {
+  return launch_walk<kRev, false, kFast>(blank, emit, nullptr, t_lens, u_lens, out, B, T, U1, T,
+                                         stream);
 }
 
 }  // namespace rnnt_wavefront

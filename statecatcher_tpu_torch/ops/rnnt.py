@@ -4,9 +4,9 @@ Port of ``statecatcher_tpu/ops/rnnt.py``.  The lattice
 
     α(t,u) = logaddexp(α(t−1,u) + blank(t−1,u),  α(t,u−1) + emit(t,u−1))
 
-runs as a loop over T whose per-frame u-chain is a log-step scan in the
-(logaddexp, +) semiring: ``rnnt_lattice.rnnt_alpha_ref``, the plain version
-of K7a, differentiated by autograd.  Two front ends:
+runs as a loop over the anti-diagonals d = t + u, one vector of torch
+operations a diagonal: ``rnnt_lattice.rnnt_alpha_ref``, the plain version of
+K7a, differentiated by autograd.  Two front ends:
 
   * ``rnnt_loss(logits, ...)`` takes dense (B, T, U+1, V) joint logits;
   * ``rnnt_loss_fused(...)`` forms blank/emit from the joiner's projections

@@ -23,14 +23,33 @@ base_u = blank(t,u) + β(t+1,u) and a_u = emit(t,u).  Rows t ≥ t_len keep α
 frozen at its last row and β at its virtual base (0 at u = u_len, −1e30
 elsewhere).
 
+Two routes on the card, chosen from the shape alone before launch (a
+failed launch raises; neither route stands in for the other):
+
+  wavefront  U+1 ≤ 1024 and T·(U+1) < 2³¹: the anti-diagonal wavefront of
+             ``ops/csrc/rnnt_wavefront.cuh`` with no band, a block of two
+             warps a row (a producer warp builds each diagonal's cell records
+             from a ring of frame rows, a consumer warp walks the chain, one
+             shuffle and one logaddexp a diagonal): T + U diagonals a row;
+  scan       U+1 up to 4096 otherwise: a block a row, a frame a step, each
+             frame's u-chain a log-step scan across the block's warps.
+
 Bounds on the card (bytes; see the source): each kernel reads blank and
 emit and writes one (B, T, U+1) f32 array, 30 MB at B=32, T=1598, U=48;
-the chain of T dependent frames sets the time.
+the chain of dependent cells sets the time.
 
-``rnnt_alpha_ref`` and ``rnnt_beta_ref`` are the plain versions: the frame
-loop with each chain solved by a log-step (Hillis-Steele) scan over u in the
-(logaddexp, +) semiring, as the TPU kernel does.  Each wrapper runs its plain
-version only for tensors on the CPU; on the card it launches or raises.
+``rnnt_alpha_ref`` and ``rnnt_beta_ref`` are the plain versions, each in the
+operations and order of the card's route for the shape: on the wavefront's
+shapes a loop over the anti-diagonals d = t + u, each diagonal one vector
+of torch operations, so that on the card the kernels give the plain
+versions' bits on every live value (with kK7Fast false; dead values, ≤
+−1e29, may differ); on the scan's, the frame loop with each chain solved by
+a log-step scan (``chain_scan``), as the TPU kernel and the scan kernel do.
+In float32 at T = 1598 the two orders round α and β apart, and the
+occupancies, which divide by the forward's single Z, turn that into
+gradients a few percent apart (``chip_smoke.py`` phase 9).  Each
+wrapper runs its plain version only for tensors on the CPU; on the card it
+launches or raises.
 """
 
 from __future__ import annotations
@@ -38,7 +57,8 @@ from __future__ import annotations
 import torch
 
 NEG = -1e30
-_MAX_STATES = 4 * 1024          # 4 lattice columns per thread, 1024 threads (rnnt_lattice.cu)
+_MAX_STATES = 4 * 1024          # the scan route: 4 columns a thread, 1024 threads (rnnt_lattice.cu)
+_MAX_WAVEFRONT = 1024           # the wavefront's widest row (rnnt_wavefront.cuh kMaxWp)
 
 
 def chain_scan(a: torch.Tensor, base: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -66,18 +86,81 @@ def _prep(blank_lp, emit_lp):
     return blank_lp.to(cdt), emit_lp.to(cdt), cdt
 
 
-# --------------------------------------------------------------------------- #
-# Plain versions
-# --------------------------------------------------------------------------- #
-def rnnt_alpha_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
-                   t_lens: torch.Tensor) -> torch.Tensor:
-    """Plain K7a: every α (B, T, U+1) in f32 (f64 for f64 inputs).  The
-    start state is (0, −1e30, …); rows t ≥ t_len repeat the last row.
-    Differentiable: the transducer loss of ``ops/rnnt.py`` runs through it."""
+def _skew(x: torch.Tensor, n_diag: int) -> torch.Tensor:
+    """(B, T, W) → (B, n_diag, W) with row d holding diagonal d = t + u
+    (entry u is x[:, d − u, u]), −1e30 where d − u is outside [0, T)."""
+    T, W = x.shape[1], x.shape[2]
+    t = torch.arange(n_diag, device=x.device)[:, None] - torch.arange(W, device=x.device)
+    idx = t.clamp(0, T - 1)[None].expand(x.shape[0], n_diag, W)
+    return torch.where((t >= 0) & (t < T), torch.gather(x, 1, idx), NEG)
+
+
+def _unskew(diags: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, n_diag, W) diagonals → (B, T, W): entry (t, u) from row t + u."""
+    W = diags.shape[2]
+    idx = torch.arange(T, device=diags.device)[:, None] + torch.arange(W, device=diags.device)
+    return torch.gather(diags, 1, idx[None].expand(diags.shape[0], T, W))
+
+
+def _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev: bool):
+    """α (``rev`` False) or β by anti-diagonals, in the wavefront kernels'
+    operations and order (``ops/csrc/rnnt_wavefront.cuh``), so that on the
+    card the kernels give these values' bits (``rnnt_lattice.cu`` kK7Fast
+    false: torch.logaddexp's expf/log1pf):
+      α(t,u) = logaddexp(up, right), up = α(t−1,u) + blank(t−1,u) (0 at the
+        start cell), right = α(t,u−1) + emit(t,u−1);
+      β(t,u) = logaddexp(blank(t,u) + up, emit(t,u) + right), up = β(t+1,u)
+        (the virtual base at t = t_last), right = β(t,u+1);
+    an edge from outside the lattice −1e30.  Rows past t_last repeat α's
+    last row or hold β's base; t_len ≤ 0 runs no frame."""
     bl, em, cdt = _prep(blank_lp, emit_lp)
     B, T, U1 = bl.shape
     dev = bl.device
-    first = torch.full((B, 1), NEG, dtype=cdt, device=dev)
+    n_diag = T + U1 - 1
+    last = torch.clamp(t_lens.to(dev).to(torch.int64), max=T)[:, None] - 1   # (B, 1)
+    lane = torch.arange(U1, device=dev)
+    neg = torch.full((B, 1), NEG, dtype=cdt, device=dev)
+    em = torch.cat([em, neg[:, None].expand(B, T, 1)], dim=2)   # column U has no emit
+    # one (B, U+1) view per diagonal: their backward forms each full-size
+    # gradient once, not once per diagonal
+    bsk, esk = _skew(bl, n_diag).unbind(1), _skew(em, n_diag).unbind(1)
+    if rev:
+        base = torch.where(lane == u_lens.to(dev)[:, None], 0.0, NEG).to(cdt)
+    diags = [None] * n_diag
+    up_msg = right_msg = torch.full((B, U1), NEG, dtype=cdt, device=dev)
+    for d in (range(n_diag - 1, -1, -1) if rev else range(n_diag)):
+        t = d - lane
+        live = (t >= 0) & (t <= last)
+        if rev:
+            up = torch.where(t == last, base, up_msg)
+            right = torch.cat([up_msg[:, 1:], neg], dim=1)
+            x = torch.logaddexp(bsk[d] + up, esk[d] + right)
+        else:
+            up = torch.where((t == 0) & (lane == 0), 0.0, up_msg)
+            right = torch.cat([neg, right_msg[:, :-1]], dim=1)
+            x = torch.logaddexp(up, right)
+        x = torch.where(live, x, NEG)
+        diags[d] = x
+        if rev:
+            up_msg = x
+        else:
+            up_msg, right_msg = x + bsk[d], x + esk[d]
+    out = _unskew(torch.stack(diags, dim=1), T)
+    rows = torch.arange(T, device=dev)[None, :, None]
+    if rev:
+        return torch.where(rows > last[:, :, None], base[:, None, :], out)
+    start = torch.where(lane == 0, 0.0, NEG).to(cdt)
+    tail = torch.gather(out, 1, last.clamp(min=0)[:, :, None].expand(B, 1, U1))
+    out = torch.where(rows > last[:, :, None], tail, out)
+    return torch.where(last[:, :, None] < 0, start, out)
+
+
+def _scan_alpha(bl, em, t_lens):
+    """α by frames, each frame's chain solved by ``chain_scan`` (the scan
+    route's order)."""
+    B, T, U1 = bl.shape
+    dev = bl.device
+    first = torch.full((B, 1), NEG, dtype=bl.dtype, device=dev)
     carry = torch.cat([torch.zeros_like(first), first.expand(B, U1 - 1)], dim=1)
     live = t_lens.to(dev)[:, None]
     # one (B, ·) view per frame, rows gathered by one stack: their backward
@@ -92,24 +175,54 @@ def rnnt_alpha_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
     return torch.stack(rows, dim=1)
 
 
-def rnnt_beta_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor, t_lens: torch.Tensor,
-                  u_lens: torch.Tensor) -> torch.Tensor:
-    """Plain K7b: every β (B, T, U+1) in f32 (f64 for f64 inputs), walking
-    time backwards from the virtual base (0 at u = u_len, −1e30 elsewhere),
-    which rows t ≥ t_len keep."""
-    bl, em, cdt = _prep(blank_lp, emit_lp)
+def _scan_beta(bl, em, t_lens, u_lens):
+    """β by frames, walking down, each chain by ``chain_scan``."""
     B, T, U1 = bl.shape
     dev = bl.device
     lane = torch.arange(U1, device=dev)[None, :]
-    carry = torch.where(lane == u_lens.to(dev)[:, None], 0.0, NEG).to(cdt)
-    last = torch.full((B, 1), NEG, dtype=cdt, device=dev)
+    carry = torch.where(lane == u_lens.to(dev)[:, None], 0.0, NEG).to(bl.dtype)
+    last = torch.full((B, 1), NEG, dtype=bl.dtype, device=dev)
     live = t_lens.to(dev)[:, None]
-    out = torch.empty((B, T, U1), dtype=cdt, device=dev)
+    out = torch.empty((B, T, U1), dtype=bl.dtype, device=dev)
     for t in range(T - 1, -1, -1):
         x = chain_scan(torch.cat([em[:, t], last], dim=1), bl[:, t] + carry, reverse=True)
         carry = torch.where(t < live, x, carry)
         out[:, t] = carry
     return out
+
+
+def wavefront_route(T: int, U1: int) -> bool:
+    """Whether the card takes K7's wavefront (else its scan): U+1 ≤ 1024 and
+    T·(U+1) < 2³¹ (``rnnt_lattice.cu`` wavefront_ok)."""
+    return U1 <= _MAX_WAVEFRONT and T * U1 < 2**31
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions
+# --------------------------------------------------------------------------- #
+def rnnt_alpha_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
+                   t_lens: torch.Tensor) -> torch.Tensor:
+    """Plain K7a: every α (B, T, U+1) in f32 (f64 for f64 inputs), in the
+    operations and order of the card's route for the shape: by
+    anti-diagonals as the wavefront walks them, or by frames of log-step
+    scans as the scan kernel.  The start state is (0, −1e30, …); rows t ≥
+    t_len repeat the last row.  Differentiable: the transducer loss of
+    ``ops/rnnt.py`` runs through it."""
+    if wavefront_route(blank_lp.shape[1], blank_lp.shape[2]):
+        return _diagonal_walk(blank_lp, emit_lp, t_lens, None, rev=False)
+    bl, em, _ = _prep(blank_lp, emit_lp)
+    return _scan_alpha(bl, em, t_lens)
+
+
+def rnnt_beta_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor, t_lens: torch.Tensor,
+                  u_lens: torch.Tensor) -> torch.Tensor:
+    """Plain K7b: every β (B, T, U+1) in f32 (f64 for f64 inputs), in the
+    card's route's operations and order, from the virtual base (0 at u =
+    u_len, −1e30 elsewhere), which rows t ≥ t_len keep."""
+    if wavefront_route(blank_lp.shape[1], blank_lp.shape[2]):
+        return _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev=True)
+    bl, em, _ = _prep(blank_lp, emit_lp)
+    return _scan_beta(bl, em, t_lens, u_lens)
 
 
 # --------------------------------------------------------------------------- #

@@ -52,6 +52,9 @@ GROUPS = (("K1 lucy_fused_lm_fwd", "lucy_fused_lm_fwd"),
           ("band lattice rnnt_band_alpha/rnnt_band_beta", "band_wavefront"),
           ("band lattice rnnt_band_alpha/rnnt_band_beta", "rnnt_band_alpha"),
           ("band lattice rnnt_band_alpha/rnnt_band_beta", "rnnt_band_beta"),
+          # K7's wavefront route (alpha, beta), then its scan route
+          ("K7a rnnt_alpha", "exact_wavefront_kernel<false"),
+          ("K7b rnnt_beta", "exact_wavefront_kernel<true"),
           ("K7a rnnt_alpha", "rnnt_alpha"),
           ("K7b rnnt_beta", "rnnt_beta"),
           ("K9a fwd_out_kernel (h)", "::fwd_out_kernel"),

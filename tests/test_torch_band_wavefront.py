@@ -110,6 +110,32 @@ def _chunk_spans(F, d0, sgn, lo0, hi0, Wp, last):
     return spans
 
 
+def consume(m0, m1, dl, bl, em, floor_up, rev):
+    """The consumer warp's diagonal: from the previous diagonal's messages
+    (α: m0 up, m1 right; β: m0 its β), how far t_lo moved and the cells'
+    records, one shuffle, each cell's two inputs and its logaddexp.  Returns
+    (x, m0, m1): the cells' values and their messages."""
+    c = m0.shape[1]
+    if not rev and dl:   # up from index k, right from k + 1: lane + 1's first
+        gv = _shuffle(m1[:, 0], 1)
+        up_in, rt_in = m0, torch.cat([m1[:, 1:], gv[:, None]], 1)
+    elif not rev:        # up from index k − 1: lane − 1's last; right from k
+        gv = _shuffle(m0[:, c - 1], -1)
+        up_in, rt_in = torch.cat([gv[:, None], m0[:, :-1]], 1), m1
+    elif dl:             # (t+1, u) from index k, (t, u+1) from k − 1
+        gv = _shuffle(m0[:, c - 1], -1)
+        up_in, rt_in = m0, torch.cat([gv[:, None], m0[:, :-1]], 1)
+    else:                # (t+1, u) from index k + 1, (t, u+1) from k
+        gv = _shuffle(m0[:, 0], 1)
+        up_in, rt_in = torch.cat([m0[:, 1:], gv[:, None]], 1), m0
+    up = torch.maximum(up_in, floor_up)
+    if rev:
+        x = torch.logaddexp(bl + up, em + rt_in)
+        return x, x, m1
+    x = torch.logaddexp(up, rt_in)
+    return x, x + bl, x + em
+
+
 def _walk(blank, emit, o, t_lens, u_lens, Tb, rev):
     """α (``rev`` False) or β by the kernels' order of work: the producer's
     spans, moved offsets and records, the consumer's messages."""
@@ -158,26 +184,7 @@ def _walk(blank, emit, o, t_lens, u_lens, Tb, rev):
                 em = torch.where(ok, emit[b, tc, wc], NEG)
                 start = (t == last) & (w == w_virt) if rev else (t == 0) & (w == 0)
                 floor_up = torch.where(ok & start, 0.0, NEG).to(blank.dtype)
-                # the consumer: one shuffle, the two inputs, the messages
-                if not rev and dl:   # up from index k, right from k + 1: lane + 1's first
-                    gv = _shuffle(m1[:, 0], 1)
-                    up_in, rt_in = m0, torch.cat([m1[:, 1:], gv[:, None]], 1)
-                elif not rev:        # up from index k − 1: lane − 1's last; right from k
-                    gv = _shuffle(m0[:, c - 1], -1)
-                    up_in, rt_in = torch.cat([gv[:, None], m0[:, :-1]], 1), m1
-                elif dl:             # (t+1, u) from index k, (t, u+1) from k − 1
-                    gv = _shuffle(m0[:, c - 1], -1)
-                    up_in, rt_in = m0, torch.cat([gv[:, None], m0[:, :-1]], 1)
-                else:                # (t+1, u) from index k + 1, (t, u+1) from k
-                    gv = _shuffle(m0[:, 0], 1)
-                    up_in, rt_in = torch.cat([m0[:, 1:], gv[:, None]], 1), m0
-                up = torch.maximum(up_in, floor_up)
-                if rev:
-                    x = torch.logaddexp(bl + up, em + rt_in)
-                    m0 = x
-                else:
-                    x = torch.logaddexp(up, rt_in)
-                    m0, m1 = x + bl, x + em
+                x, m0, m1 = consume(m0, m1, dl, bl, em, floor_up, rev)
                 out[b, tc[ok], wc[ok]] = x[ok]
                 prev_lo, prev_h = lo, h
             lo0, hi0 = spans[-1][1], spans[-1][2]

@@ -478,7 +478,8 @@ def test_frontend_on_card_runs_full_f32(cuda_device):
 
 def lattice_data(seed, B, T, U):
     """Blank and emit log-prob lattices; row 0 has u_len 0, row 1 a short
-    input, the others full lengths."""
+    input, row 3 (where B > 3) no frame (t_len = 0), the others full
+    lengths."""
     rng = np.random.default_rng(seed)
     blank = torch.from_numpy((rng.standard_normal((B, T, U + 1)) - 1.5).astype(np.float32))
     emit = torch.from_numpy((rng.standard_normal((B, T, U)) - 1.5).astype(np.float32))
@@ -488,26 +489,36 @@ def lattice_data(seed, B, T, U):
     if B > 1:
         t_lens[1] = max(T - T // 3, 1)
         u_lens[1] = U // 2
+    if B > 3:
+        t_lens[3] = 0
     return blank, emit, t_lens, u_lens
 
 
 def assert_lattice_close(got, want):
     """The same dead states (≤ −1e29), and live values within 2e-5 + 2e-6 of
-    their size: f32 log-sum-exp chains in two operation orders (the kernel
-    scans within warps, the plain version over all columns)."""
+    their size: f32 log-sum-exp chains in two operation orders (the kernels
+    walk anti-diagonals, or scan frames within warps; the plain versions scan
+    each frame over all columns)."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     live = want > -1e29
     assert np.array_equal(live, got > -1e29)
     np.testing.assert_allclose(got[live], want[live], rtol=2e-6, atol=2e-5)
 
 
+# (B, T, U): U+1 = 12, 41 and 49 (the frame ring), 1 (no labels), 129 (the
+# producer's own loads), 1024 (the wavefront's widest), then 1025 and 1501
+# (the scan route, two 1024-column chunks)
+RNNT_LATTICE_CASES = [(3, 45, 11), (4, 200, 40), (2, 33, 0), (3, 70, 128), (2, 20, 1500),
+                      (4, 200, 48), (4, 30, 1023), (4, 20, 1024)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,U", [(3, 45, 11), (4, 200, 40), (2, 33, 0), (3, 70, 128),
-                                   (2, 20, 1500)])
+@pytest.mark.parametrize("B,T,U", RNNT_LATTICE_CASES)
 def test_rnnt_lattice_kernels_match_plain(cuda_device, B, T, U):
     """K7a/K7b against their plain versions: U+1 from 1 (no labels) through
-    one warp, several warps (129) and two 1024-column chunks (1501), with a
-    u_len = 0 row and a short row."""
+    the wavefront's frame ring (49), its producer's own loads (129, 1024) and
+    the scan route (1025, 1501), with a u_len = 0 row, a short row and, where
+    B > 3, a row of no frame."""
     blank, emit, t_lens, u_lens = lattice_data(50 + U, B, T, U)
     want_a = rnnt_alpha_ref(blank, emit, t_lens)
     want_b = rnnt_beta_ref(blank, emit, t_lens, u_lens)
@@ -518,6 +529,78 @@ def test_rnnt_lattice_kernels_match_plain(cuda_device, B, T, U):
     assert (rnnt_alpha.launches, rnnt_beta.launches) == (n[0] + 1, n[1] + 1)
     assert_lattice_close(got_a, want_a)
     assert_lattice_close(got_b, want_b)
+
+
+def k7_fast() -> bool:
+    """Whether K7's wavefront takes the fast log-sum-exp (``kK7Fast``)."""
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "statecatcher_tpu_torch/ops/csrc/rnnt_lattice.cu"
+    return "constexpr bool kK7Fast = true;" in src.read_text()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U", [(4, 200, 48), (2, 33, 0), (4, 70, 128), (4, 30, 1023)])
+def test_rnnt_lattice_kernels_are_the_plain_versions_bit_for_bit(cuda_device, B, T, U):
+    """On the wavefront route, α and β equal their plain versions run on the
+    card bit for bit on every live value (the dead ones, ≤ −1e29, agree as
+    dead): the plain versions walk the anti-diagonals in the kernels'
+    operations, and the accurate log-sum-exp is torch.logaddexp's (the
+    training checks compare the exact loss's gradients, whose single-Z
+    occupancies turn any other rounding of α and β into gradients a few
+    percent apart)."""
+    if k7_fast():
+        pytest.skip("K7 takes the fast log-sum-exp: held to phase 8's tolerance instead")
+    blank, emit, t_lens, u_lens = (t.to(cuda_device) for t in lattice_data(60 + U, B, T, U))
+    with torch.inference_mode():
+        for got, want in ((rnnt_alpha(blank, emit, t_lens), rnnt_alpha_ref(blank, emit, t_lens)),
+                          (rnnt_beta(blank, emit, t_lens, u_lens),
+                           rnnt_beta_ref(blank, emit, t_lens, u_lens))):
+            live = want > -1e29
+            assert torch.equal(live, got > -1e29)
+            assert torch.equal(got[live], want[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U", [(4, 200, 48), (4, 70, 128), (4, 20, 1024)])
+def test_rnnt_lattice_kernels_are_deterministic(cuda_device, B, T, U):
+    """Two calls of K7a and K7b give the same bits (the wavefront's frame ring
+    and its producer's own loads; the scan route)."""
+    blank, emit, t_lens, u_lens = (t.to(cuda_device) for t in lattice_data(70 + U, B, T, U))
+    for fn, args in ((rnnt_alpha, (blank, emit, t_lens)),
+                     (rnnt_beta, (blank, emit, t_lens, u_lens))):
+        first = fn(*args).clone()
+        assert torch.equal(first, fn(*args)), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U", [(3, 200, 48), (2, 70, 130)])
+def test_rnnt_alpha_is_the_banded_alpha_without_a_band(cuda_device, B, T, U):
+    """K7a's α equals the banded α on K7's cells when the band starts at 0
+    and covers every label (window Wp ≥ U+1, the tables padded with −1e30):
+    the two walk the same recurrence in the same order, so they agree bit
+    for bit where they take the same log-sum-exp form (``kK7Fast`` against
+    the banded kernel's fast form), else to phase 8's tolerance."""
+    from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha
+
+    blank, emit, t_lens, _ = (t.to(cuda_device) for t in lattice_data(90 + U, B, T, U))
+    t_lens = t_lens.clamp(min=1)                     # the banded walk runs at least one frame
+    Tb, Wp = 8, -(-(U + 1) // 8) * 8
+    Tp = -(-T // Tb) * Tb
+    blank_b = torch.full((B, Tp, Wp), -1e30, device=cuda_device)
+    emit_b = torch.full((B, Tp, Wp), -1e30, device=cuda_device)
+    blank_b[:, :T, :U + 1] = blank
+    emit_b[:, :T, :U] = emit
+    o = torch.zeros((B, Tp // Tb), dtype=torch.int32, device=cuda_device)
+    got = rnnt_alpha(blank, emit, t_lens)
+    band = rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb)[:, :T, :U + 1]
+    if k7_fast():
+        assert torch.equal(got, band)
+    else:
+        live = band > -1e29
+        assert torch.equal(live, got > -1e29)
+        d = (got - band)[live].abs()
+        assert (d <= 2e-5 + 1e-5 * band[live].abs()).all(), d.max().item()
 
 
 def joint_data(seed, B, T, U, J, V, dev, dtype=torch.float32):
