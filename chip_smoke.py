@@ -46,12 +46,16 @@ defaults through the port's entry points:
      row) and U=128, and K7 at U+1 > 1024 (its scan route), with times,
      bounds and plain times; beside each K6a bound, the exps' time at the
      SFU rate and ``torch.matmul``'s time for the logits alone; beside each
-     K7 bound its chain floor (the diagonals it walks × one diagonal's
-     latency, measured on one row);
+     K7 bound its chain floor (the steps its chain takes, diagonals or, on
+     the scan route, frames, × one step's latency, measured on one row);
   9. RNN-T train step: ``make_segment_scan_step`` with ``--train.mode
      rnnt`` over one group of 2 carried 16 s segments at B=32, U=48 (the
      auto band resolves to the exact loss), the kernel path held against
-     the plain path;
+     the plain path; then its float64 witness: each segment's gradient on
+     the kernel path, and on the plain path with K7's plain versions in
+     either order (the kernels' anti-diagonals; the frames of the TPU
+     kernel), against the plain path in float64, the kernel path no further
+     from it than the frame order;
  10. RNN-T streaming: ``StreamingRecognizer(decoder="rnnt")`` on three ~10 s
      streams, held against an offline greedy decode of the same frames
      (equal) and of a one-shot encoding (1 % edit distance), with the joiner
@@ -992,6 +996,94 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
     return {**dict(zip(names, launches)), "update_rel": rel_upd, "frac_off": frac_off}
 
 
+def gradients_of(state, step, cfg, B, group, K) -> list[torch.Tensor]:
+    """Each segment's gradient (every parameter's, flattened, float64) as
+    ``step`` hands it to the optimizer over ``group``."""
+    got, apply = [], state.apply_gradients
+
+    def capture(grads, ok=None):
+        got.append(torch.cat([g.detach().double().flatten() for g in grads.values()]))
+        apply(grads, ok)
+
+    state.apply_gradients = capture
+    try:
+        step(state, init_carry(cfg.model, B, device=group[0].device), *group, np.ones(K, bool))
+    finally:
+        del state.apply_gradients
+    return got
+
+
+@contextlib.contextmanager
+def frame_order():
+    """K7's plain versions in the frame order (the TPU kernel's log-step
+    scans) while the block runs, inside ``plain_kernels``."""
+    saved = rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta
+    rnnt_lattice.rnnt_alpha = lambda *a: rnnt_alpha_ref(*a, order="frames")
+    rnnt_lattice.rnnt_beta = lambda *a: rnnt_beta_ref(*a, order="frames")
+    try:
+        yield
+    finally:
+        rnnt_lattice.rnnt_alpha, rnnt_lattice.rnnt_beta = saved
+
+
+def phase_rnnt_witness(cfg, dev, K=2, B=32, S=16 * 16000, U=48) -> dict:
+    """Phase 9's float64 witness: phase 9's group (``train_setup``) on the
+    kernel path, and on the plain path with K7's plain versions in either
+    order ("diagonals", the kernels' walk; "frames", the TPU kernel's
+    log-step scans), each segment's f32 gradient against the plain path's
+    with the model in float64 (the same weights).  The exact loss's
+    occupancies divide by one Z a row, so f32 round-off of α against β at
+    T = 1598 scales a row's gradient (the frame order's by 0.5–2.6 % on
+    average): the two orders cannot be held to each other, but each can be
+    held to float64.  Fails if the kernel path is further from it than the
+    frame order.  Returns, by run, each segment's distance (of the float64
+    gradient's norm) and grad norm's relative difference."""
+    cfg, state, step, group = train_setup(cfg, dev, K, B, S, U, "rnnt")
+    opt0 = state.state_dict()
+    runs = {}
+    for name, plain, frames in (("kernels", False, False), ("plain, diagonals", True, False),
+                                ("plain, frames", True, True)):
+        state.load_state_dict(opt0)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            if frames:
+                stack.enter_context(frame_order())
+            runs[name] = gradients_of(state, step, cfg, B, group, K)
+    cfg64 = cfg.apply_overrides(["--model.dtype", "float64", "--model.param_dtype", "float64"])
+    model64 = build_speech_model(cfg64.model, cfg64.frontend.n_mfcc, "rnnt", device=dev,
+                                 generator=torch.Generator().manual_seed(SEED))
+    step64 = make_segment_scan_step(model64, cfg64, blank_id=0, ctc_impl=cfg64.train.ctc_impl)
+    want = {}
+    for frames in (False, True):
+        state64 = init_train_state(model64, cfg64)
+        with torch.no_grad():
+            for k, p in state64.params.items():
+                p.copy_(opt0["params"][k])                # the same weights, cast
+        with plain_kernels(), (frame_order() if frames else contextlib.nullcontext()):
+            want[frames] = gradients_of(state64, step64, cfg64, B, group, K)
+    # in float64 the two orders agree: the witness ran in float64
+    gap = max(((a - b).norm() / b.norm()).item() for a, b in zip(want[False], want[True]))
+    if gap > 1e-6:
+        raise AssertionError(f"the float64 witness's two orders are {gap:.3e} apart")
+    want = want[False]
+    out = {}
+    for name, got in runs.items():
+        dist = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+        d_gn = [abs(g.norm().item() - w.norm().item()) / w.norm().item() for g, w in zip(got, want)]
+        out[name] = {"dist": dist, "grad_norm_rel": d_gn}
+        log(f"[rnnt train witness] {name} (f32) against the plain path in float64 (its two "
+            f"orders {gap:.1e} apart): gradients "
+            f"{', '.join(f'{x:.3e}' for x in dist)} of its norm apart by segment, grad norms "
+            f"{', '.join(f'{x:.3e}' for x in d_gn)}")
+    worse = [k for k, (a, b) in enumerate(zip(out["kernels"]["dist"], out["plain, frames"]["dist"]))
+             if a > b]
+    if worse:
+        raise AssertionError(f"the kernel path's gradient is further from float64 than the frame "
+                             f"order's in segments {worse}: {out}")
+    return out
+
+
 def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None:
     """Phases 6, 15 and 21: bench.py's shapes (16 s, bf16; LucyRNN B=96, CTC
     U=128, RNN-T U=64 and U=128, both under the default band 32; xLSTM B=64,
@@ -1170,18 +1262,27 @@ def phase_rnnt_kernels(dev) -> dict:
     return out
 
 
-def exact_chain_floor(blank, emit, t_lens) -> tuple[float, float, int]:
-    """K7a's chain floor: the most anti-diagonals any row walks (t_len − 1 +
-    U+1) times the latency of one diagonal, measured on row 0 alone (one
-    block on the card) as the slope between its whole walk and half of it.
-    Returns (floor ms, ms per diagonal, diagonals)."""
+def exact_chain_floor(blank, emit, t_lens) -> tuple[float | None, float | None, int, str]:
+    """K7a's chain floor: the most steps any row's chain takes times the
+    latency of one step, measured on row 0 alone (one block on the card) as
+    the slope between its whole walk and half of it, each timed over a CUDA
+    graph of 100 calls.  A step is an anti-diagonal on the wavefront
+    (t_len − 1 + U+1 of them) and a frame on the scan route (t_len).
+    Returns (floor ms, ms per step, steps, "diagonals" or "frames"); the
+    floor and the step are None where the slope is not positive (a walk too
+    short for its halving to show)."""
     T, U1 = blank.shape[1], blank.shape[2]
     one = (blank[:1].contiguous(), emit[:1].contiguous())
     full = torch.full((1,), T, dtype=torch.int32, device=blank.device)
-    ms_full, ms_half = (cuda_ms(lambda n=n: rnnt_alpha(*one, n), 20) for n in (full, full // 2))
-    per_diag = (ms_full - ms_half) / (T - T // 2)
-    n_diag = int(torch.clamp(t_lens, 0, T).max()) - 1 + U1
-    return n_diag * per_diag, per_diag, n_diag
+    ms_full, ms_half = (cuda_ms(lambda n=n: rnnt_alpha(*one, n), 100, graph=True)
+                        for n in (full, full // 2))
+    per_step = (ms_full - ms_half) / (T - T // 2)
+    t_max = int(torch.clamp(t_lens, 0, T).max())
+    wave = rnnt_lattice.wavefront_route(T, U1)
+    n_steps, unit = (t_max - 1 + U1, "diagonals") if wave else (t_max, "frames")
+    if per_step <= 0:
+        return None, None, n_steps, unit
+    return n_steps * per_step, per_step, n_steps, unit
 
 
 def phase_exact_lattice(dev, gen=None) -> dict:
@@ -1220,17 +1321,18 @@ def phase_exact_lattice(dev, gen=None) -> dict:
             ms_b = cuda_ms(lambda: rnnt_beta(blank, emit, t_lens, u_lens), 20)
             plain_a = cuda_ms(lambda: rnnt_alpha_ref(blank, emit, t_lens), 2, warmup=1)
             plain_b = cuda_ms(lambda: rnnt_beta_ref(blank, emit, t_lens, u_lens), 2, warmup=1)
-            floor, per_diag, n_diag = exact_chain_floor(blank, emit, t_lens)
+            floor, per_step, n_steps, unit = exact_chain_floor(blank, emit, t_lens)
         U1 = U + 1
         nbytes = B * T * (2 * U1 + U) * 4 + 2 * B * 4
         bound, bound_by = bytes_bound_ms(nbytes, RNNT_LATTICE_OPS_PER_STATE * B * T * U1)
-        route = "wavefront" if U1 <= 1024 else "scan"
+        route = "wavefront" if rnnt_lattice.wavefront_route(T, U1) else "scan"
+        chain = (f"{floor:.4f} ms ({n_steps} {unit} × {per_step * 1e6:.1f} ns, measured on one row)"
+                 if floor is not None else f"not measured ({n_steps} {unit}: too short a walk)")
         log(f"[K7] {label} (B={B}, T={T}, U={U}; the {route} route): α max|Δ| {err_a:.3e}, β "
             f"max|Δ| {err_b:.3e} ({n_unlike} live values unlike the plain versions'); K7a "
             f"{ms_a:.4f} ms, K7b {ms_b:.4f} ms (plain {plain_a:.2f} / "
-            f"{plain_b:.2f} ms), bound {bound:.4f} ms each ({bound_by}); chain floor "
-            f"{floor:.4f} ms ({n_diag} diagonals × {per_diag * 1e6:.1f} ns, measured on one "
-            f"row); library_ms: none")
+            f"{plain_b:.2f} ms), bound {bound:.4f} ms each ({bound_by}); chain floor {chain}; "
+            f"library_ms: none")
         for name, err, ms, plain in (("K7a", err_a, ms_a, plain_a), ("K7b", err_b, ms_b, plain_b)):
             out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                                       "bound_ms": bound, "bound_by": bound_by,
@@ -2002,6 +2104,7 @@ def main() -> int:
 
     rk = phase_rnnt_kernels(dev)
     n_rtrain = phase_train_step(cfg, dev, K=2, U=48, mode="rnnt")
+    phase_rnnt_witness(cfg, dev, K=2, U=48)
     model = rnnt_model(cfg, dev)
     n_rstream = phase_rnnt_streaming(model, cfg, dev)
     del model

@@ -42,8 +42,8 @@ SIGNATURES = {
         "ctc_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },
     "rnnt_lattice": {
-        "rnnt_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
-        "rnnt_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "rnnt_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "rnnt_beta": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "rnnt_band_alpha": (_I, [_P] * 5 + [_I] * 4 + [_P]),
         "rnnt_band_beta": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     },

@@ -4,10 +4,12 @@
 //   K7a  rnnt_alpha  <- _alpha_kernel (:69), launched by _alpha_all (:143)
 //   K7b  rnnt_beta   <- _beta_kernel (:93), launched by _beta_all (:182)
 // and launches the banded lattice of K8's tables (rnnt_band_alpha,
-// rnnt_band_beta).  Two routes, chosen from the shape alone before launch:
+// rnnt_band_beta).  Two routes; the caller picks one from the shape alone
+// before launch (ops/rnnt_lattice.py wavefront_route) and passes it in, and
+// a route that cannot take the shape fails the launch:
 //
 //   route       shapes                          kernels
-//   wavefront   U1 <= 1024, T * U1 < 2^31       exact_wavefront_kernel<kRev, C, kRing, kFast>
+//   wavefront   U1 <= 1024, T * U1 < 2^31       exact_wavefront_kernel<kRev, C, kRing>
 //                                               (rnnt_wavefront.cuh; the banded lattice's
 //                                               band_wavefront_kernel is the same walk)
 //   scan        U1 > 1024 (up to 4096), or      rnnt_alpha_kernel, rnnt_beta_kernel (below)
@@ -38,9 +40,11 @@
 // records from a cp.async ring of frame rows (its own device loads where the
 // ring does not fit in shared memory, U1 above ~140), a consumer warp walks
 // the chain, one shuffle and one logaddexp a diagonal: T + U diagonals a
-// row.  kK7Fast picks its logaddexp's form; with false, torch.logaddexp's
-// own operations, the plain versions (ops/rnnt_lattice.py, which walk the
-// same diagonals) give its bits.
+// row.  Its logaddexp is torch.logaddexp's own operations (the accurate
+// expf/log1pf), and it keeps a row's values less a whole-number shift
+// moved every 8 diagonals (so that its chain does not round values of
+// ~1e4), so the plain versions (ops/rnnt_lattice.py, which walk the same
+// diagonals with the same shift) give its bits.
 //
 // The scan: one block per batch row; its threads stride over the U1 lattice
 // columns (up to 4 columns each, so U1 <= 4096 with 1024 threads).  A frame's
@@ -66,9 +70,6 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kMaxPer = 4;
-// The wavefront's logaddexp: false, the accurate expf/log1pf; true, the
-// fast __expf/__logf (rnnt_wavefront.cuh lae)
-constexpr bool kK7Fast = false;
 constexpr int kMaxWarps = 32;
 
 // torch.logaddexp for finite arguments
@@ -247,20 +248,21 @@ bool band_ok(const float* blank, const float* emit, int Tp, int Wp, int Tb) {
          static_cast<long long>(Tp) * Wp < (1LL << 31) && aligned(blank) && aligned(emit);
 }
 
-// The wavefront takes the shape (the scan the rest)
-bool wavefront_ok(int T, int U1) {
-  return U1 <= rnnt_wavefront::kMaxWp && static_cast<long long>(T) * U1 < (1LL << 31);
-}
+// The wavefront's int offsets hold the tables (its launch refuses U1 > kMaxWp)
+bool offsets_fit(int T, int U1) { return static_cast<long long>(T) * U1 < (1LL << 31); }
 
 }  // namespace
 
-// Each returns the cudaError_t of its launch (0 on success); U1 must be at
-// most 4 * 1024 (the wrapper checks).
+// Each returns the cudaError_t of its launch (0 on success); `wavefront`
+// picks the wavefront (1) or the scan (0).  U1 must be at most 4 * 1024 (the
+// wrapper checks).
 extern "C" int rnnt_alpha(const float* blank, const float* emit, const int* t_lens,
-                          float* alpha, int B, int T, int U1, void* stream) {
-  if (wavefront_ok(T, U1))
-    return static_cast<int>(rnnt_wavefront::launch_exact<false, kK7Fast>(
+                          float* alpha, int B, int T, int U1, int wavefront, void* stream) {
+  if (wavefront) {
+    if (!offsets_fit(T, U1)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(rnnt_wavefront::launch_exact<false>(
         blank, emit, t_lens, nullptr, alpha, B, T, U1, static_cast<cudaStream_t>(stream)));
+  }
   const int nt = block_threads(U1);
   if (U1 > kMaxPer * nt) return static_cast<int>(cudaErrorInvalidValue);
   rnnt_alpha_kernel<<<B, nt, 0, static_cast<cudaStream_t>(stream)>>>(blank, emit, t_lens,
@@ -269,10 +271,13 @@ extern "C" int rnnt_alpha(const float* blank, const float* emit, const int* t_le
 }
 
 extern "C" int rnnt_beta(const float* blank, const float* emit, const int* t_lens,
-                         const int* u_lens, float* beta, int B, int T, int U1, void* stream) {
-  if (wavefront_ok(T, U1))
-    return static_cast<int>(rnnt_wavefront::launch_exact<true, kK7Fast>(
+                         const int* u_lens, float* beta, int B, int T, int U1, int wavefront,
+                         void* stream) {
+  if (wavefront) {
+    if (!offsets_fit(T, U1)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(rnnt_wavefront::launch_exact<true>(
         blank, emit, t_lens, u_lens, beta, B, T, U1, static_cast<cudaStream_t>(stream)));
+  }
   const int nt = block_threads(U1);
   if (U1 > kMaxPer * nt) return static_cast<int>(cudaErrorInvalidValue);
   rnnt_beta_kernel<<<B, nt, 0, static_cast<cudaStream_t>(stream)>>>(blank, emit, t_lens,

@@ -108,6 +108,11 @@ constexpr float kNeg = -1e30f;
 constexpr int kRingAhead = 2;     // frame ring: chunks the copies run ahead
 constexpr int kRingMaxWp = 104;   // frame ring up to here: 128 frames * 2 * 104 floats
 constexpr int kMaxWp = 1024;
+// The exact walk's shift: every kRenorm diagonals (a multiple of both chunk
+// sizes) its messages drop by the floor of their largest live value, if
+// that is below -kShiftFrom
+constexpr int kRenorm = 8;
+constexpr float kShiftFrom = 512.0f;
 constexpr int kFull = 1, kEmpty = 3;  // named barriers: full 1, 2; empty 3, 4
 
 // Diagonals a chunk: fewer for many cells a lane, to keep the records small
@@ -231,9 +236,9 @@ inline size_t smem_bytes(int C, bool ring, bool band, int Wp, int nblk) {
 }
 
 // The walk of one row.  kBand: the banded lattice (o, Tb and magic give the
-// band starts); else the exact one, Tp = T and Wp = U+1 (o unused).  kFast:
-// lae's form.
-template <bool kRev, int C, bool kRing, bool kBand, bool kFast>
+// band starts) with the fast lae; else the exact one, Tp = T and Wp = U+1 (o
+// unused), with the accurate lae.
+template <bool kRev, int C, bool kRing, bool kBand>
 __device__ __forceinline__ void walk(const float* __restrict__ blank,
                                      const float* __restrict__ emit, const int* __restrict__ o,
                                      const int* __restrict__ t_lens,
@@ -410,7 +415,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ blank,
       // fresh for the frame that enters (alpha: at hi, w = 0; beta: at lo, w
       // = Wp - 1).  Cells outside the span carry garbage, read a harmless
       // address, and are masked.  Exact: w = d - t.
-#pragma unroll(kRing || C <= 8 ? kChunk : 1)
+#pragma unroll(kRing || (!kBand && C <= 8) ? kChunk : 1)
       for (int j = 0; j < kChunk; ++j) {
         float bl[C], em[C];
         int t[C];
@@ -492,13 +497,37 @@ __device__ __forceinline__ void walk(const float* __restrict__ blank,
   }
 
   // The consumer.  alpha: m0 = up, m1 = right messages of the previous
-  // diagonal; beta: m0 = the previous diagonal's beta (m1 unused).
+  // diagonal; beta: m0 = the previous diagonal's beta (m1 unused).  The
+  // exact walk keeps them less the row's shift (a whole number, exact in
+  // f32), moved every kRenorm diagonals to the floor of the largest live
+  // message once that is below -kShiftFrom, so that its chain rounds values
+  // under ~600, not alpha and beta of ~1e4 (f32 spacing ~1e-3) at every
+  // step; each value is stored as x + shift, one rounding.  Beta's base
+  // (floor_up 0) enters while the shift is 0: no live value comes before it.
+  // ops/rnnt_lattice.py's diagonal walk takes the same steps.
   float m0[C], m1[C];
+  float shift = 0.0f;
 #pragma unroll
   for (int i = 0; i < C; ++i) m0[i] = m1[i] = kNeg;
   for (int c = 0; c < n_chunks; ++c) {
     const int slot = c & 1;
     bar_sync(kFull + slot, 64);                      // the producer has filled the slot
+    if constexpr (!kBand) {
+      if (c > 0 && (c * kChunk) % kRenorm == 0) {
+        float top = kNeg;
+#pragma unroll
+        for (int i = 0; i < C; ++i) top = fmaxf(top, kRev ? m0[i] : fmaxf(m0[i], m1[i]));
+#pragma unroll
+        for (int k = 16; k > 0; k >>= 1) top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, k));
+        const float delta = top > -1e29f && top < -kShiftFrom ? floorf(top) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          m0[i] -= delta;
+          m1[i] -= delta;
+        }
+        shift += delta;
+      }
+    }
     const Rec* rs = recs + static_cast<size_t>(slot) * kChunk * C * 32;
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
@@ -535,14 +564,14 @@ __device__ __forceinline__ void walk(const float* __restrict__ blank,
         const float up = fmaxf(in_up[i], r[i].floor_up);
         float x;
         if (!kRev) {
-          x = lae<kFast>(up, in_rt[i]);
+          x = lae<kBand>(up, in_rt[i]);
           m0[i] = x + r[i].bl;
           m1[i] = x + r[i].em;
         } else {
-          x = lae<kFast>(r[i].bl + up, r[i].em + in_rt[i]);
+          x = lae<kBand>(r[i].bl + up, r[i].em + in_rt[i]);
           m0[i] = x;
         }
-        store_if(out_g + (r[i].off < 0 ? 0 : r[i].off), x, r[i].off >= 0);
+        store_if(out_g + (r[i].off < 0 ? 0 : r[i].off), kBand ? x : x + shift, r[i].off >= 0);
       }
     }
     if (c + 2 < n_chunks) bar_arrive(kEmpty + slot, 64);  // the slot is free again
@@ -559,27 +588,27 @@ __device__ __forceinline__ void walk(const float* __restrict__ blank,
   }
 }
 
-// The banded lattice's kernel (the fast log-sum-exp) and the exact one's,
-// separate names for the profiler
+// The banded lattice's kernel and the exact one's, separate names for the
+// profiler
 template <bool kRev, int C, bool kRing>
 __global__ void __launch_bounds__(64, 1)
     band_wavefront_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
                           const int* __restrict__ o, const int* __restrict__ t_lens,
                           const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
                           int Wp, int Tb, unsigned magic) {
-  walk<kRev, C, kRing, true, true>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
+  walk<kRev, C, kRing, true>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
 }
 
-template <bool kRev, int C, bool kRing, bool kFast>
+template <bool kRev, int C, bool kRing>
 __global__ void __launch_bounds__(64, 1)
     exact_wavefront_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
                            const int* __restrict__ o, const int* __restrict__ t_lens,
                            const int* __restrict__ u_lens, float* __restrict__ out, int Tp,
                            int Wp, int Tb, unsigned magic) {
-  walk<kRev, C, kRing, false, kFast>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
+  walk<kRev, C, kRing, false>(blank, emit, o, t_lens, u_lens, out, Tp, Wp, Tb, magic);
 }
 
-template <bool kRev, int C, bool kRing, bool kBand, bool kFast>
+template <bool kRev, int C, bool kRing, bool kBand>
 cudaError_t launch_one(const float* blank, const float* emit, const int* o, const int* t_lens,
                        const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
                        cudaStream_t stream) {
@@ -588,7 +617,7 @@ cudaError_t launch_one(const float* blank, const float* emit, const int* o, cons
   if constexpr (kBand) {
     kernel = band_wavefront_kernel<kRev, C, kRing>;
   } else {
-    kernel = exact_wavefront_kernel<kRev, C, kRing, kFast>;
+    kernel = exact_wavefront_kernel<kRev, C, kRing>;
   }
   const size_t bytes = smem_bytes(C, kRing, kBand, Wp, Tp / Tb);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
@@ -603,15 +632,15 @@ cudaError_t launch_one(const float* blank, const float* emit, const int* o, cons
 // up to kRingMaxWp (banded) or as far as the exact ring fits in shared
 // memory (C <= 5), else the producer's own loads with the least instantiated
 // C >= Wp / 32.
-template <bool kRev, bool kBand, bool kFast>
+template <bool kRev, bool kBand>
 cudaError_t launch_walk(const float* blank, const float* emit, const int* o, const int* t_lens,
                         const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
                         cudaStream_t stream) {
   const int c = (Wp + 31) / 32;
 #define RNNT_WAVEFRONT_CASE(COND, C, RING)                                                      \
   if (COND)                                                                                     \
-  return launch_one<kRev, C, RING, kBand, kFast>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, \
-                                                 Tb, stream)
+  return launch_one<kRev, C, RING, kBand>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, Tb, \
+                                          stream)
   if (kBand ? Wp <= kRingMaxWp : smem_bytes(c, true, false, Wp, 0) <= 227 * 1024) {
     RNNT_WAVEFRONT_CASE(c == 1, 1, true);
     RNNT_WAVEFRONT_CASE(c == 2, 2, true);
@@ -636,17 +665,16 @@ template <bool kRev>
 cudaError_t launch(const float* blank, const float* emit, const int* o, const int* t_lens,
                    const int* u_lens, float* out, int B, int Tp, int Wp, int Tb,
                    cudaStream_t stream) {
-  return launch_walk<kRev, true, true>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, Tb, stream);
+  return launch_walk<kRev, true>(blank, emit, o, t_lens, u_lens, out, B, Tp, Wp, Tb, stream);
 }
 
 // The exact lattice: blank (B, T, U1), emit (B, T, U1 - 1), U1 <= kMaxWp and
 // T * U1 < 2^31 (the caller checks); any alignment of 4 bytes
-template <bool kRev, bool kFast>
+template <bool kRev>
 cudaError_t launch_exact(const float* blank, const float* emit, const int* t_lens,
                          const int* u_lens, float* out, int B, int T, int U1,
                          cudaStream_t stream) {
-  return launch_walk<kRev, false, kFast>(blank, emit, nullptr, t_lens, u_lens, out, B, T, U1, T,
-                                         stream);
+  return launch_walk<kRev, false>(blank, emit, nullptr, t_lens, u_lens, out, B, T, U1, T, stream);
 }
 
 }  // namespace rnnt_wavefront

@@ -23,8 +23,9 @@ base_u = blank(t,u) + β(t+1,u) and a_u = emit(t,u).  Rows t ≥ t_len keep α
 frozen at its last row and β at its virtual base (0 at u = u_len, −1e30
 elsewhere).
 
-Two routes on the card, chosen from the shape alone before launch (a
-failed launch raises; neither route stands in for the other):
+Two routes on the card, chosen from the shape alone before launch by
+``wavefront_route``, which the wrappers pass to the kernels (a failed launch
+raises; neither route stands in for the other):
 
   wavefront  U+1 ≤ 1024 and T·(U+1) < 2³¹: the anti-diagonal wavefront of
              ``ops/csrc/rnnt_wavefront.cuh`` with no band, a block of two
@@ -39,15 +40,16 @@ emit and writes one (B, T, U+1) f32 array, 30 MB at B=32, T=1598, U=48;
 the chain of dependent cells sets the time.
 
 ``rnnt_alpha_ref`` and ``rnnt_beta_ref`` are the plain versions, each in the
-operations and order of the card's route for the shape: on the wavefront's
-shapes a loop over the anti-diagonals d = t + u, each diagonal one vector
-of torch operations, so that on the card the kernels give the plain
-versions' bits on every live value (with kK7Fast false; dead values, ≤
+operations and order of the card's route for the shape (``order`` picks
+one): on the wavefront's shapes a loop over the anti-diagonals d = t + u,
+each diagonal one vector of torch operations, so that on the card the
+kernels give the plain versions' bits on every live value (dead values, ≤
 −1e29, may differ); on the scan's, the frame loop with each chain solved by
 a log-step scan (``chain_scan``), as the TPU kernel and the scan kernel do.
 In float32 at T = 1598 the two orders round α and β apart, and the
 occupancies, which divide by the forward's single Z, turn that into
-gradients a few percent apart (``chip_smoke.py`` phase 9).  Each
+gradients a few percent apart; ``chip_smoke.py`` phase 9 measures the
+training gradient of each order against the plain path in float64.  Each
 wrapper runs its plain version only for tensors on the CPU; on the card it
 launches or raises.
 """
@@ -59,6 +61,8 @@ import torch
 NEG = -1e30
 _MAX_STATES = 4 * 1024          # the scan route: 4 columns a thread, 1024 threads (rnnt_lattice.cu)
 _MAX_WAVEFRONT = 1024           # the wavefront's widest row (rnnt_wavefront.cuh kMaxWp)
+_RENORM = 8                     # diagonals between the walk's shifts (rnnt_wavefront.cuh kRenorm)
+_SHIFT_FROM = 512               # the largest live message must be below −this (kShiftFrom)
 
 
 def chain_scan(a: torch.Tensor, base: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -105,14 +109,25 @@ def _unskew(diags: torch.Tensor, T: int) -> torch.Tensor:
 def _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev: bool):
     """α (``rev`` False) or β by anti-diagonals, in the wavefront kernels'
     operations and order (``ops/csrc/rnnt_wavefront.cuh``), so that on the
-    card the kernels give these values' bits (``rnnt_lattice.cu`` kK7Fast
-    false: torch.logaddexp's expf/log1pf):
+    card the kernels give these values' bits (torch.logaddexp's
+    expf/log1pf):
       α(t,u) = logaddexp(up, right), up = α(t−1,u) + blank(t−1,u) (0 at the
         start cell), right = α(t,u−1) + emit(t,u−1);
       β(t,u) = logaddexp(blank(t,u) + up, emit(t,u) + right), up = β(t+1,u)
         (the virtual base at t = t_last), right = β(t,u+1);
     an edge from outside the lattice −1e30.  Rows past t_last repeat α's
-    last row or hold β's base; t_len ≤ 0 runs no frame."""
+    last row or hold β's base; t_len ≤ 0 runs no frame.
+
+    The walk keeps each row's values less a shift S: before every 8th
+    diagonal of the row's walk (α's from d = 0, β's from d = t_last + U)
+    whose largest live message is below −512, the messages drop by δ =
+    its floor and S grows by δ; each value is stored as x + S.  S is a
+    whole number, exact in f32, so the chain adds its log-probs to values
+    under ~600 rather than to α and β of ~10⁴ (at T = 1598), whose f32
+    spacing (~1e-3) rounds every step: unshifted, a row's occupancies
+    summed 3–4 % off float64's there, shifted ~1e-4; a stored value rounds
+    once.  Lattices whose values stay above −512 are never shifted.  β's
+    base enters while S = 0 (no live value comes before it)."""
     bl, em, cdt = _prep(blank_lp, emit_lp)
     B, T, U1 = bl.shape
     dev = bl.device
@@ -128,7 +143,15 @@ def _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev: bool):
         base = torch.where(lane == u_lens.to(dev)[:, None], 0.0, NEG).to(cdt)
     diags = [None] * n_diag
     up_msg = right_msg = torch.full((B, U1), NEG, dtype=cdt, device=dev)
+    shift = torch.zeros((B, 1), dtype=cdt, device=dev)
     for d in (range(n_diag - 1, -1, -1) if rev else range(n_diag)):
+        step = last + (U1 - 1) - d if rev else torch.full_like(last, d)   # of the row's walk
+        due = (step > 0) & (step % _RENORM == 0)
+        if bool(due.any()):
+            top = (up_msg if rev else torch.maximum(up_msg, right_msg)).amax(1, keepdim=True)
+            delta = torch.where(due & (top > -1e29) & (top < -_SHIFT_FROM), torch.floor(top),
+                                0.0).detach()
+            up_msg, right_msg, shift = up_msg - delta, right_msg - delta, shift + delta
         t = d - lane
         live = (t >= 0) & (t <= last)
         if rev:
@@ -140,7 +163,7 @@ def _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev: bool):
             right = torch.cat([neg, right_msg[:, :-1]], dim=1)
             x = torch.logaddexp(up, right)
         x = torch.where(live, x, NEG)
-        diags[d] = x
+        diags[d] = x + shift
         if rev:
             up_msg = x
         else:
@@ -192,34 +215,43 @@ def _scan_beta(bl, em, t_lens, u_lens):
 
 
 def wavefront_route(T: int, U1: int) -> bool:
-    """Whether the card takes K7's wavefront (else its scan): U+1 ≤ 1024 and
-    T·(U+1) < 2³¹ (``rnnt_lattice.cu`` wavefront_ok)."""
+    """Whether K7 takes the wavefront (else the scan): U+1 ≤ 1024 and
+    T·(U+1) < 2³¹.  The one choice of route: the wrappers pass it to the
+    kernels, and the plain versions take its order."""
     return U1 <= _MAX_WAVEFRONT and T * U1 < 2**31
+
+
+def _diagonal_order(order: str | None, shape) -> bool:
+    if order is None:
+        return wavefront_route(shape[1], shape[2])
+    if order not in ("diagonals", "frames"):
+        raise ValueError(f"order must be 'diagonals', 'frames' or None, got {order!r}")
+    return order == "diagonals"
 
 
 # --------------------------------------------------------------------------- #
 # Plain versions
 # --------------------------------------------------------------------------- #
-def rnnt_alpha_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
-                   t_lens: torch.Tensor) -> torch.Tensor:
-    """Plain K7a: every α (B, T, U+1) in f32 (f64 for f64 inputs), in the
-    operations and order of the card's route for the shape: by
-    anti-diagonals as the wavefront walks them, or by frames of log-step
-    scans as the scan kernel.  The start state is (0, −1e30, …); rows t ≥
+def rnnt_alpha_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor, t_lens: torch.Tensor,
+                   order: str | None = None) -> torch.Tensor:
+    """Plain K7a: every α (B, T, U+1) in f32 (f64 for f64 inputs), by
+    ``order``: "diagonals" as the wavefront walks them, "frames" of
+    log-step scans as the scan kernel (and the TPU kernel), None the card's
+    route's for the shape.  The start state is (0, −1e30, …); rows t ≥
     t_len repeat the last row.  Differentiable: the transducer loss of
     ``ops/rnnt.py`` runs through it."""
-    if wavefront_route(blank_lp.shape[1], blank_lp.shape[2]):
+    if _diagonal_order(order, blank_lp.shape):
         return _diagonal_walk(blank_lp, emit_lp, t_lens, None, rev=False)
     bl, em, _ = _prep(blank_lp, emit_lp)
     return _scan_alpha(bl, em, t_lens)
 
 
 def rnnt_beta_ref(blank_lp: torch.Tensor, emit_lp: torch.Tensor, t_lens: torch.Tensor,
-                  u_lens: torch.Tensor) -> torch.Tensor:
-    """Plain K7b: every β (B, T, U+1) in f32 (f64 for f64 inputs), in the
-    card's route's operations and order, from the virtual base (0 at u =
+                  u_lens: torch.Tensor, order: str | None = None) -> torch.Tensor:
+    """Plain K7b: every β (B, T, U+1) in f32 (f64 for f64 inputs), in
+    ``order`` as ``rnnt_alpha_ref``'s, from the virtual base (0 at u =
     u_len, −1e30 elsewhere), which rows t ≥ t_len keep."""
-    if wavefront_route(blank_lp.shape[1], blank_lp.shape[2]):
+    if _diagonal_order(order, blank_lp.shape):
         return _diagonal_walk(blank_lp, emit_lp, t_lens, u_lens, rev=True)
     bl, em, _ = _prep(blank_lp, emit_lp)
     return _scan_beta(bl, em, t_lens, u_lens)
@@ -260,7 +292,8 @@ def _launch(fn_name, blank_lp, emit_lp, lens):
     out = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(blank_lp.data_ptr(), emit_lp.data_ptr(), *(t.data_ptr() for t in lens32),
-                 out.data_ptr(), B, T, U1, torch.cuda.current_stream(dev).cuda_stream)
+                 out.data_ptr(), B, T, U1, int(wavefront_route(T, U1)),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     return out

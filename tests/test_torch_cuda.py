@@ -496,9 +496,10 @@ def lattice_data(seed, B, T, U):
 
 def assert_lattice_close(got, want):
     """The same dead states (≤ −1e29), and live values within 2e-5 + 2e-6 of
-    their size: f32 log-sum-exp chains in two operation orders (the kernels
-    walk anti-diagonals, or scan frames within warps; the plain versions scan
-    each frame over all columns)."""
+    their size.  On the scan route (U+1 > 1024) these are f32 log-sum-exp
+    chains in two operation orders (the kernels scan each frame within
+    warps, the plain versions over all columns); on the wavefront the plain
+    versions walk the kernels' diagonals in their operations."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     live = want > -1e29
     assert np.array_equal(live, got > -1e29)
@@ -531,14 +532,6 @@ def test_rnnt_lattice_kernels_match_plain(cuda_device, B, T, U):
     assert_lattice_close(got_b, want_b)
 
 
-def k7_fast() -> bool:
-    """Whether K7's wavefront takes the fast log-sum-exp (``kK7Fast``)."""
-    from pathlib import Path
-
-    src = Path(__file__).resolve().parents[1] / "statecatcher_tpu_torch/ops/csrc/rnnt_lattice.cu"
-    return "constexpr bool kK7Fast = true;" in src.read_text()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,U", [(4, 200, 48), (2, 33, 0), (4, 70, 128), (4, 30, 1023)])
 def test_rnnt_lattice_kernels_are_the_plain_versions_bit_for_bit(cuda_device, B, T, U):
@@ -549,8 +542,6 @@ def test_rnnt_lattice_kernels_are_the_plain_versions_bit_for_bit(cuda_device, B,
     training checks compare the exact loss's gradients, whose single-Z
     occupancies turn any other rounding of α and β into gradients a few
     percent apart)."""
-    if k7_fast():
-        pytest.skip("K7 takes the fast log-sum-exp: held to phase 8's tolerance instead")
     blank, emit, t_lens, u_lens = (t.to(cuda_device) for t in lattice_data(60 + U, B, T, U))
     with torch.inference_mode():
         for got, want in ((rnnt_alpha(blank, emit, t_lens), rnnt_alpha_ref(blank, emit, t_lens)),
@@ -578,9 +569,9 @@ def test_rnnt_lattice_kernels_are_deterministic(cuda_device, B, T, U):
 def test_rnnt_alpha_is_the_banded_alpha_without_a_band(cuda_device, B, T, U):
     """K7a's α equals the banded α on K7's cells when the band starts at 0
     and covers every label (window Wp ≥ U+1, the tables padded with −1e30):
-    the two walk the same recurrence in the same order, so they agree bit
-    for bit where they take the same log-sum-exp form (``kK7Fast`` against
-    the banded kernel's fast form), else to phase 8's tolerance."""
+    the two walk the same recurrence in the same order, K7 with the
+    accurate log-sum-exp and the banded kernel with the fast one, so they
+    agree to phase 8's tolerance."""
     from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha
 
     blank, emit, t_lens, _ = (t.to(cuda_device) for t in lattice_data(90 + U, B, T, U))
@@ -594,13 +585,10 @@ def test_rnnt_alpha_is_the_banded_alpha_without_a_band(cuda_device, B, T, U):
     o = torch.zeros((B, Tp // Tb), dtype=torch.int32, device=cuda_device)
     got = rnnt_alpha(blank, emit, t_lens)
     band = rnnt_band_alpha(blank_b, emit_b, o, t_lens, Tb)[:, :T, :U + 1]
-    if k7_fast():
-        assert torch.equal(got, band)
-    else:
-        live = band > -1e29
-        assert torch.equal(live, got > -1e29)
-        d = (got - band)[live].abs()
-        assert (d <= 2e-5 + 1e-5 * band[live].abs()).all(), d.max().item()
+    live = band > -1e29
+    assert torch.equal(live, got > -1e29)
+    d = (got - band)[live].abs()
+    assert (d <= 2e-5 + 1e-5 * band[live].abs()).all(), d.max().item()
 
 
 def joint_data(seed, B, T, U, J, V, dev, dtype=torch.float32):

@@ -33,6 +33,14 @@ path of the port.  Held:
   * the NLL read from the walk's α against the JAX package's ``_alpha_all``
     run in Pallas interpret mode (forward only, no JAX gradient) at
     tests/test_torch_rnnt_lattice.py's NLL tolerance (rtol 1e-5).
+
+The walk keeps its values less a whole-number shift, moved every 8
+diagonals once they pass −512 (``rnnt_lattice._diagonal_walk``); in
+float32 at T = 1598 the
+plain versions' diagonal walk holds the NLL and the occupancy gradient
+nearer float64 than the frame order.  And the plain versions' two orders
+(``order``) against each other in float64, and the order each shape takes
+by default.
 """
 
 import jax.numpy as jnp
@@ -42,7 +50,13 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from statecatcher_tpu.ops import rnnt_dp_pallas as jdp
-from statecatcher_tpu_torch.ops.rnnt_lattice import nll_from_alpha, rnnt_alpha_ref, rnnt_beta_ref
+from statecatcher_tpu_torch.ops.rnnt_lattice import (
+    nll_from_alpha,
+    occupancy_grads,
+    rnnt_alpha_ref,
+    rnnt_beta_ref,
+    wavefront_route,
+)
 from test_torch_band_wavefront import _span, consume
 from test_torch_cuda import single_torch_thread  # noqa: F401
 
@@ -51,6 +65,8 @@ pytestmark = pytest.mark.usefixtures("single_torch_thread")
 NEG = -1e30
 LANES = 32
 RING_AHEAD = 2                            # rnnt_wavefront.cuh: kRingAhead
+RENORM = 8                                # rnnt_wavefront.cuh: kRenorm
+SHIFT_FROM = 512.0                        # rnnt_wavefront.cuh: kShiftFrom
 INSTANTIATED = (4, 6, 8, 12, 16, 24, 32)  # C of the producer's own loads (launch_walk)
 
 
@@ -148,8 +164,13 @@ def walk_exact(blank, emit, t_lens, u_lens, rev):
             lo_row = (last + 1 if rev else 0) % R          # lo's ring row, moved on
         m0 = torch.full((LANES, c), NEG, dtype=blank.dtype)
         m1 = m0.clone()
+        shift = 0.0
         lo_prev = last + 1 if rev else 0
         for cc in range(-(-n_diag // chunk)):
+            if cc and cc * chunk % RENORM == 0:           # the messages drop by the shift's step
+                top = float((m0 if rev else torch.maximum(m0, m1)).max())
+                delta = float(np.floor(top)) if -1e29 < top < -SHIFT_FROM else 0.0
+                m0, m1, shift = m0 - delta, m1 - delta, shift + delta
             if ring:                                      # wait for all but the last group
                 waited = state["group"] - RING_AHEAD
                 ring_copy(d_first + sgn * ((cc + RING_AHEAD + 1) * chunk - 1))
@@ -185,7 +206,7 @@ def walk_exact(blank, emit, t_lens, u_lens, rev):
                 start = (t == last) & (wc == w_virt) if rev else (t == 0) & (wc == 0)
                 floor_up = torch.where(ok & start, 0.0, NEG).to(blank.dtype)
                 x, m0, m1 = consume(m0, m1, dl, bl, em, floor_up, rev)
-                out[b, tc[ok], wc[ok]] = x[ok]
+                out[b, tc[ok], wc[ok]] = x[ok] + shift
         out[b, last + 1:] = (torch.where(lane_w == ul, 0.0, NEG).to(blank.dtype) if rev
                              else out[b, last])
     return out
@@ -241,3 +262,61 @@ def test_walk_nll_matches_jax(U, T):
                                               jnp.asarray(tl.numpy()),
                                               jnp.asarray(ul.numpy())))
     np.testing.assert_allclose(nll.numpy(), want, rtol=1e-5)
+
+
+# (U, T): the wavefront's widths and one of the scan route's (U+1 > 1024)
+ORDER_CASES = [(0, 9), (12, 30), (48, 40), (1030, 4)]
+
+
+@pytest.mark.parametrize("U,T", ORDER_CASES, ids=["U1=1", "U1=13", "U1=49", "U1=1031"])
+def test_plain_orders_agree_in_float64(U, T):
+    """The plain versions' two orders (the wavefront's diagonals, the scan's
+    frames) are one function: in float64 they agree to rtol 1e-9."""
+    blank, emit, t_lens, u_lens = _problem(40 + U, T, U)
+    for fn, args in ((rnnt_alpha_ref, (blank, emit, t_lens)),
+                     (rnnt_beta_ref, (blank, emit, t_lens, u_lens))):
+        _assert_lattice_equal(fn(*args, order="diagonals"), fn(*args, order="frames"))
+
+
+@pytest.mark.parametrize("U,T,order", [(12, 30, "diagonals"), (1030, 4, "frames")],
+                         ids=["wavefront", "scan"])
+def test_plain_order_follows_the_route(U, T, order):
+    """With no order named, the plain versions take the order of the card's
+    route for the shape (``wavefront_route``), bit for bit in float32."""
+    blank, emit, t_lens, u_lens = (x.float() if x.is_floating_point() else x
+                                   for x in _problem(50 + U, T, U))
+    assert wavefront_route(T, U + 1) == (order == "diagonals")
+    assert torch.equal(rnnt_alpha_ref(blank, emit, t_lens),
+                       rnnt_alpha_ref(blank, emit, t_lens, order=order))
+    assert torch.equal(rnnt_beta_ref(blank, emit, t_lens, u_lens),
+                       rnnt_beta_ref(blank, emit, t_lens, u_lens, order=order))
+
+
+def test_plain_order_must_be_known():
+    blank, emit, t_lens, _ = _problem(1, 5, 3)
+    with pytest.raises(ValueError, match="order"):
+        rnnt_alpha_ref(blank, emit, t_lens, order="columns")
+
+
+def test_plain_diagonals_hold_float64_at_long_t():
+    """At T = 1598, U = 48 with log-probs near a random model's (−log 1024),
+    the f32 diagonal walk, shifted every 8 diagonals past −512, keeps the NLL
+    within 2e-3 of float64's and the occupancy gradient within 2e-3 of its
+    norm."""
+    rng = np.random.default_rng(5)
+    B, T, U = 2, 1598, 48
+    blank = torch.from_numpy(-6.93 + 0.05 * rng.standard_normal((B, T, U + 1)))
+    emit = torch.from_numpy(-6.93 + 0.05 * rng.standard_normal((B, T, U)))
+    t_lens, u_lens = torch.tensor([T, T - 11], dtype=torch.int32), torch.tensor([U, U - 5])
+
+    def solve(bl, em):
+        alpha = rnnt_alpha_ref(bl, em, t_lens, order="diagonals")
+        beta = rnnt_beta_ref(bl, em, t_lens, u_lens, order="diagonals")
+        nll = nll_from_alpha(alpha, bl, t_lens, u_lens)
+        g = occupancy_grads(bl, em, t_lens, u_lens, alpha, beta, nll, torch.ones_like(nll))
+        return nll.double(), torch.cat([x.flatten() for x in g]).double()
+
+    nll64, g64 = solve(blank, emit)
+    nll32, g32 = solve(blank.float(), emit.float())
+    assert (nll32 - nll64).abs().max() < 2e-3
+    assert (g32 - g64).norm() / g64.norm() < 2e-3

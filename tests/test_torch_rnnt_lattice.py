@@ -73,3 +73,15 @@ def test_lattice_plain_matches_jax_interpret(B, T, U):
     for r in range(B):
         np.testing.assert_allclose(occ[r, :t_lens[r]].sum(1), 1.0, atol=5e-4)
         assert not occ[r, t_lens[r]:].any()
+
+
+def test_lattice_plain_frames_match_jax_interpret():
+    """The plain versions in the frame order (the scan route's, and the TPU
+    kernel's) against ``_alpha_all``/``_beta_all``."""
+    blank, emit, t_lens, u_lens = _lattice_problem(11, 4, 37, 13)
+    with pltpu.force_tpu_interpret_mode():
+        ja = jdp._alpha_all(*map(jnp.asarray, (blank, emit, t_lens)))
+        jb = jdp._beta_all(*map(jnp.asarray, (blank, emit, t_lens, u_lens)))
+    tb, te, tt, tu = map(torch.from_numpy, (blank, emit, t_lens, u_lens))
+    _live_close(rnnt_alpha_ref(tb, te, tt, order="frames").numpy(), ja)
+    _live_close(rnnt_beta_ref(tb, te, tt, tu, order="frames").numpy(), jb)

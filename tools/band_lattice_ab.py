@@ -13,8 +13,9 @@ Each run imports ``statecatcher_tpu_torch`` from the checkout on
 helpers of this tree's ``chip_smoke.py`` and ``profile_train.py`` (so both
 checkouts run the same phases and report the same groups, over their own
 package).  It times with CUDA events the banded α and β on K8a's f32 tables
-at phase 13's shape (B=32, T=1598, U=128, band 32: Wp=48, Tp=1600) and at
-bench.py's RNN-T rows (B=96, U=64 and U=128), each beside its chain floor
+at phase 13's shape (B=32, T=1598, U=128, band 32: Wp=48, Tp=1600), at
+bench.py's RNN-T rows (B=96, U=64 and U=128) and at a window above the
+frame ring's (B=32, U=200, band 128), each beside its chain floor
 (``chip_smoke.band_chain_floor``), and K7a/K7b at phase 8's shapes
 (``chip_smoke.phase_exact_lattice``: B=32, T=1598, U=48 and U=128, a ragged
 shape and U+1 > 1024, each held against the plain versions and beside its
@@ -25,13 +26,14 @@ phase 15's RNN-T rows (B=96, bf16, K=4, U=64 and U=128: audio-s/s) and, with
 ``--profile``, ``profile_train --mode rnnt`` at U=48 (the exact loss) and at
 U=128 (banded), B=32 f32, and at U=128, B=96 bf16 (device time by kernel and
 by group).  With ``--save DIR`` it writes K7's f32 outputs and the banded α
-and β on fixed inputs to DIR/<tag>.pt and reports, for every other tag saved
+and β on fixed inputs (Wp 48, and Wp above 104) to DIR/<tag>.pt and reports, for every other tag saved
 there, whether they are bit for bit equal, and the largest difference where
 they are not.  With ``--variants`` (this tree's package only) it builds K7
 in both forms of its log-sum-exp (form (a), the accurate expf/log1pf; form
 (b), the fast __expf/__logf; the shipped one is not rebuilt), runs
-``phase_exact_lattice`` and phases 9 and 14 under each, reporting each
-phase's update difference or its failure, and times the other builds of
+``phase_exact_lattice``, phases 9 and 14 and phase 9's float64 witness
+(``phase_rnnt_witness``) under each, reporting each phase's update
+difference (the witness's distances from float64) or its failure, and times the other builds of
 ``K7_VARIANTS`` (the exact ring's rows unpadded, no exact ring) at phase 8's
 K7 cases.  With ``--band-variants`` it builds copies
 of ``rnnt_lattice.cu`` patched at exact strings of ``rnnt_wavefront.cuh``
@@ -101,23 +103,24 @@ BAND_VARIANTS = {
     "chunks of 4 diagonals": [("return C <= 16 ? 8 : 4;", "return C <= 16 ? 4 : 4;")],
     "chunks of 16 diagonals": [("return C <= 16 ? 8 : 4;", "return C <= 16 ? 16 : 4;")],
 }
-# K7's two forms of the log-sum-exp (rnnt_lattice.cu kK7Fast), each with
-# phases 9 and 14 ("train"); other builds of K7 with phase 8's K7 cases
-# ("check"), or only timed where their outputs are wrong ("time"):
+# K7's two forms of the log-sum-exp (the exact walk's lae: the shipped
+# accurate one, or the banded kernel's fast one), each with phases 9 and 14
+# and phase 9's float64 witness ("train"); other builds of K7 with phase 8's
+# K7 cases ("check"), or only timed where their outputs are wrong ("time"):
 # name -> (patches, mode)
 _NO_RING = ("if (kBand ? Wp <= kRingMaxWp : smem_bytes(c, true, false, Wp, 0) <= 227 * 1024)",
             "if (kBand ? Wp <= kRingMaxWp : false)")
 K7_VARIANTS = {
-    "K7 form (a): expf/log1pf": ([("rnnt_lattice.cu", "constexpr bool kK7Fast = true;",
-                                   "constexpr bool kK7Fast = false;")], "train"),
-    "K7 form (b): __expf/__logf": ([("rnnt_lattice.cu", "constexpr bool kK7Fast = false;",
-                                     "constexpr bool kK7Fast = true;")], "train"),
+    "K7 form (a): expf/log1pf": ([], "train"),
+    "K7 form (b): __expf/__logf": ([("x = lae<kBand>(up, in_rt[i]);", "x = lae<true>(up, in_rt[i]);"),
+                                    ("x = lae<kBand>(r[i].bl + up,", "x = lae<true>(r[i].bl + up,")],
+                                   "train"),
     "exact ring rows at the tables' own strides": ([("    sb = (Wp + 1) & ~1;", "    sb = Wp;"),
                                                     ("    se = Wp & ~1; ", "    se = Wp - 1;")],
                                                    "check"),
     "no exact ring (the producer's own loads)": ([_NO_RING], "check"),
     "no exact ring, the producer's loads a diagonal at a time": (
-        [_NO_RING, ("#pragma unroll(kRing || C <= 8 ? kChunk : 1)",
+        [_NO_RING, ("#pragma unroll(kRing || (!kBand && C <= 8) ? kChunk : 1)",
                     "#pragma unroll(kRing ? kChunk : 1)")], "check"),
     "no frame copies (outputs wrong)": (
         [("        sweep_bl.copy(", "        if (0) sweep_bl.copy("),
@@ -198,11 +201,11 @@ def using(lib):
         _kernels.library = shipped
 
 
-def band_tables(cs, gen, B, U, dev):
-    """K8a's f32 tables at (B, T=1598, U, band 32) and the band's geometry."""
+def band_tables(cs, gen, B, U, dev, band=32):
+    """K8a's f32 tables at (B, T=1598, U, band) and the band's geometry."""
     from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_fwd
 
-    J, V, T, band, Tb = 64, 1024, 1598, 32, 8
+    J, V, T, Tb = 64, 1024, 1598, 8
     enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, *_ = cs.band_problem(
         gen, B, T, U, J, V, band, Tb, dev, torch.float32)
     with torch.inference_mode():
@@ -287,6 +290,7 @@ def run_k7_variants(cs, cfg, dev) -> dict:
     phase 14's, or the failure of each; the "time" builds only timed."""
     phases = {
         "phase 9": lambda: cs.phase_train_step(cfg, dev, K=2, U=48, mode="rnnt"),
+        "phase 9 witness": lambda: cs.phase_rnnt_witness(cfg, dev, K=2, U=48),
         "phase 14": lambda: cs.phase_train_step(cfg, dev, K=2, U=128, mode="rnnt",
                                                 path="rnnt banded", degenerate=True)}
     out = {}
@@ -305,7 +309,8 @@ def run_k7_variants(cs, cfg, dev) -> dict:
             for phase, run in phases.items() if mode == "train" else ():
                 try:
                     got = run()
-                    res[phase] = {k: got[k] for k in ("update_rel", "frac_off")}
+                    res[phase] = ({k: got[k]["dist"] for k in got} if phase.endswith("witness")
+                                  else {k: got[k] for k in ("update_rel", "frac_off")})
                 except AssertionError as err:
                     res[phase] = f"fails: {err}"
         out[name] = res
@@ -329,7 +334,9 @@ def main() -> int:
         raise SystemExit("band_lattice_ab needs a CUDA card")
     cs = load_chip_smoke()
     from statecatcher_tpu_torch.config import Config
-    from statecatcher_tpu_torch.ops import _kernels
+    from statecatcher_tpu_torch.ops import _kernels, rnnt_lattice
+    if not hasattr(rnnt_lattice, "wavefront_route"):     # a checkout where K7 only scans
+        rnnt_lattice.wavefront_route = lambda T, U1: False
     from statecatcher_tpu_torch.ops.rnnt_band import rnnt_band_alpha, rnnt_band_beta
     from statecatcher_tpu_torch.ops.rnnt_lattice import rnnt_alpha, rnnt_beta
 
@@ -346,20 +353,23 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
     if args.save:
         blank, emit, t_lens, u_lens = (x.to(dev) for x in exact_inputs(gen, dev))
-        tables = band_tables(cs, gen, 4, 128, dev)
-        bl, em, o, tl, ul, Tb = tables
         with torch.inference_mode():
             outs = {"K7 rnnt_alpha": rnnt_alpha(blank, emit, t_lens),
-                    "K7 rnnt_beta": rnnt_beta(blank, emit, t_lens, u_lens),
-                    "band alpha": rnnt_band_alpha(bl, em, o, tl, Tb),
-                    "band beta": rnnt_band_beta(bl, em, o, tl, ul, Tb)}
+                    "K7 rnnt_beta": rnnt_beta(blank, emit, t_lens, u_lens)}
+            # Wp 48 (the frame ring) and Wp above kRingMaxWp (the producer's
+            # own loads)
+            for label, U, band in (("", 128, 32), (" Wp>104", 200, 128)):
+                bl, em, o, tl, ul, Tb = band_tables(cs, gen, 4, U, dev, band)
+                outs[f"band alpha{label}"] = rnnt_band_alpha(bl, em, o, tl, Tb)
+                outs[f"band beta{label}"] = rnnt_band_beta(bl, em, o, tl, ul, Tb)
         compare_saved(args.tag, outs, args.save)
     out, at32 = {}, None
-    for label, B, U in (("B=32 U=128", 32, 128), ("B=96 U=64", 96, 64), ("B=96 U=128", 96, 128)):
-        tables = band_tables(cs, gen, B, U, dev)
+    for label, B, U, band in (("B=32 U=128", 32, 128, 32), ("B=96 U=64", 96, 64, 32),
+                              ("B=96 U=128", 96, 128, 32), ("B=32 U=200 band 128", 32, 200, 128)):
+        tables = band_tables(cs, gen, B, U, dev, band)
         out[label] = time_lattice(cs, tables, args.reps)
         print(f"[{args.tag}] band lattice {label}: {out[label]}", flush=True)
-        if B == 32:
+        if label == "B=32 U=128":
             at32 = tables
         else:
             del tables
