@@ -1340,10 +1340,50 @@ def phase_exact_lattice(dev, gen=None) -> dict:
     return out
 
 
+def check_equal_or_bf16_step(got, want, name) -> float:
+    """f32: raise unless ``got`` is ``want`` bit for bit (the kernel and the
+    plain version do the same operations, each rounded once, in the same
+    order); bf16: unless every |Δ| ≤ one bf16 step of |want| (both round the
+    same f32 carry once, which may differ by f32 round-off).  Returns the
+    largest |Δ|."""
+    if got.dtype == torch.float32:
+        if not torch.equal(got, want):
+            d = (got - want).abs()
+            raise AssertionError(f"{name}: f32 differs from its plain version in "
+                                 f"{int((got != want).sum())} elements, max |Δ| "
+                                 f"{d.max().item():.3e}")
+        return 0.0
+    return check_close([got], [want], [name], 2.0 ** -7, 1e-6)
+
+
+def offset_copy(x):
+    """A copy of x whose storage starts one element past its allocation, so
+    that its rows no longer start on 16 bytes (a kernel's narrower copy
+    units)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# The ring's edges (K5a: tiles of 32 steps, 4 stages, 32 f32 / 64 bf16
+# columns a block; K12: tiles of 12 steps, 3 stages, 64 columns): (B, T, D,
+# dtype, inputs offset by one element)
+K5A_EDGES = [(2, 1, 512, torch.float32, False), (2, 33, 100, torch.float32, False),
+             (2, 129, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
+             (2, 31, 101, torch.bfloat16, False), (2, 65, 520, torch.bfloat16, True)]
+K12_EDGES = [(2, 1, 512, torch.float32, False), (2, 13, 100, torch.float32, False),
+             (2, 37, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
+             (2, 11, 101, torch.bfloat16, False), (2, 37, 520, torch.bfloat16, True)]
+
+
 def phase_scan_kernels(dev) -> dict:
     """Phase 11: K5a and K5b against their plain versions at the flagship's
     cell shape (B=32, T=1598, D=512), f32 and bf16, with times, the byte
-    bound (two planes read, one written) and plain times."""
+    bound (two planes read, one written) and plain times: K5a bit for bit in
+    f32 and to one bf16 step in bf16, also at the edges of its ring
+    (``K5A_EDGES``), and its time at the streaming shape (B=1, T=32, from a
+    CUDA graph)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     out = {}
     B, T, D = 32, 1598, 512
@@ -1359,7 +1399,9 @@ def phase_scan_kernels(dev) -> dict:
                 got = fn(*args)
                 torch.cuda.synchronize()
                 want = ref(*args)
-                if dtype == torch.float32:
+                if name == "K5a":
+                    err = check_equal_or_bf16_step(got, want, f"K5a {label}")
+                elif dtype == torch.float32:
                     # the same products and sums in the same order
                     err = check_close([got], [want], [name], 1e-6, 1e-6)
                 else:
@@ -1376,6 +1418,28 @@ def phase_scan_kernels(dev) -> dict:
                     f"{bound / ms:.1%} of it)  library_ms: none")
                 out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                           "bound_ms": bound, "bound_by": bound_by}
+        del a, b, g
+    worst = 0.0
+    for B, T, D, dtype, offset in K5A_EDGES:
+        a = torch.sigmoid(torch.randn((B, T, D), generator=gen, device=dev) + 2.0).to(dtype)
+        b = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+        if offset:
+            a, b = offset_copy(a), offset_copy(b)
+        s0 = torch.randn((B, D), generator=gen, device=dev)
+        with torch.inference_mode():
+            got = linear_scan_fwd(a, b, s0)
+            torch.cuda.synchronize()
+            worst = max(worst, check_equal_or_bf16_step(
+                got, linear_scan_ref(a, b, s0), f"K5a at (B={B}, T={T}, D={D}, {dtype}"
+                f"{', offset' if offset else ''})"))
+    a = torch.sigmoid(torch.randn((1, 32, 512), generator=gen, device=dev) + 2.0)
+    b = torch.randn((1, 32, 512), generator=gen, device=dev)
+    s0 = torch.randn((1, 512), generator=gen, device=dev)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: linear_scan_fwd(a, b, s0), 200, graph=True)
+    log(f"[K5] K5a streaming f32 (B=1, T=32, D=512): kernel {ms:.4f} ms (CUDA graph)")
+    log(f"[K5] K5a at the ring's edges ({len(K5A_EDGES)} shapes: T = 1, a tile ± 1, ragged "
+        f"and odd D, B = 1, offset inputs): f32 bit for bit, bf16 max|Δ| {worst:.3e}")
     return out
 
 
@@ -1948,7 +2012,10 @@ def phase_cell_scan_kernels(dev) -> dict:
     cell shape (B=32, T=1598, D=512; f32 and bf16, unmasked and with one
     partial row) and K12 at the streaming shape (1, 32, 512), on
     ``conditioned_cell_inputs``; K11 runs on the planes of the (masked) gate
-    chain.  Tolerances as phase 1 holds K1.  Then the gradients of both
+    chain.  K12 bit for bit its plain version in f32, to one bf16 step in
+    bf16, also at the edges of its ring (``K12_EDGES``, each unmasked, with
+    partial rows, and with a row masked throughout and one whose first frame
+    is masked); K11 to phase 1's tolerances for K1.  Then the gradients of both
     autograd Functions (the backward's two reverse scans through K5b) on
     the card against the same Functions over the plain versions, at the f32
     shape: 1e-4 relative plus 1e-6 of each gradient's scale, K2's f32
@@ -1978,7 +2045,10 @@ def phase_cell_scan_kernels(dev) -> dict:
                 h, s = fn(*args)
                 torch.cuda.synchronize()
                 h_ref, s_ref = ref(*args)
-                if dtype == torch.float32:
+                if name == "K12":
+                    err = max(check_equal_or_bf16_step(h, h_ref, f"K12 {label} h"),
+                              check_equal_or_bf16_step(s, s_ref, f"K12 {label} s"))
+                elif dtype == torch.float32:
                     err = check_cell(h, s, h_ref, s_ref, 2e-5, 0.0, 1e-6, 1e-4)
                 else:
                     err = check_cell(h, s, h_ref, s_ref, 2e-2, 2e-2, 1e-3, 1e-2)
@@ -1990,6 +2060,31 @@ def phase_cell_scan_kernels(dev) -> dict:
                 f"it)  library_ms: none")
             out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                       "bound_ms": bound, "bound_by": bound_by}
+
+    worst = 0.0
+    for B, T, D, dtype, offset in K12_EDGES:
+        gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)
+        g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
+        if offset:
+            g4 = offset_copy(g4)
+        frozen = torch.ones((B, T), dtype=torch.bool, device=dev)
+        frozen[0] = False                                     # masked throughout
+        frozen[B - 1, 0] = False                              # first frame masked
+        for mask in (None, masked_rows(B, T, dev), frozen):
+            with torch.inference_mode():
+                h, s = lucy_fused_cell(g4, h0, s0, mask)
+                torch.cuda.synchronize()
+                h_ref, s_ref = lucy_fused_cell_ref(g4, h0, s0, mask)
+            where = (f"K12 at (B={B}, T={T}, D={D}, {dtype}{', offset' if offset else ''}, "
+                     f"{'unmasked' if mask is None else 'masked'})")
+            worst = max(worst, check_equal_or_bf16_step(h, h_ref, where + " h"),
+                        check_equal_or_bf16_step(s, s_ref, where + " s"))
+            if mask is frozen and not (torch.equal(h[0], h0[0].to(dtype).expand(T, D))
+                                       and torch.equal(s[0], s0[0].to(dtype).expand(T, D))):
+                raise AssertionError(f"{where}: a row masked throughout left h0, s0")
+    log(f"[K12] at the ring's edges ({len(K12_EDGES)} shapes × unmasked, partial rows, a row "
+        f"masked throughout and a first frame masked): f32 bit for bit, bf16 max|Δ| "
+        f"{worst:.3e}")
 
     B, T, D = 32, 1598, 512
     gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)

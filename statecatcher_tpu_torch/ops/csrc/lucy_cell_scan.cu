@@ -2,7 +2,8 @@
 // the dual scan (K11).
 //
 // Replaces two TPU kernels of statecatcher_tpu/ops/lucy_pallas.py:
-//   K12  lucy_fused_cell_kernel <- _fused_cell_kernel (:319), launched by
+//   K12  lucy_tile::cell_fwd_kernel<MaskedCellChain<masked>>
+//                               <- _fused_cell_kernel (:319), launched by
 //                                  _fused_cell_fwd_impl (:390)
 //   K11  lucy_dual_scan_kernel  <- _dual_scan_kernel (:527), launched by
 //                                  _dual_scan_fwd_impl (:568)
@@ -40,26 +41,35 @@
 // (0.020 ms at 67 TFLOP/s).  K11 reads 4 planes and writes 2: 628.3 MB, 0.188
 // ms f32 (0.094 ms bf16), against ~8 operations per element.
 //
-// Design: one thread per (b, d) column walks T (neighbouring threads read
-// neighbouring d, so every gate and plane load coalesces).  Each thread
-// loads kChunk steps of its inputs into registers before it runs them, so a
-// chunk's loads are in flight together instead of each step waiting on its
-// own; the gate chain of a step does not depend on the carry, so only the
-// two scan updates are serial.  The TPU kernel's time chunks of 256 rows,
-// its Hillis-Steele composition of each chunk, its 128-lane padding of D
-// and the identity rows of its ragged tail are TPU tiling and are not
-// carried over: rows >= T do not exist here.  Not done yet: at B=32 the
-// grid is 128 blocks of 128 threads, one per SM, too few warps to cover the
-// memory latency.
+// K12's design: K1's schedule, the cell forward of lucy_tile.cuh
+// (`cell_fwd_kernel`).  A block owns one batch row and 64 columns and walks
+// time in tiles of 12 steps through a 3-stage cp.async ring of the 7 gate
+// planes and the tile's 12 mask values; 12 chain warps turn tile j's gates
+// into the four coefficients (a_s, b_s, a_h, h_pre_n), the mask folded in,
+// while one thread a column walks tile j-1 (the two steps and the tanh, h
+// and s in registers) and the chain warps store tile j-2's h and s with
+// 16-byte stores.  Its chain differs from K1's in three ways: no bias input
+// (the caller has added it), every operation rounded as written (K1 lets
+// nvcc contract), and the optional mask.  The h step's offset is (1 - a_h)*c:
+// with m in {0, 1}, 1 - (m*z_n + (1-m)) is m*(1 - z_n), bit for bit and NaN
+// for NaN, so four coefficients carry the masked step too.  What bounds it:
+// instructions, as K1: the chain's IEEE sqrt and divides, ~250 instructions
+// an element, all of the tile's elements in parallel on 12 warps.
+//
+// K11's design: one thread per (b, d) column walks T (neighbouring threads
+// read neighbouring d, so every plane load coalesces).  Each thread loads
+// kChunk steps of its inputs into registers before it runs them, so a chunk's
+// loads are in flight together instead of each step waiting on its own.  The
+// TPU kernel's time chunks of 256 rows, its Hillis-Steele composition of each
+// chunk, its 128-lane padding of D and the identity rows of its ragged tail
+// are TPU tiling and are not carried over: rows >= T do not exist here.  Not
+// done yet: at B=32 the grid is 128 blocks of 128 threads, one per SM, too
+// few warps to cover the memory latency.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "lucy_tile.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-6f;
 constexpr int kThreads = 128;
 constexpr int kChunk = 8;
 
@@ -71,68 +81,49 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfl
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float sigmoid_f32(float x) { return div(1.0f, add(1.0f, expf(-x))); }
+__device__ __forceinline__ float sigmoid_rn(float x) { return div(1.0f, add(1.0f, expf(-x))); }
 
 // s <- a*s + b, the product and the sum each rounded once
-__device__ __forceinline__ float step(float a, float s, float b) { return add(mul(a, s), b); }
+__device__ __forceinline__ float scan_step(float a, float s, float b) { return add(mul(a, s), b); }
 
-template <typename G, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-lucy_fused_cell_kernel(const G* __restrict__ gates, const unsigned char* __restrict__ mask,
-                       const float* __restrict__ h0, const float* __restrict__ s0,
-                       G* __restrict__ h_all, G* __restrict__ s_all, int B, int T, int D) {
-  const long long col = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= static_cast<long long>(B) * D) return;
-  const long long b = col / D;
-  const size_t d = static_cast<size_t>(col - b * D);
-  const size_t row = static_cast<size_t>(7) * D;
-  const G* g = gates + static_cast<size_t>(b) * T * row + d;
-  const unsigned char* mk = kMasked ? mask + static_cast<size_t>(b) * T : nullptr;
-  const size_t out0 = static_cast<size_t>(b) * T * D + d;
-  float h = h0[col], s = s0[col];
+// K12's chain: (a_s, b_s, a_h, h_pre_n), the mask folded in as the plain
+// version does (ops/lucy_gates.py), every operation rounded on its own.
+template <bool kMask>
+struct MaskedCellChain {
+  static constexpr bool kBias = false;
+  static constexpr bool kMasked = kMask;
 
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    float x[kChunk][7];
-    float m[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int t = t0 + k;
-      const G* gt = g + static_cast<size_t>(t) * row;
-#pragma unroll
-      for (int i = 0; i < 7; ++i) x[k][i] = t < T ? ld(gt + static_cast<size_t>(i) * D) : 0.0f;
-      m[k] = (kMasked && t < T) ? static_cast<float>(mk[t]) : 1.0f;
+  __device__ static __forceinline__ void coefs(const float (&x)[7], float m, float (&c)[4]) {
+    constexpr float kEps = lucy_tile::kEps;
+    const float r = x[0], z = x[1], kk = x[2], v = x[3];
+    const float h_pre = x[4], decay = x[5], alpha = x[6];
+    const float rms_rz = sqrtf(add(div(add(mul(r, r), mul(z, z)), 2.0f), kEps));
+    const float rms_kv2 = add(div(add(mul(kk, kk), mul(v, v)), 2.0f), kEps);
+    const float rms_kv = sqrtf(rms_kv2);
+    const float z_n = sigmoid_rn(div(z, rms_rz));
+    const float decay_n = sigmoid_rn(div(decay, sqrtf(add(mul(decay, decay), kEps))));
+    const float alpha_n = sigmoid_rn(div(alpha, sqrtf(add(mul(alpha, alpha), kEps))));
+    const float h_pre_n = div(h_pre, sqrtf(add(mul(h_pre, h_pre), kEps)));
+    const float kv = div(mul(div(kk, rms_kv), div(v, rms_kv)), add(rms_kv2, kEps));
+    float a_s = decay_n, b_s = mul(alpha_n, kv), a_h = z_n;
+    if constexpr (kMask) {
+      a_s = add(mul(m, a_s), 1.0f - m);
+      b_s = mul(m, b_s);
+      a_h = add(mul(m, a_h), 1.0f - m);
     }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int t = t0 + k;
-      if (t >= T) break;
-      const float r = x[k][0], z = x[k][1], kk = x[k][2], v = x[k][3];
-      const float h_pre = x[k][4], decay = x[k][5], alpha = x[k][6];
-      const float rms_rz = sqrtf(add(div(add(mul(r, r), mul(z, z)), 2.0f), kEps));
-      const float rms_kv2 = add(div(add(mul(kk, kk), mul(v, v)), 2.0f), kEps);
-      const float rms_kv = sqrtf(rms_kv2);
-      const float z_n = sigmoid_f32(div(z, rms_rz));
-      const float decay_n = sigmoid_f32(div(decay, sqrtf(add(mul(decay, decay), kEps))));
-      const float alpha_n = sigmoid_f32(div(alpha, sqrtf(add(mul(alpha, alpha), kEps))));
-      const float h_pre_n = div(h_pre, sqrtf(add(mul(h_pre, h_pre), kEps)));
-      const float kv = div(mul(div(kk, rms_kv), div(v, rms_kv)), add(rms_kv2, kEps));
-      float a_s = decay_n, b_s = mul(alpha_n, kv), a_h = z_n, bh_c = 1.0f - z_n;
-      if (kMasked) {
-        const float mm = m[k];
-        a_s = add(mul(mm, a_s), 1.0f - mm);
-        b_s = mul(mm, b_s);
-        a_h = add(mul(mm, a_h), 1.0f - mm);
-        bh_c = mul(mm, bh_c);
-      }
-      s = step(a_s, s, b_s);
-      const float c = tanhf(h_pre_n + s);
-      h = step(a_h, h, mul(bh_c, c));
-      const size_t o = out0 + static_cast<size_t>(t) * D;
-      st(h_all + o, h);
-      st(s_all + o, s);
-    }
+    c[0] = a_s;
+    c[1] = b_s;
+    c[2] = a_h;
+    c[3] = h_pre_n;
   }
-}
+
+  __device__ static __forceinline__ void step(float a_s, float b_s, float a_h, float h_pre_n,
+                                              float& s, float& h) {
+    s = scan_step(a_s, s, b_s);
+    const float c = tanhf(add(h_pre_n, s));
+    h = scan_step(a_h, h, mul(1.0f - a_h, c));
+  }
+};
 
 template <typename P>
 __global__ void __launch_bounds__(kThreads)
@@ -161,9 +152,9 @@ lucy_dual_scan_kernel(const P* __restrict__ a_s, const P* __restrict__ b_s,
     for (int k = 0; k < kChunk; ++k) {
       const int t = t0 + k;
       if (t >= T) break;
-      s = step(as[k], s, bs[k]);
+      s = scan_step(as[k], s, bs[k]);
       const float c = tanhf(hp[k] + s);
-      h = step(ah[k], h, mul(1.0f - ah[k], c));
+      h = scan_step(ah[k], h, mul(1.0f - ah[k], c));
       const size_t i = base + static_cast<size_t>(t) * D;
       st(h_all + i, h);
       st(s_all + i, s);
@@ -173,20 +164,6 @@ lucy_dual_scan_kernel(const P* __restrict__ a_s, const P* __restrict__ b_s,
 
 unsigned blocks_for(int B, int D) {
   return static_cast<unsigned>((static_cast<long long>(B) * D + kThreads - 1) / kThreads);
-}
-
-template <typename G>
-void launch_cell(const void* gates, const unsigned char* mask, const float* h0, const float* s0,
-                 void* h_all, void* s_all, int B, int T, int D, cudaStream_t st) {
-  const G* g = static_cast<const G*>(gates);
-  G* ho = static_cast<G*>(h_all);
-  G* so = static_cast<G*>(s_all);
-  if (mask != nullptr)
-    lucy_fused_cell_kernel<G, true><<<blocks_for(B, D), kThreads, 0, st>>>(g, mask, h0, s0, ho,
-                                                                           so, B, T, D);
-  else
-    lucy_fused_cell_kernel<G, false><<<blocks_for(B, D), kThreads, 0, st>>>(g, mask, h0, s0, ho,
-                                                                            so, B, T, D);
 }
 
 template <typename P>
@@ -199,23 +176,33 @@ void launch_dual(const void* a_s, const void* b_s, const void* a_h, const void* 
       D);
 }
 
+template <bool kMask, typename G>
+int launch_cell(const void* gates, const unsigned char* mask, const float* h0, const float* s0,
+                void* h_all, void* s_all, int B, int T, int D, cudaStream_t st) {
+  return lucy_tile::launch_cell_fwd<MaskedCellChain<kMask>, G>(gates, nullptr, mask, h0, s0,
+                                                               h_all, s_all, B, T, D, st);
+}
+
 }  // namespace
 
 // Each returns the cudaError_t of its launch (0 on success); the caller
 // raises on non-zero.  dtype 0 is float32, 1 bfloat16 (the gates or planes
-// and the outputs).  ``mask`` may be null (no frame mask).  B*D/128 blocks
-// must fit the grid (the wrapper checks).
+// and the outputs).  ``mask`` may be null (no frame mask).  The grid must
+// hold it (the wrappers check): K12 B <= 65535, K11 B*D/128 blocks.
 extern "C" int lucy_fused_cell_fwd(int dtype, const void* gates, const unsigned char* mask,
                                    const float* h0, const float* s0, void* h_all, void* s_all,
                                    int B, int T, int D, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_cell<float>(gates, mask, h0, s0, h_all, s_all, B, T, D, st);
-  else if (dtype == 1)
-    launch_cell<__nv_bfloat16>(gates, mask, h0, s0, h_all, s_all, B, T, D, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return mask != nullptr ? launch_cell<true, float>(gates, mask, h0, s0, h_all, s_all, B, T, D, st)
+                           : launch_cell<false, float>(gates, mask, h0, s0, h_all, s_all, B, T, D,
+                                                       st);
+  if (dtype == 1)
+    return mask != nullptr
+               ? launch_cell<true, __nv_bfloat16>(gates, mask, h0, s0, h_all, s_all, B, T, D, st)
+               : launch_cell<false, __nv_bfloat16>(gates, mask, h0, s0, h_all, s_all, B, T, D,
+                                                   st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int lucy_dual_scan_fwd(int dtype, const void* a_s, const void* b_s, const void* a_h,

@@ -1,9 +1,11 @@
-// Shared pieces of the fused LucyRNN cell kernels K1 (lucy_fused_lm_fwd.cu)
-// and K2 (lucy_fused_lm_bwd.cu): the element helpers, the cp.async ring's
-// copies of row tiles into shared memory, the 16-byte stores out of it, and
-// the launch-time choice of the copy width.
+// Shared pieces of the LucyRNN cell kernels K1 (lucy_fused_lm_fwd.cu), K2
+// (lucy_fused_lm_bwd.cu), K12 (lucy_cell_scan.cu) and K5a (linear_scan.cu):
+// the element helpers, the cp.async ring's copies of row tiles into shared
+// memory, the 16-byte stores out of it, the launch-time choice of the copy
+// width, and the cell forward's kernel body (`cell_fwd_kernel`), which K1 and
+// K12 instantiate with their own gate chain and step.
 //
-// Both kernels give a block one batch row b and a tile of DT columns, and
+// All of them give a block one batch row b and a tile of DT columns, and
 // walk time in tiles of TC steps.  A tile's rows (one gate plane, one
 // cotangent plane, ... at one step) are DT contiguous elements in device
 // memory; in shared memory they are stored row after row, DT elements each.
@@ -133,6 +135,246 @@ template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ---------------------------------------------------------------------------
+// The cell forward (K1, K12).  Only three operations per element form the
+// recurrences (the s step, the tanh, the h step); the gate chain does not
+// depend on the state.  So a block owns one batch row b and DT = 64 columns
+// and walks T in time tiles of TC = 12 steps, with two kinds of warps:
+//   * loads: the 12 chain warps keep a ring of S = 3 stages of gate tiles
+//     (TC x 7 x DT, the layout of the gates' rows) in shared memory, filled
+//     by 16-byte cp.async 2 tiles ahead of the tile being computed (2 x 21 KB
+//     in flight per block in f32, ~86 KB per SM), with the tile's TC frame
+//     mask values where there is a mask (read into a register one phase
+//     before they are put in their stage);
+//   * chain: the chain warps turn tile i's gates into the four per-element
+//     coefficients the walk needs (f32, two buffers), all elements of the
+//     tile in parallel;
+//   * walk: the 2 serial warps, one thread per column, walk tile i-1's TC
+//     steps with h and s in registers (kWalk steps' coefficients loaded at a
+//     time) and write h, s into an output tile (two buffers, gates' dtype);
+//   * stores: the chain warps write tile i-2's output tile with 16-byte
+//     coalesced stores.
+// So in phase i the chain of tile i overlaps the walk of tile i-1; one
+// barrier separates phases.  Shared memory per block: 3 x 21 KB stages + 2 x
+// 12 KB coefficients + 2 x 6 KB outputs = 99 KB in f32, 3 x 10.5 + 2 x 12 +
+// 2 x 3 = 61.5 KB in bf16 (and S x TC mask floats); 448 threads of at most
+// 72 registers, two blocks (28 warps) per SM.  Ragged edges: steps past T and
+// columns past D are loaded as zeros and never stored.  Copies fall to 8 or
+// 4 bytes (2, synchronously, for bf16 rows of odd D) where a row does not
+// start on 16 bytes.
+//
+// A chain policy `Chain` gives the arithmetic:
+//   kBias      add the (7D) f32 bias to the gates in the chain (K1);
+//   kMasked    read a (B, T) byte frame mask, 0 or 1 (K12's masked form);
+//   coefs(x, m, c)    the 7 gates x (order r, z, k, v, h_pre, decay, alpha)
+//                     and the step's mask value m -> the 4 coefficients c;
+//   step(c0, c1, c2, c3, s, h)    one step of the two recurrences.
+
+template <typename G>
+struct FwdTile {
+  static constexpr int DT = 64;                         // columns per block
+  static constexpr int TC = 12;                         // steps per tile
+  static constexpr int S = 3;                           // ring stages
+  static constexpr int kChainWarps = 12;
+  static constexpr int kMinBlocks = 2;                  // registers: ~72 a thread
+  static constexpr int kSerial = DT;                    // one thread per column
+  static constexpr int kChain = 32 * kChainWarps;
+  static constexpr int kThreads = kSerial + kChain;
+  static constexpr int kRowsPerPass = kChain / DT;      // steps per chain pass
+  static constexpr int kWalk = TC % 8 == 0 ? 8 : (TC % 4 == 0 ? 4 : 1);  // walk's register batch
+  static constexpr int kStageElems = TC * 7 * DT;       // G
+  static constexpr int kCoefElems = 4 * TC * DT;        // f32, one buffer
+  static constexpr int kOutElems = 2 * TC * DT;         // G, one buffer
+  static constexpr size_t kStageBytes = kStageElems * sizeof(G);
+  static constexpr size_t kSmem =
+      S * kStageBytes + 2 * kCoefElems * sizeof(float) + 2 * kOutElems * sizeof(G);
+  static constexpr size_t kMaskSmem = S * TC * sizeof(float);   // after kSmem, if masked
+  static_assert(DT % 32 == 0 && kChain % DT == 0 && TC % kRowsPerPass == 0, "tile geometry");
+  static_assert(S >= 3 && (DT * sizeof(G)) % 16 == 0, "ring geometry");
+  static_assert(TC <= kChain, "the mask's loaders");
+};
+
+template <typename Chain, typename G, int VB>
+__global__ void __launch_bounds__(FwdTile<G>::kThreads, FwdTile<G>::kMinBlocks)
+cell_fwd_kernel(const G* __restrict__ gates, const float* __restrict__ bias,
+                const unsigned char* __restrict__ mask, const float* __restrict__ h0,
+                const float* __restrict__ s0, G* __restrict__ h_all, G* __restrict__ s_all,
+                int T, int D) {
+  using P = FwdTile<G>;
+  constexpr int DT = P::DT, TC = P::TC, S = P::S, kWalk = P::kWalk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  G* stages = reinterpret_cast<G*>(smem);
+  float* coefs = reinterpret_cast<float*>(smem + S * P::kStageBytes);
+  G* outs = reinterpret_cast<G*>(smem + S * P::kStageBytes + 2 * P::kCoefElems * sizeof(float));
+  float* masks = reinterpret_cast<float*>(smem + P::kSmem);   // S x TC, masked only
+
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * DT;
+  const int nT = (T + TC - 1) / TC;
+  const bool serial = threadIdx.x < P::kSerial;
+  const int ct = threadIdx.x - P::kSerial;                 // chain thread index
+  const int col = serial ? threadIdx.x : ct % DT;
+  const int r0 = serial ? 0 : ct / DT;                     // chain: first step of its passes
+  const bool live = d0 + col < D;
+
+  const size_t row = static_cast<size_t>(7) * D;
+  const G* gb = gates + static_cast<size_t>(b) * T * row;
+  G* hb = h_all + static_cast<size_t>(b) * T * D;
+  G* sb = s_all + static_cast<size_t>(b) * T * D;
+  const unsigned char* mb = Chain::kMasked ? mask + static_cast<size_t>(b) * T : nullptr;
+
+  // serial: the two states; chain: the column's 7 biases (K1)
+  float h = live ? h0[static_cast<size_t>(b) * D + d0 + col] : 0.0f;
+  float s = live ? s0[static_cast<size_t>(b) * D + d0 + col] : 0.0f;
+  float bi[7];
+  if constexpr (Chain::kBias) {
+#pragma unroll
+    for (int i = 0; i < 7; ++i) bi[i] = live ? bias[i * D + d0 + col] : 0.0f;
+  }
+
+  auto load = [&](int j) {                                 // chain threads: tile j's gates
+    if (j < nT) {
+      const int t0 = j * TC;
+      copy_rows<G, DT, VB>(
+          stages + (j % S) * P::kStageElems, TC * 7,
+          [&](int r) -> const G* {
+            const int t = t0 + r / 7;
+            return t < T ? gb + static_cast<size_t>(t) * row + (r % 7) * D : nullptr;
+          },
+          d0, D, gates, ct, P::kChain);
+    }
+    cp_async_commit();
+  };
+  // masked: chain thread ct < TC holds step ct of tile j+S-1's mask in a
+  // register from phase j and puts it in the tile's stage in phase j+1
+  auto mask_of = [&](int j) -> float {
+    const int t = j * TC + ct;
+    return t < T ? static_cast<float>(mb[t]) : 1.0f;
+  };
+  float m_next = 1.0f;
+
+  if (!serial) {
+    for (int j = 0; j < S - 1; ++j) load(j);
+    if constexpr (Chain::kMasked) {
+      if (ct < TC) {
+        for (int j = 0; j < S - 2; ++j) masks[(j % S) * TC + ct] = mask_of(j);
+        m_next = mask_of(S - 2);
+      }
+    }
+  }
+
+  // Phase j: the chain warps compute tile j and store tile j-2; the serial
+  // warps walk tile j-1.
+  for (int j = 0; j <= nT + 1; ++j) {
+    if (!serial) cp_async_wait<S - 2>();                   // tile j has landed
+    __syncthreads();
+    if (serial) {
+      if (j >= 1 && j <= nT) {
+        const float* cf = coefs + ((j - 1) & 1) * P::kCoefElems;
+        G* o = outs + ((j - 1) & 1) * P::kOutElems;
+        // kWalk steps at a time: their coefficients into registers first, so
+        // the loads are not held behind the previous steps' stores
+#pragma unroll
+        for (int tw = 0; tw < TC; tw += kWalk) {
+          float c0[kWalk], c1[kWalk], c2[kWalk], c3[kWalk];
+#pragma unroll
+          for (int u = 0; u < kWalk; ++u) {
+            c0[u] = cf[(0 * TC + tw + u) * DT + col];
+            c1[u] = cf[(1 * TC + tw + u) * DT + col];
+            c2[u] = cf[(2 * TC + tw + u) * DT + col];
+            c3[u] = cf[(3 * TC + tw + u) * DT + col];
+          }
+          float hs[kWalk], ss[kWalk];
+#pragma unroll
+          for (int u = 0; u < kWalk; ++u) {                // steps past T: never stored
+            Chain::step(c0[u], c1[u], c2[u], c3[u], s, h);
+            hs[u] = h;
+            ss[u] = s;
+          }
+#pragma unroll
+          for (int u = 0; u < kWalk; ++u) {
+            store(o + (tw + u) * DT + col, hs[u]);
+            store(o + (TC + tw + u) * DT + col, ss[u]);
+          }
+        }
+      }
+    } else {
+      load(j + S - 1);                                     // into the stage tile j-1 used
+      if constexpr (Chain::kMasked) {
+        if (ct < TC) {                                     // tile j+S-2's stage is not read
+          masks[((j + S - 2) % S) * TC + ct] = m_next;    // before phase j+1
+          m_next = mask_of(j + S - 1);
+        }
+      }
+      if (j < nT) {
+        const G* st = stages + (j % S) * P::kStageElems;
+        float* cf = coefs + (j & 1) * P::kCoefElems;
+#pragma unroll
+        for (int k = 0; k < TC / P::kRowsPerPass; ++k) {
+          const int t = r0 + k * P::kRowsPerPass;
+          const G* g = st + t * 7 * DT + col;
+          float x[7];
+#pragma unroll
+          for (int i = 0; i < 7; ++i) {
+            x[i] = to_f32(g[i * DT]);
+            if constexpr (Chain::kBias) x[i] = x[i] + bi[i];
+          }
+          const float m = Chain::kMasked ? masks[(j % S) * TC + t] : 1.0f;
+          float c[4];
+          Chain::coefs(x, m, c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cf[(i * TC + t) * DT + col] = c[i];
+        }
+      }
+      if (j >= 2) {                                        // tile j-2: h rows, then s rows
+        const int t0 = (j - 2) * TC;
+        store_rows<G, DT, VB>(
+            outs + (j & 1) * P::kOutElems, 2 * TC,
+            [&](int r) -> G* {
+              const int t = t0 + (r < TC ? r : r - TC);
+              return t < T ? (r < TC ? hb : sb) + static_cast<size_t>(t) * D : nullptr;
+            },
+            d0, D, ct, P::kChain);
+      }
+    }
+  }
+}
+
+template <typename Chain, typename G, int VB>
+int launch_cell_fwd_vb(const G* gates, const float* bias, const unsigned char* mask,
+                       const float* h0, const float* s0, G* h_all, G* s_all, int B, int T, int D,
+                       cudaStream_t stream) {
+  using P = FwdTile<G>;
+  auto kernel = cell_fwd_kernel<Chain, G, VB>;
+  const size_t smem = P::kSmem + (Chain::kMasked ? P::kMaskSmem : 0);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((D + P::DT - 1) / P::DT, B);
+  kernel<<<grid, P::kThreads, smem, stream>>>(gates, bias, mask, h0, s0, h_all, s_all, T, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the cell forward of `Chain` on (B, T, 7D) gates with the widest copy
+// unit the gates' and outputs' rows allow.  Returns the cudaError_t of the
+// launch.  B must fit the grid's y (65535; the wrappers check).
+template <typename Chain, typename G>
+int launch_cell_fwd(const void* gates, const float* bias, const unsigned char* mask,
+                    const float* h0, const float* s0, void* h_all, void* s_all, int B, int T,
+                    int D, cudaStream_t stream) {
+  const G* g = static_cast<const G*>(gates);
+  G* ho = static_cast<G*>(h_all);
+  G* so = static_cast<G*>(s_all);
+  switch (copy_unit_bytes(sizeof(G), D, {gates, h_all, s_all})) {
+    case 16: return launch_cell_fwd_vb<Chain, G, 16>(g, bias, mask, h0, s0, ho, so, B, T, D, stream);
+    case 8: return launch_cell_fwd_vb<Chain, G, 8>(g, bias, mask, h0, s0, ho, so, B, T, D, stream);
+    case 4: return launch_cell_fwd_vb<Chain, G, 4>(g, bias, mask, h0, s0, ho, so, B, T, D, stream);
+    default:
+      if constexpr (sizeof(G) == 2)
+        return launch_cell_fwd_vb<Chain, G, 2>(g, bias, mask, h0, s0, ho, so, B, T, D, stream);
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  }
 }
 
 }  // namespace lucy_tile

@@ -22,8 +22,10 @@ frame ring and through the producer warp's own loads, and bit for bit
 between two calls), K9a, K9b and K10 (the mLSTM; K9a and K9b also
 over the chunk lengths, head counts and widths of their chunk-parallel
 passes, with tied gates, and bit for bit between two calls; K9a and K10 at
-the streaming shape of one chunk), K12 (the fused masked cell)
-and K11 (the dual scan), each against its plain version; the
+the streaming shape of one chunk), K12 (the fused masked cell; also at
+the edges of its ring, with fully masked rows) and K5a (also at the edges
+of its ring) bit for bit the plain versions in f32, and K11 (the dual scan),
+each against its plain version; the
 autograd Functions' gradients on the card against the CPU; and the xLSTM
 and native LucyRNN encoders on the card against the CPU.
 
@@ -1361,8 +1363,9 @@ def _frame_mask(B, T, dev):
 @pytest.mark.parametrize("B,T,D,dtype", [(2, 45, 128, torch.float32), (3, 33, 100, torch.float32),
                                          (1, 32, 512, torch.float32), (4, 64, 256, torch.bfloat16)])
 def test_fused_cell_kernel_matches_plain(cuda_device, B, T, D, dtype, masked):
-    """K12 against its plain version: f32 to the fused cell's tolerances
-    (``assert_cell_close``); bf16 gates to a bf16 step, as K1's bf16 test."""
+    """K12 against its plain version: f32 bit for bit (the same operations,
+    each rounded once, in the same order); bf16 gates to a bf16 step, as
+    K1's bf16 test."""
     from statecatcher_tpu_torch.ops.lucy_pallas import lucy_fused_cell, lucy_fused_cell_ref
 
     gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(30 + T, B, T, D))
@@ -1375,15 +1378,147 @@ def test_fused_cell_kernel_matches_plain(cuda_device, B, T, D, dtype, masked):
     torch.cuda.synchronize()
     assert lucy_fused_cell.launches == before + 1
     assert h.dtype == s.dtype == dtype
-    h, s, h_ref, s_ref = (t.float().cpu().numpy() for t in (h, s, h_ref, s_ref))
     if dtype == torch.float32:
-        assert_cell_close(h, s, h_ref, s_ref)
-    else:
+        assert torch.equal(h, h_ref) and torch.equal(s, s_ref)
+    h, s, h_ref, s_ref = (t.float().cpu().numpy() for t in (h, s, h_ref, s_ref))
+    if dtype != torch.float32:
         np.testing.assert_allclose(h, h_ref, rtol=2e-2, atol=2e-2)
         assert (np.abs(s - s_ref) <= 1e-3 * np.abs(s_ref).max() + 1e-2 * np.abs(s_ref)).all()
     if masked:                                               # row 1 frozen past its end
         end = (2 * T) // 3
         assert (h[1 % B, end:] == h[1 % B, end - 1]).all()
+
+
+# The ring's edges of K12 (time tiles of 12 steps, 3 stages, 64 columns a
+# block) and of K5a (tiles of 32 steps, 4 stages, 32 columns a block in f32
+# and 64 in bf16): T = 1, a tile's length ± 1 and S tiles + 1; ragged column
+# tiles (D = 100, 520); B = 1 at the streaming shape; bf16 with odd D (rows on
+# 2 bytes, copied without cp.async); and inputs offset by one element from
+# their allocation (rows no longer on 16 bytes: the narrower copy units).
+K12_RING_EDGES = [(2, 1, 128, torch.float32, False), (2, 11, 128, torch.float32, False),
+                  (2, 13, 128, torch.float32, False), (2, 37, 128, torch.float32, False),
+                  (3, 40, 100, torch.float32, False), (2, 30, 520, torch.float32, False),
+                  (1, 32, 512, torch.float32, False), (2, 25, 101, torch.bfloat16, False),
+                  (2, 37, 128, torch.bfloat16, False), (2, 29, 128, torch.float32, True),
+                  (2, 29, 100, torch.bfloat16, True)]
+K5A_RING_EDGES = [(2, 1, 128, torch.float32, False), (2, 31, 128, torch.float32, False),
+                  (2, 33, 128, torch.float32, False), (2, 129, 128, torch.float32, False),
+                  (3, 70, 100, torch.float32, False), (2, 65, 520, torch.float32, False),
+                  (1, 32, 512, torch.float32, False), (2, 1, 256, torch.bfloat16, False),
+                  (2, 129, 101, torch.bfloat16, False), (2, 65, 520, torch.bfloat16, False),
+                  (2, 40, 128, torch.float32, True), (2, 40, 129, torch.bfloat16, True)]
+
+
+def _ring_id(case):
+    B, T, D, dtype, offset = case
+    return f"B{B}-T{T}-D{D}-{str(dtype).split('.')[-1]}" + ("-offset" if offset else "")
+
+
+def _offset_view(x, offset):
+    """x itself, or a copy of x whose storage starts one element before it."""
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def _assert_equal_or_one_bf16_step(got, want):
+    """f32: bit for bit; bf16: within one bf16 step (both round the same f32
+    carry once, which may differ by f32 round-off)."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        x, y = got.float().cpu().numpy(), want.float().cpu().numpy()
+        assert (np.abs(x - y) <= 2.0 ** -7 * np.abs(y) + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,T,D,dtype,offset", K12_RING_EDGES, ids=map(_ring_id, K12_RING_EDGES))
+def test_fused_cell_kernel_ring_edges(cuda_device, B, T, D, dtype, offset, masked):
+    """K12 at the edges of its ring, against its plain version: f32 bit for
+    bit, bf16 to one bf16 step; h and s both."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_fused_cell, lucy_fused_cell_ref
+
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(60 + T + D, B, T, D))
+    g4 = _offset_view((gates + bias).reshape(B, T, 7, D).to(dtype), offset)
+    mask = _frame_mask(B, T, cuda_device) if masked else None
+    before = lucy_fused_cell.launches
+    with torch.inference_mode():
+        h, s = lucy_fused_cell(g4, h0, s0, mask)
+        h_ref, s_ref = lucy_fused_cell_ref(g4, h0, s0, mask)
+    torch.cuda.synchronize()
+    assert lucy_fused_cell.launches == before + 1
+    assert h.shape == s.shape == (B, T, D)
+    _assert_equal_or_one_bf16_step(h, h_ref)
+    _assert_equal_or_one_bf16_step(s, s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_cell_kernel_fully_masked_and_first_frame_masked_rows(cuda_device, dtype):
+    """K12 with a row masked throughout (h and s stay h0 and s0 at every
+    step, exactly) and a row whose first frame is masked (step 0 keeps h0,
+    s0), against its plain version: f32 bit for bit, bf16 to one bf16 step."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_fused_cell, lucy_fused_cell_ref
+
+    B, T, D = 3, 40, 200
+    gates, bias, h0, s0 = _on(cuda_device, conditioned_cell_data(70, B, T, D))
+    g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
+    mask = torch.ones((B, T), dtype=torch.bool, device=cuda_device)
+    mask[0] = False
+    mask[1, 0] = False
+    with torch.inference_mode():
+        h, s = lucy_fused_cell(g4, h0, s0, mask)
+        h_ref, s_ref = lucy_fused_cell_ref(g4, h0, s0, mask)
+    torch.cuda.synchronize()
+    _assert_equal_or_one_bf16_step(h, h_ref)
+    _assert_equal_or_one_bf16_step(s, s_ref)
+    for x, x0 in ((h, h0), (s, s0)):
+        assert torch.equal(x[0], x0[0].to(dtype).expand(T, D))
+        assert torch.equal(x[1, 0], x0[1].to(dtype))
+        assert not torch.equal(x[1, 1], x0[1].to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype,offset", K5A_RING_EDGES, ids=map(_ring_id, K5A_RING_EDGES))
+def test_linear_scan_fwd_ring_edges(cuda_device, B, T, D, dtype, offset):
+    """K5a at the edges of its ring, against its plain version: f32 bit for
+    bit, bf16 to one bf16 step."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, linear_scan_ref
+
+    rng = np.random.default_rng(T + D)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    a = _offset_view(torch.sigmoid(f(B, T, D) + 2.0).to(dtype), offset)
+    b = _offset_view(f(B, T, D).to(dtype), offset)
+    s0 = f(B, D)
+    before = linear_scan_fwd.launches
+    got = linear_scan_fwd(a, b, s0)
+    want = linear_scan_ref(a, b, s0)
+    torch.cuda.synchronize()
+    assert linear_scan_fwd.launches == before + 1 and got.shape == (B, T, D)
+    _assert_equal_or_one_bf16_step(got, want)
+
+
+@pytest.mark.cuda
+def test_k12_and_k5a_refuse_a_batch_past_the_grid(cuda_device):
+    """K5a and K12 launch a block per (column tile, batch row): B past the
+    grid's 65535 rows is refused before any launch."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, lucy_fused_cell
+
+    B = 65536
+    a = torch.ones((B, 1, 1), device=cuda_device)
+    s0 = torch.zeros((B, 1), device=cuda_device)
+    n = (linear_scan_fwd.launches, lucy_fused_cell.launches)
+    with pytest.raises(ValueError, match="grid"):
+        linear_scan_fwd(a, a, s0)
+    with pytest.raises(ValueError, match="grid"):
+        lucy_fused_cell(torch.ones((B, 1, 7, 1), device=cuda_device), s0, s0)
+    assert (linear_scan_fwd.launches, lucy_fused_cell.launches) == n
 
 
 @pytest.mark.cuda

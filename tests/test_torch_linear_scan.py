@@ -7,7 +7,15 @@ and in bfloat16, where the scan carries float32 and rounds only its output
 (equal to the float32 scan rounded once, which is JAX's to float32
 round-off).
 
-(The JAX Pallas scan computes the same function; it is not run here.)
+The forward (K5a's plain version, what ``linear_scan_pallas`` runs on CPU
+tensors) is also held against the JAX TPU kernel's forward
+``_linear_scan_pallas_fwd_impl`` run under
+``pltpu.force_tpu_interpret_mode()``, forward only (no JAX gradient is
+taken through an interpret-mode kernel), at T = 300 (not a multiple of its
+256-row time chunk) and T = 1, D = 128: in float32 to 4e-6 of the state's
+scale (the TPU kernel composes each chunk by Hillis–Steele doubling, the
+port walks time sequentially: they differ by float32 round-off), in
+bfloat16 to one bfloat16 step (both round a float32 carry once).
 """
 
 import jax
@@ -15,7 +23,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from statecatcher_tpu.ops.lucy_pallas import _linear_scan_pallas_fwd_impl as j_pallas_fwd
 from statecatcher_tpu.ops.scan import linear_scan_seq as j_scan
 from statecatcher_tpu_torch.ops.lucy_pallas import (
     linear_scan_pallas,
@@ -101,3 +111,23 @@ def test_linear_scan_dispatch():
         assert torch.equal(linear_scan(*xs, impl=impl), want)
     with pytest.raises(ValueError):
         linear_scan(*xs, impl="bogus")
+
+
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 300, 128, np.float32), (3, 1, 128, np.float32),
+                                         (2, 300, 128, "bfloat16")])
+def test_forward_matches_jax_interpret_kernel(B, T, D, dtype):
+    a, b, s0, _ = _scan_data(T + D + 1, B, T, D, np.float32)
+    a = 0.97 + 0.06 * (a - 0.5)                              # slow decay: long memory
+    xs = [torch.from_numpy(a), torch.from_numpy(b)]
+    if dtype == "bfloat16":
+        xs = [x.bfloat16() for x in xs]
+    with pltpu.force_tpu_interpret_mode():
+        want = j_pallas_fwd(*(jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if dtype == "bfloat16" else jnp.float32) for x in xs), jnp.asarray(s0))
+    s = linear_scan_pallas(*xs, torch.from_numpy(s0))
+    assert s.dtype == xs[0].dtype and s.shape == (B, T, D) and want.shape == (B, T, D)
+    got, want = s.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6).all()
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=4e-6 * np.abs(want).max())

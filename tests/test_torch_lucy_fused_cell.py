@@ -11,6 +11,10 @@ package.
     within 1e-6 of its scale plus 1e-4 relative.  The TPU kernel composes
     each time chunk by Hillis–Steele doubling, the port walks time
     sequentially: the two differ by f32 round-off only.
+  * The masks' edge cases, forward, the same way and to the same
+    tolerances: T = 1, a row masked throughout (its h and s are h0 and s0
+    at every step, exactly), a row whose first frame is masked (step 0
+    keeps h0 and s0), and T = 257 (one step past JAX's 256-row chunk).
   * Gradients: ``lucy_cell_parallel(impl="pallas-fused"/"auto-fused")``,
     which adds the bias in the gates' dtype and runs the port's autograd
     Function (the gate chain's VJP by torch autograd, the two adjoint scans
@@ -67,6 +71,47 @@ def test_forward_matches_jax_interpret_kernel(T, D, masked):
     if masked:                                                  # row 1 frozen past its end
         end = (2 * T) // 3
         assert torch.equal(th[1, end:], th[1, end - 1:end].expand(T - end, D))
+
+
+def edge_mask(case, B, T):
+    """The frame mask of a mask edge case: None (unmasked), row 0 masked
+    throughout, row 1's first frame masked, or the partial rows of
+    ``frame_mask``."""
+    if case == "none":
+        return None
+    mask = np.ones((B, T), bool)
+    if case == "row masked throughout":
+        mask[0] = False
+    elif case == "first frame masked":
+        mask[1, 0] = False
+    else:
+        mask = frame_mask(B, T)
+    return mask
+
+
+@pytest.mark.parametrize("T,D,case", [(1, 128, "none"), (1, 128, "partial rows"),
+                                      (20, 128, "row masked throughout"),
+                                      (20, 128, "first frame masked"),
+                                      (257, 128, "partial rows")])
+def test_forward_mask_edges_match_jax_interpret_kernel(T, D, case):
+    B = 2
+    gates, bias, h0, s0 = conditioned_cell_data(3 * T + D, B, T, D)
+    g4 = (gates + bias).reshape(B, T, 7, D)
+    mask = edge_mask(case, B, T)
+    with pltpu.force_tpu_interpret_mode():
+        jh, js = j_fused_cell(jnp.asarray(g4), jnp.asarray(h0), jnp.asarray(s0),
+                              None if mask is None else jnp.asarray(mask))
+    th, ts = lucy_fused_cell(*map(torch.from_numpy, (g4, h0, s0)),
+                             None if mask is None else torch.from_numpy(mask))
+    assert th.shape == ts.shape == (B, T, D)
+    assert_cell_close(th.numpy(), ts.numpy(), np.asarray(jh), np.asarray(js))
+    if case == "row masked throughout":
+        for x, x0 in ((th, h0), (ts, s0)):
+            assert torch.equal(x[0], torch.from_numpy(x0[0]).expand(T, D))
+    if case == "first frame masked":
+        assert torch.equal(th[1, 0], torch.from_numpy(h0[1]))
+        assert torch.equal(ts[1, 0], torch.from_numpy(s0[1]))
+        assert not torch.equal(th[1, 1], th[1, 0])
 
 
 def test_plain_bf16_computes_in_f32():
