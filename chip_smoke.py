@@ -62,7 +62,8 @@ defaults through the port's entry points:
      conditioned so that blank ends many frames and the emissions per frame
      vary (checked on the offline decode);
  11. kernels K5a, K5b: the linear scan and its adjoint against their plain
-     versions at the cell's shape (B=32, T=1598, D=512), f32 and bf16;
+     versions at the cell's shape (B=32, T=1598, D=512), f32 and bf16, bit
+     for bit in f32, also at the edges of their ring;
  12. the masked flagship (``mask_state_updates=True``): phase 2's batched
      encode, whose masked segment runs the split cell through K5 (a row
      whose mask ends early carries its last valid frame's state), and one
@@ -101,8 +102,9 @@ defaults through the port's entry points:
  22. CLI with ``--model.encoder xlstm``: two dispatches and a resume;
  23. kernels K12 and K11: the fused masked cell and the dual scan against
      their plain versions at the batched shape (B=32, T=1598, D=512; f32 and
-     bf16, unmasked and with one partial row) and K12 at the streaming shape
-     (1, 32, 512), with times, byte bounds and plain times; and their
+     bf16, unmasked and with one partial row; bit for bit in f32, also at
+     the edges of their rings) and K12 at the streaming shape (1, 32, 512),
+     with times, byte bounds and plain times; and their
      autograd Functions' gradients (the backward's two K5b scans) against the
      plain versions' at the f32 shape;
  24. the masked flagship through K12 (``kernel_impl="auto-fused"``,
@@ -1366,12 +1368,18 @@ def offset_copy(x):
     return view
 
 
-# The ring's edges (K5a: tiles of 32 steps, 4 stages, 32 f32 / 64 bf16
-# columns a block; K12: tiles of 12 steps, 3 stages, 64 columns): (B, T, D,
-# dtype, inputs offset by one element)
+# The ring's edges (K5a, K5b and K11: tiles of 32 steps, 4 stages, 32 f32 /
+# 64 bf16 columns a block; K12: tiles of 12 steps, 3 stages, 64 columns):
+# (B, T, D, dtype, inputs offset by one element)
 K5A_EDGES = [(2, 1, 512, torch.float32, False), (2, 33, 100, torch.float32, False),
              (2, 129, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
              (2, 31, 101, torch.bfloat16, False), (2, 65, 520, torch.bfloat16, True)]
+K5B_EDGES = [(2, 1, 512, torch.float32, False), (2, 33, 100, torch.float32, False),
+             (2, 127, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
+             (2, 31, 101, torch.bfloat16, False), (2, 129, 520, torch.bfloat16, True)]
+K11_EDGES = [(2, 1, 512, torch.float32, False), (2, 33, 100, torch.float32, False),
+             (2, 127, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
+             (2, 31, 101, torch.bfloat16, False), (2, 129, 520, torch.bfloat16, True)]
 K12_EDGES = [(2, 1, 512, torch.float32, False), (2, 13, 100, torch.float32, False),
              (2, 37, 520, torch.float32, False), (1, 32, 512, torch.float32, True),
              (2, 11, 101, torch.bfloat16, False), (2, 37, 520, torch.bfloat16, True)]
@@ -1380,10 +1388,10 @@ K12_EDGES = [(2, 1, 512, torch.float32, False), (2, 13, 100, torch.float32, Fals
 def phase_scan_kernels(dev) -> dict:
     """Phase 11: K5a and K5b against their plain versions at the flagship's
     cell shape (B=32, T=1598, D=512), f32 and bf16, with times, the byte
-    bound (two planes read, one written) and plain times: K5a bit for bit in
-    f32 and to one bf16 step in bf16, also at the edges of its ring
-    (``K5A_EDGES``), and its time at the streaming shape (B=1, T=32, from a
-    CUDA graph)."""
+    bound (two planes read, one written) and plain times: both bit for bit
+    in f32 and to one bf16 step in bf16, also at the edges of their ring
+    (``K5A_EDGES``, ``K5B_EDGES``), and K5a's time at the streaming shape
+    (B=1, T=32, from a CUDA graph)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     out = {}
     B, T, D = 32, 1598, 512
@@ -1399,15 +1407,7 @@ def phase_scan_kernels(dev) -> dict:
                 got = fn(*args)
                 torch.cuda.synchronize()
                 want = ref(*args)
-                if name == "K5a":
-                    err = check_equal_or_bf16_step(got, want, f"K5a {label}")
-                elif dtype == torch.float32:
-                    # the same products and sums in the same order
-                    err = check_close([got], [want], [name], 1e-6, 1e-6)
-                else:
-                    # both round the same f32 carry once; f32 round-off may
-                    # straddle a bf16 rounding boundary: one bf16 step
-                    err = check_close([got], [want], [name], 2.0 ** -7, 1e-6)
+                err = check_equal_or_bf16_step(got, want, f"{name} {label}")
                 ms = cuda_ms(lambda: fn(*args), 50)
                 plain_ms = cuda_ms(lambda: ref(*args), 2, warmup=1)
                 es = torch.finfo(dtype).bits // 8
@@ -1419,27 +1419,31 @@ def phase_scan_kernels(dev) -> dict:
                 out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                           "bound_ms": bound, "bound_by": bound_by}
         del a, b, g
-    worst = 0.0
-    for B, T, D, dtype, offset in K5A_EDGES:
-        a = torch.sigmoid(torch.randn((B, T, D), generator=gen, device=dev) + 2.0).to(dtype)
-        b = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
-        if offset:
-            a, b = offset_copy(a), offset_copy(b)
-        s0 = torch.randn((B, D), generator=gen, device=dev)
-        with torch.inference_mode():
-            got = linear_scan_fwd(a, b, s0)
-            torch.cuda.synchronize()
-            worst = max(worst, check_equal_or_bf16_step(
-                got, linear_scan_ref(a, b, s0), f"K5a at (B={B}, T={T}, D={D}, {dtype}"
-                f"{', offset' if offset else ''})"))
+    worst = {"K5a": 0.0, "K5b": 0.0}
+    for name, edges in (("K5a", K5A_EDGES), ("K5b", K5B_EDGES)):
+        for B, T, D, dtype, offset in edges:
+            a = torch.sigmoid(torch.randn((B, T, D), generator=gen, device=dev) + 2.0).to(dtype)
+            b = torch.randn((B, T, D), generator=gen, device=dev).to(dtype)
+            if offset:
+                a, b = offset_copy(a), offset_copy(b)
+            s0 = torch.randn((B, D), generator=gen, device=dev)
+            with torch.inference_mode():
+                got = linear_scan_fwd(a, b, s0) if name == "K5a" else linear_scan_rev(a, b)
+                torch.cuda.synchronize()
+                want = linear_scan_ref(a, b, s0) if name == "K5a" else linear_scan_rev_ref(a, b)
+                worst[name] = max(worst[name], check_equal_or_bf16_step(
+                    got, want, f"{name} at (B={B}, T={T}, D={D}, {dtype}"
+                    f"{', offset' if offset else ''})"))
     a = torch.sigmoid(torch.randn((1, 32, 512), generator=gen, device=dev) + 2.0)
     b = torch.randn((1, 32, 512), generator=gen, device=dev)
     s0 = torch.randn((1, 512), generator=gen, device=dev)
     with torch.inference_mode():
         ms = cuda_ms(lambda: linear_scan_fwd(a, b, s0), 200, graph=True)
     log(f"[K5] K5a streaming f32 (B=1, T=32, D=512): kernel {ms:.4f} ms (CUDA graph)")
-    log(f"[K5] K5a at the ring's edges ({len(K5A_EDGES)} shapes: T = 1, a tile ± 1, ragged "
-        f"and odd D, B = 1, offset inputs): f32 bit for bit, bf16 max|Δ| {worst:.3e}")
+    for name, edges in (("K5a", K5A_EDGES), ("K5b", K5B_EDGES)):
+        log(f"[K5] {name} at the ring's edges ({len(edges)} shapes: T = 1, a tile ± 1, ragged "
+            f"and odd D, B = 1, offset inputs): f32 bit for bit, bf16 max|Δ| "
+            f"{worst[name]:.3e}")
     return out
 
 
@@ -2015,7 +2019,8 @@ def phase_cell_scan_kernels(dev) -> dict:
     chain.  K12 bit for bit its plain version in f32, to one bf16 step in
     bf16, also at the edges of its ring (``K12_EDGES``, each unmasked, with
     partial rows, and with a row masked throughout and one whose first frame
-    is masked); K11 to phase 1's tolerances for K1.  Then the gradients of both
+    is masked); K11 likewise, on the planes of the gate chain under each of
+    those masks (``K11_EDGES``).  Then the gradients of both
     autograd Functions (the backward's two reverse scans through K5b) on
     the card against the same Functions over the plain versions, at the f32
     shape: 1e-4 relative plus 1e-6 of each gradient's scale, K2's f32
@@ -2045,13 +2050,8 @@ def phase_cell_scan_kernels(dev) -> dict:
                 h, s = fn(*args)
                 torch.cuda.synchronize()
                 h_ref, s_ref = ref(*args)
-                if name == "K12":
-                    err = max(check_equal_or_bf16_step(h, h_ref, f"K12 {label} h"),
-                              check_equal_or_bf16_step(s, s_ref, f"K12 {label} s"))
-                elif dtype == torch.float32:
-                    err = check_cell(h, s, h_ref, s_ref, 2e-5, 0.0, 1e-6, 1e-4)
-                else:
-                    err = check_cell(h, s, h_ref, s_ref, 2e-2, 2e-2, 1e-3, 1e-2)
+                err = max(check_equal_or_bf16_step(h, h_ref, f"{name} {label} h"),
+                          check_equal_or_bf16_step(s, s_ref, f"{name} {label} s"))
                 ms = cuda_ms(lambda: fn(*args), 200 if small else 50, graph=small)
                 plain_ms = cuda_ms(lambda: ref(*args), 20 if small else 2, warmup=1, graph=small)
             bound, bound_by = bytes_bound_ms(nbytes + 2 * B * D * 4, ops * B * T * D)
@@ -2061,30 +2061,41 @@ def phase_cell_scan_kernels(dev) -> dict:
             out[f"{name} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                       "bound_ms": bound, "bound_by": bound_by}
 
-    worst = 0.0
-    for B, T, D, dtype, offset in K12_EDGES:
-        gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)
-        g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
-        if offset:
-            g4 = offset_copy(g4)
-        frozen = torch.ones((B, T), dtype=torch.bool, device=dev)
-        frozen[0] = False                                     # masked throughout
-        frozen[B - 1, 0] = False                              # first frame masked
-        for mask in (None, masked_rows(B, T, dev), frozen):
-            with torch.inference_mode():
-                h, s = lucy_fused_cell(g4, h0, s0, mask)
-                torch.cuda.synchronize()
-                h_ref, s_ref = lucy_fused_cell_ref(g4, h0, s0, mask)
-            where = (f"K12 at (B={B}, T={T}, D={D}, {dtype}{', offset' if offset else ''}, "
-                     f"{'unmasked' if mask is None else 'masked'})")
-            worst = max(worst, check_equal_or_bf16_step(h, h_ref, where + " h"),
-                        check_equal_or_bf16_step(s, s_ref, where + " s"))
-            if mask is frozen and not (torch.equal(h[0], h0[0].to(dtype).expand(T, D))
-                                       and torch.equal(s[0], s0[0].to(dtype).expand(T, D))):
-                raise AssertionError(f"{where}: a row masked throughout left h0, s0")
-    log(f"[K12] at the ring's edges ({len(K12_EDGES)} shapes × unmasked, partial rows, a row "
-        f"masked throughout and a first frame masked): f32 bit for bit, bf16 max|Δ| "
-        f"{worst:.3e}")
+    worst = {"K12": 0.0, "K11": 0.0}
+    for name, edges in (("K12", K12_EDGES), ("K11", K11_EDGES)):
+        for B, T, D, dtype, offset in edges:
+            gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)
+            g4 = (gates + bias).reshape(B, T, 7, D).to(dtype)
+            if offset:
+                g4 = offset_copy(g4)
+            frozen = torch.ones((B, T), dtype=torch.bool, device=dev)
+            frozen[0] = False                                 # masked throughout
+            frozen[B - 1, 0] = False                          # first frame masked
+            for mask in (None, masked_rows(B, T, dev), frozen):
+                if name == "K12":
+                    fn, ref, args = lucy_fused_cell, lucy_fused_cell_ref, (g4, h0, s0, mask)
+                else:
+                    planes = [x.to(dtype) for i, x in
+                              enumerate(lucy_gate_coeffs(gates, mask, bias)) if i != 3]
+                    if offset:
+                        planes = [offset_copy(x) for x in planes]
+                    fn, ref, args = lucy_dual_scan, lucy_dual_scan_ref, (*planes, h0, s0)
+                with torch.inference_mode():
+                    h, s = fn(*args)
+                    torch.cuda.synchronize()
+                    h_ref, s_ref = ref(*args)
+                where = (f"{name} at (B={B}, T={T}, D={D}, {dtype}"
+                         f"{', offset' if offset else ''}, "
+                         f"{'unmasked' if mask is None else 'masked'})")
+                worst[name] = max(worst[name], check_equal_or_bf16_step(h, h_ref, where + " h"),
+                                  check_equal_or_bf16_step(s, s_ref, where + " s"))
+                if mask is frozen and not (torch.equal(h[0], h0[0].to(dtype).expand(T, D))
+                                           and torch.equal(s[0], s0[0].to(dtype).expand(T, D))):
+                    raise AssertionError(f"{where}: a row masked throughout left h0, s0")
+    for name, edges in (("K12", K12_EDGES), ("K11", K11_EDGES)):
+        log(f"[{name}] at the ring's edges ({len(edges)} shapes × unmasked, partial rows, a "
+            f"row masked throughout and a first frame masked): f32 bit for bit, bf16 max|Δ| "
+            f"{worst[name]:.3e}")
 
     B, T, D = 32, 1598, 512
     gates, bias, h0, s0 = conditioned_cell_inputs(gen, B, T, D, torch.float32, dev)

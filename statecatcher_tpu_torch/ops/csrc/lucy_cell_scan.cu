@@ -5,7 +5,8 @@
 //   K12  lucy_tile::cell_fwd_kernel<MaskedCellChain<masked>>
 //                               <- _fused_cell_kernel (:319), launched by
 //                                  _fused_cell_fwd_impl (:390)
-//   K11  lucy_dual_scan_kernel  <- _dual_scan_kernel (:527), launched by
+//   K11  lucy_tile::ring_scan_kernel<DualScan>
+//                               <- _dual_scan_kernel (:527), launched by
 //                                  _dual_scan_fwd_impl (:568)
 //
 //   K12:  gates (B, T, 7, D) f32 or bf16, the bias already added by the
@@ -56,27 +57,30 @@
 // instructions, as K1: the chain's IEEE sqrt and divides, ~250 instructions
 // an element, all of the tile's elements in parallel on 12 warps.
 //
-// K11's design: one thread per (b, d) column walks T (neighbouring threads
-// read neighbouring d, so every plane load coalesces).  Each thread loads
-// kChunk steps of its inputs into registers before it runs them, so a chunk's
-// loads are in flight together instead of each step waiting on its own.  The
+// K11's design: K5a's, lucy_tile.cuh's ring scan (`ring_scan_kernel`) with
+// four planes in and two out.  A block owns one batch row and DT columns (one
+// 128-byte line of a row: 32 in f32, 64 in bf16) and walks time in tiles of
+// TC = 32 steps through an S = 4 stage ring: four copy warps fill it by
+// cp.async 3 tiles ahead (3 x 16 KB in flight a block), a pass a plane, and
+// store the tile walked in the phase before (h rows, then s rows) with
+// 16-byte stores; one thread a column walks the tile that has landed, h and s
+// in registers (the step of K12, MaskedCellChain::step).  80 KB of shared
+// memory a block, two blocks an SM (~96 KB in flight): at B=32, D=512 the 512
+// blocks (f32; 256 in bf16) take two waves, and still beat tiles of 16 steps
+// (40 KB, one wave, the same bytes in flight) by 6-8 % in f32 and 2-4 % in
+// bf16: half the phases and barriers for the same bytes.  One pass over all
+// four planes' rows, a row's plane picked by compares, cost ~4 % more than a
+// pass a plane.  What bounds it: the copies, as K5a: without the walk it is
+// no faster in f32 and ~3 % faster in bf16; 3 stages, 2 or 8 copy warps, or
+// 32 columns a block in bf16 were slower (tools/lucy_cell_variants.py).  The
 // TPU kernel's time chunks of 256 rows, its Hillis-Steele composition of each
 // chunk, its 128-lane padding of D and the identity rows of its ragged tail
-// are TPU tiling and are not carried over: rows >= T do not exist here.  Not
-// done yet: at B=32 the grid is 128 blocks of 128 threads, one per SM, too
-// few warps to cover the memory latency.
+// are TPU tiling and are not carried over: rows >= T are loaded as zeros and
+// never stored.
 
 #include "lucy_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kChunk = 8;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -125,56 +129,23 @@ struct MaskedCellChain {
   }
 };
 
+// K11's step: the (unmasked) cell step on the planes a_s, b_s, a_h, h_pre_n,
+// s (c[0]) from s0, h (c[1]) from h0; outputs h, then s.
 template <typename P>
-__global__ void __launch_bounds__(kThreads)
-lucy_dual_scan_kernel(const P* __restrict__ a_s, const P* __restrict__ b_s,
-                      const P* __restrict__ a_h, const P* __restrict__ h_pre,
-                      const float* __restrict__ h0, const float* __restrict__ s0,
-                      P* __restrict__ h_all, P* __restrict__ s_all, int B, int T, int D) {
-  const long long col = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= static_cast<long long>(B) * D) return;
-  const long long b = col / D;
-  const size_t base = static_cast<size_t>(b) * T * D + static_cast<size_t>(col - b * D);
-  float h = h0[col], s = s0[col];
-
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    float as[kChunk], bs[kChunk], ah[kChunk], hp[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int t = t0 + k;
-      const size_t i = base + static_cast<size_t>(t) * D;
-      as[k] = t < T ? ld(a_s + i) : 1.0f;
-      bs[k] = t < T ? ld(b_s + i) : 0.0f;
-      ah[k] = t < T ? ld(a_h + i) : 1.0f;
-      hp[k] = t < T ? ld(h_pre + i) : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int t = t0 + k;
-      if (t >= T) break;
-      s = scan_step(as[k], s, bs[k]);
-      const float c = tanhf(hp[k] + s);
-      h = scan_step(ah[k], h, mul(1.0f - ah[k], c));
-      const size_t i = base + static_cast<size_t>(t) * D;
-      st(h_all + i, h);
-      st(s_all + i, s);
-    }
+struct DualScan {
+  static constexpr int DT = 128 / static_cast<int>(sizeof(P));  // columns per block
+  static constexpr int TC = 32;                                   // steps per tile
+  static constexpr int S = 4;                                     // ring stages
+  static constexpr int kCopy = 128;                               // four copy warps
+  static constexpr int kIn = 4, kOut = 2, kCarry = 2, kInit = 2;
+  static constexpr bool kReverse = false;
+  template <typename X>
+  __device__ static __forceinline__ void step(X x, float (&c)[2], float (&y)[2]) {
+    MaskedCellChain<false>::step(x(0), x(1), x(2), x(3), c[0], c[1]);
+    y[0] = c[1];
+    y[1] = c[0];
   }
-}
-
-unsigned blocks_for(int B, int D) {
-  return static_cast<unsigned>((static_cast<long long>(B) * D + kThreads - 1) / kThreads);
-}
-
-template <typename P>
-void launch_dual(const void* a_s, const void* b_s, const void* a_h, const void* h_pre,
-                 const float* h0, const float* s0, void* h_all, void* s_all, int B, int T, int D,
-                 cudaStream_t st) {
-  lucy_dual_scan_kernel<P><<<blocks_for(B, D), kThreads, 0, st>>>(
-      static_cast<const P*>(a_s), static_cast<const P*>(b_s), static_cast<const P*>(a_h),
-      static_cast<const P*>(h_pre), h0, s0, static_cast<P*>(h_all), static_cast<P*>(s_all), B, T,
-      D);
-}
+};
 
 template <bool kMask, typename G>
 int launch_cell(const void* gates, const unsigned char* mask, const float* h0, const float* s0,
@@ -185,10 +156,10 @@ int launch_cell(const void* gates, const unsigned char* mask, const float* h0, c
 
 }  // namespace
 
-// Each returns the cudaError_t of its launch (0 on success); the caller
-// raises on non-zero.  dtype 0 is float32, 1 bfloat16 (the gates or planes
-// and the outputs).  ``mask`` may be null (no frame mask).  The grid must
-// hold it (the wrappers check): K12 B <= 65535, K11 B*D/128 blocks.
+// Each returns the cudaError_t of its first failed launch (0 on success);
+// the caller raises on non-zero.  dtype 0 is float32, 1 bfloat16 (the gates
+// or planes and the outputs).  ``mask`` may be null (no frame mask).  Any B:
+// the launches walk the batch in slices of the grid's 65535 rows.
 extern "C" int lucy_fused_cell_fwd(int dtype, const void* gates, const unsigned char* mask,
                                    const float* h0, const float* s0, void* h_all, void* s_all,
                                    int B, int T, int D, void* stream) {
@@ -209,11 +180,9 @@ extern "C" int lucy_dual_scan_fwd(int dtype, const void* a_s, const void* b_s, c
                                   const void* h_pre, const float* h0, const float* s0,
                                   void* h_all, void* s_all, int B, int T, int D, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch_dual<float>(a_s, b_s, a_h, h_pre, h0, s0, h_all, s_all, B, T, D, st);
-  else if (dtype == 1)
-    launch_dual<__nv_bfloat16>(a_s, b_s, a_h, h_pre, h0, s0, h_all, s_all, B, T, D, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const lucy_tile::ScanPlanes p{{a_s, b_s, a_h, h_pre}, {s0, h0}, {h_all, s_all}};
+  if (dtype == 0) return lucy_tile::launch_ring_scan<DualScan<float>, float>(p, B, T, D, st);
+  if (dtype == 1)
+    return lucy_tile::launch_ring_scan<DualScan<__nv_bfloat16>, __nv_bfloat16>(p, B, T, D, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

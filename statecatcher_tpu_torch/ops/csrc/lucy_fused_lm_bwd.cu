@@ -358,12 +358,18 @@ int launch_vb(const void* gates, const float* bias, const float* h0, const float
   auto kernel = lucy_fused_lm_bwd_kernel<G, VB>;
   const cudaError_t err = allow_smem(kernel, P::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((D + P::DT - 1) / P::DT, B);
-  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(
-      static_cast<const G*>(gates), bias, h0, s0, static_cast<const G*>(h_all),
-      static_cast<const G*>(s_all), static_cast<const G*>(g_h), static_cast<const G*>(g_s),
-      static_cast<G*>(d_gates), dh0, ds0, dbias_part, T, D);
-  return static_cast<int>(cudaGetLastError());
+  return for_each_batch_slice(B, [&](int b0, int nb) {
+    const size_t plane = static_cast<size_t>(b0) * T * D, row = static_cast<size_t>(b0) * D;
+    auto at = [&](const void* p, size_t off) {
+      return p ? static_cast<const G*>(p) + off : nullptr;
+    };
+    const dim3 grid((D + P::DT - 1) / P::DT, nb);
+    kernel<<<grid, P::kThreads, P::kSmem, stream>>>(
+        at(gates, 7 * plane), bias, h0 + row, s0 + row, at(h_all, plane), at(s_all, plane),
+        at(g_h, plane), at(g_s, plane), static_cast<G*>(d_gates) + 7 * plane, dh0 + row,
+        ds0 + row, dbias_part + 7 * row, T, D);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename G>
@@ -388,7 +394,9 @@ int launch(const void* gates, const float* bias, const float* h0, const float* s
 }  // namespace
 
 // dtype: 0 = float32 gates, activations and cotangents, 1 = bfloat16.
-// g_s may be null.  Returns the cudaError_t of the launch (0 on success).
+// g_s may be null.  Returns the cudaError_t of the first failed launch (0 on
+// success).  Any B: the launches walk the batch in slices of the grid's
+// 65535 rows.
 extern "C" int lucy_fused_lm_bwd(int dtype, const void* gates, const float* bias,
                                  const float* h0, const float* s0, const void* h_all,
                                  const void* s_all, const void* g_h, const void* g_s,

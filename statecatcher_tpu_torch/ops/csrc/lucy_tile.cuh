@@ -1,14 +1,19 @@
 // Shared pieces of the LucyRNN cell kernels K1 (lucy_fused_lm_fwd.cu), K2
-// (lucy_fused_lm_bwd.cu), K12 (lucy_cell_scan.cu) and K5a (linear_scan.cu):
-// the element helpers, the cp.async ring's copies of row tiles into shared
-// memory, the 16-byte stores out of it, the launch-time choice of the copy
-// width, and the cell forward's kernel body (`cell_fwd_kernel`), which K1 and
-// K12 instantiate with their own gate chain and step.
+// (lucy_fused_lm_bwd.cu), K12 and K11 (lucy_cell_scan.cu) and K5a and K5b
+// (linear_scan.cu): the element helpers, the cp.async ring's copies of row
+// tiles into shared memory, the 16-byte stores out of it, the launch-time
+// choice of the copy width, the cell forward's kernel body
+// (`cell_fwd_kernel`), which K1 and K12 instantiate with their own gate chain
+// and step, and the ring scan's (`ring_scan_kernel`), which K5a, K5b and K11
+// instantiate with their own step.
 //
 // All of them give a block one batch row b and a tile of DT columns, and
 // walk time in tiles of TC steps.  A tile's rows (one gate plane, one
 // cotangent plane, ... at one step) are DT contiguous elements in device
 // memory; in shared memory they are stored row after row, DT elements each.
+// The batch row is the grid's y, which CUDA holds to kGridY rows: the
+// launchers walk the batch in slices of at most kGridY rows, each launch's
+// pointers offset to its slice's first row, so any B runs.
 
 #pragma once
 
@@ -22,6 +27,18 @@
 namespace lucy_tile {
 
 constexpr float kEps = 1e-6f;
+constexpr int kGridY = 65535;                  // CUDA's limit on a grid's y
+
+// The batch rows [b0, b0 + nb) of the slices of at most kGridY rows that
+// cover B: f(b0, nb) for each, in order; returns the first non-zero result.
+template <typename Fn>
+inline int for_each_batch_slice(int B, Fn f) {
+  for (int b0 = 0; b0 < B; b0 += kGridY) {
+    const int err = f(b0, B - b0 < kGridY ? B - b0 : kGridY);
+    if (err != 0) return err;
+  }
+  return 0;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -351,14 +368,19 @@ int launch_cell_fwd_vb(const G* gates, const float* bias, const unsigned char* m
   const size_t smem = P::kSmem + (Chain::kMasked ? P::kMaskSmem : 0);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((D + P::DT - 1) / P::DT, B);
-  kernel<<<grid, P::kThreads, smem, stream>>>(gates, bias, mask, h0, s0, h_all, s_all, T, D);
-  return static_cast<int>(cudaGetLastError());
+  return for_each_batch_slice(B, [&](int b0, int nb) {
+    const size_t plane = static_cast<size_t>(b0) * T * D, row = static_cast<size_t>(b0) * D;
+    const dim3 grid((D + P::DT - 1) / P::DT, nb);
+    kernel<<<grid, P::kThreads, smem, stream>>>(
+        gates + 7 * plane, bias, mask ? mask + static_cast<size_t>(b0) * T : nullptr, h0 + row,
+        s0 + row, h_all + plane, s_all + plane, T, D);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // Launch the cell forward of `Chain` on (B, T, 7D) gates with the widest copy
 // unit the gates' and outputs' rows allow.  Returns the cudaError_t of the
-// launch.  B must fit the grid's y (65535; the wrappers check).
+// first launch that failed (0 if none).
 template <typename Chain, typename G>
 int launch_cell_fwd(const void* gates, const float* bias, const unsigned char* mask,
                     const float* h0, const float* s0, void* h_all, void* s_all, int B, int T,
@@ -373,6 +395,210 @@ int launch_cell_fwd(const void* gates, const float* bias, const unsigned char* m
     default:
       if constexpr (sizeof(G) == 2)
         return launch_cell_fwd_vb<Chain, G, 2>(g, bias, mask, h0, s0, ho, so, B, T, D, stream);
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The ring scan (K5a, K5b, K11): elementwise recurrences over (B, T, D)
+// planes whose only serial work is a few operations a step.  A block owns
+// one batch row b and DT columns (one 128-byte line of a row, unless the
+// step says otherwise) and walks time in tiles of TC steps, with two kinds of
+// warps:
+//   * copies: kCopy threads keep an S-stage ring of input tiles (kIn planes
+//     x TC rows x DT, plane after plane) in shared memory, filled by cp.async
+//     (copy_rows, 16 bytes a thread where the rows allow) S-1 tiles ahead of
+//     the walk, and store the output tile the walk wrote in the phase before
+//     (kOut planes, two buffers) with store_rows' 16-byte stores, a pass a
+//     plane (two input planes: one pass over both);
+//   * walk: one thread a column walks the tile that has landed out of shared
+//     memory, its carries in registers, and writes each step's outputs into
+//     the output tile.
+// So in phase j the walk of tile j, the loads of tiles j+1 .. j+S-1 and the
+// stores of tile j-1 overlap; one barrier a phase separates them, and the
+// walk never waits on a device load.  A reverse step visits the time tiles
+// from the latest to the earliest and walks each from its latest step down.
+// Tiles sit on multiples of TC, so the one partial tile (the one holding
+// step T-1) is the last walked forwards and the first walked backwards.
+// Steps past T and columns past D are loaded as zeros and never stored (a
+// reverse step must leave its carries as they started on zero inputs).
+//
+// A step policy `Step` gives:
+//   DT, TC, S, kCopy      the geometry above;
+//   kIn, kOut             planes in (at most 4) and out (at most 2);
+//   kCarry, kInit         carries in registers (at most 2); the first kInit of
+//                         them start from the (B, D) f32 arrays c0, c1, the
+//                         rest (and every carry of a column past D) from 0;
+//   kReverse              walk time backwards;
+//   step(x, c, y)         one step: the kIn inputs (x(i), plane i's value at
+//                         this step, in f32) and the carries c -> the new
+//                         carries and the kOut outputs y.  The step reads
+//                         each input where its arithmetic first needs it.
+
+template <typename Step, typename Tx>
+struct Ring {
+  static constexpr int DT = Step::DT, TC = Step::TC, S = Step::S;
+  static constexpr int kWalk = DT;                                 // one thread per column
+  static constexpr int kCopy = Step::kCopy;
+  static constexpr int kThreads = kWalk + kCopy;
+  static constexpr int kStageElems = Step::kIn * TC * DT;          // the planes' rows, in order
+  static constexpr int kOutElems = Step::kOut * TC * DT;           // one buffer
+  static constexpr size_t kSmem = (S * kStageElems + 2 * kOutElems) * sizeof(Tx);
+  static_assert(DT % 32 == 0 && S >= 2 && kCopy % 32 == 0, "tile geometry");
+  static_assert(Step::kIn <= 4 && Step::kOut <= 2 && Step::kInit <= Step::kCarry &&
+                Step::kCarry <= 2, "step policy");
+};
+
+template <typename Step, typename Tx, int VB>
+__global__ void __launch_bounds__(Ring<Step, Tx>::kThreads)
+ring_scan_kernel(const Tx* __restrict__ x0, const Tx* __restrict__ x1,
+                 const Tx* __restrict__ x2, const Tx* __restrict__ x3,
+                 const float* __restrict__ c0, const float* __restrict__ c1,
+                 Tx* __restrict__ y0, Tx* __restrict__ y1, int T, int D) {
+  using P = Ring<Step, Tx>;
+  constexpr int DT = P::DT, TC = P::TC, S = P::S, NI = Step::kIn, NO = Step::kOut;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tx* stages = reinterpret_cast<Tx*>(smem);
+  Tx* outs = stages + S * P::kStageElems;
+
+  const int bi = blockIdx.y;
+  const int d0 = blockIdx.x * DT;
+  const int nT = (T + TC - 1) / TC;
+  const bool walker = threadIdx.x < P::kWalk;
+  const int ct = threadIdx.x - P::kWalk;                   // copy thread index
+  const size_t base = static_cast<size_t>(bi) * T * D;
+  const Tx* const in[4] = {x0 + base, x1 + base, NI > 2 ? x2 + base : nullptr,
+                           NI > 3 ? x3 + base : nullptr};
+  Tx* const out[2] = {y0 + base, NO > 1 ? y1 + base : nullptr};
+  // the walker's carries, from c0 and c1 (0 for columns past D) or from 0;
+  // written out here: read through a helper lambda, nvcc scheduled K5a's
+  // kernel otherwise than in its one-kernel form
+  float c[Step::kCarry];
+  if constexpr (Step::kInit > 0) {
+    c[0] = walker && d0 + static_cast<int>(threadIdx.x) < D
+               ? c0[static_cast<size_t>(bi) * D + d0 + threadIdx.x]
+               : 0.0f;
+  } else {
+    c[0] = 0.0f;
+  }
+  if constexpr (Step::kInit > 1) {
+    c[1] = walker && d0 + static_cast<int>(threadIdx.x) < D
+               ? c1[static_cast<size_t>(bi) * D + d0 + threadIdx.x]
+               : 0.0f;
+  } else if constexpr (Step::kCarry > 1) {
+    c[1] = 0.0f;
+  }
+  // the first step of the time tile that phase j visits
+  auto tile_t0 = [&](int j) { return (Step::kReverse ? nT - 1 - j : j) * TC; };
+
+  auto load = [&](int j) {                                 // copy threads: tile j's planes
+    if (j < nT) {
+      const int t0 = tile_t0(j);
+      if constexpr (NI == 2) {
+        // one pass over both planes' rows, a row's plane by one compare
+        copy_rows<Tx, DT, VB>(
+            stages + (j % S) * P::kStageElems, 2 * TC,
+            [&](int r) -> const Tx* {
+              const int t = t0 + (r < TC ? r : r - TC);
+              return t < T ? (r < TC ? in[0] : in[1]) + static_cast<size_t>(t) * D : nullptr;
+            },
+            d0, D, x0, ct, P::kCopy);
+      } else {
+        // a pass a plane: a select among more planes in the copy loop costs
+        // the copy warps' issue more than the passes do
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          copy_rows<Tx, DT, VB>(
+              stages + (j % S) * P::kStageElems + i * TC * DT, TC,
+              [&](int r) -> const Tx* {
+                return t0 + r < T ? in[i] + static_cast<size_t>(t0 + r) * D : nullptr;
+              },
+              d0, D, x0, ct, P::kCopy);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (!walker)
+    for (int j = 0; j < S - 1; ++j) load(j);
+
+  // Phase j: the walkers walk tile j; the copy warps start tile j+S-1's loads
+  // and store tile j-1's outputs.
+  for (int j = 0; j <= nT; ++j) {
+    if (!walker) cp_async_wait<S - 2>();                   // tile j has landed
+    __syncthreads();
+    if (walker) {
+      if (j < nT) {
+        const Tx* src = stages + (j % S) * P::kStageElems + threadIdx.x;
+        Tx* o = outs + (j & 1) * P::kOutElems + threadIdx.x;
+#pragma unroll
+        for (int u = 0; u < TC; ++u) {                      // steps past T: never stored
+          const int t = Step::kReverse ? TC - 1 - u : u;
+          float y[NO];
+          Step::step([&](int i) { return to_f32(src[(i * TC + t) * DT]); }, c, y);
+#pragma unroll
+          for (int i = 0; i < NO; ++i) store(o + (i * TC + t) * DT, y[i]);
+        }
+      }
+    } else {
+      load(j + S - 1);                                     // into the stage tile j-1 used
+      if (j >= 1) {
+        const int t0 = tile_t0(j - 1);
+#pragma unroll
+        for (int i = 0; i < NO; ++i)                       // a pass a plane
+          store_rows<Tx, DT, VB>(
+              outs + ((j - 1) & 1) * P::kOutElems + i * TC * DT, TC,
+              [&](int r) -> Tx* {
+                return t0 + r < T ? out[i] + static_cast<size_t>(t0 + r) * D : nullptr;
+              },
+              d0, D, ct, P::kCopy);
+      }
+    }
+  }
+}
+
+// The planes of one ring scan over (B, T, D): up to four inputs and two
+// outputs, all of one dtype, and the (B, D) f32 first values of up to two
+// carries; null where the step has fewer.
+struct ScanPlanes {
+  const void* in[4];
+  const float* init[2];
+  void* out[2];
+};
+
+template <typename Step, typename Tx, int VB>
+int launch_ring_scan_vb(const ScanPlanes& p, int B, int T, int D, cudaStream_t stream) {
+  using P = Ring<Step, Tx>;
+  auto kernel = ring_scan_kernel<Step, Tx, VB>;
+  if constexpr (P::kSmem > 48 * 1024) {
+    const cudaError_t err = allow_smem(kernel, P::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return for_each_batch_slice(B, [&](int b0, int nb) {
+    const size_t plane = static_cast<size_t>(b0) * T * D, row = static_cast<size_t>(b0) * D;
+    auto x = [&](int i) { return p.in[i] ? static_cast<const Tx*>(p.in[i]) + plane : nullptr; };
+    auto y = [&](int i) { return p.out[i] ? static_cast<Tx*>(p.out[i]) + plane : nullptr; };
+    auto c = [&](int i) { return p.init[i] ? p.init[i] + row : nullptr; };
+    const dim3 grid((D + P::DT - 1) / P::DT, nb);
+    kernel<<<grid, P::kThreads, P::kSmem, stream>>>(x(0), x(1), x(2), x(3), c(0), c(1), y(0),
+                                                    y(1), T, D);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Launch the ring scan of `Step` with the widest copy unit that every
+// plane's rows allow.  Returns the cudaError_t of the first launch that
+// failed (0 if none).
+template <typename Step, typename Tx>
+int launch_ring_scan(const ScanPlanes& p, int B, int T, int D, cudaStream_t stream) {
+  switch (copy_unit_bytes(sizeof(Tx), D, {p.in[0], p.in[1], p.in[2], p.in[3], p.out[0],
+                                          p.out[1]})) {
+    case 16: return launch_ring_scan_vb<Step, Tx, 16>(p, B, T, D, stream);
+    case 8: return launch_ring_scan_vb<Step, Tx, 8>(p, B, T, D, stream);
+    case 4: return launch_ring_scan_vb<Step, Tx, 4>(p, B, T, D, stream);
+    default:
+      if constexpr (sizeof(Tx) == 2) return launch_ring_scan_vb<Step, Tx, 2>(p, B, T, D, stream);
       return static_cast<int>(cudaErrorMisalignedAddress);
   }
 }

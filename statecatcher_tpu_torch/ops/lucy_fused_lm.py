@@ -149,7 +149,7 @@ def _check_cell_args(gates, bias, h0, s0):
         raise ValueError(f"gates must be (B, T, 7·D), got {tuple(gates.shape)}")
     B, T, G7 = gates.shape
     D = G7 // 7
-    if min(B, T, D) == 0 or B > 65535:
+    if min(B, T, D) == 0:
         raise ValueError(f"unsupported gates shape {tuple(gates.shape)}")
     if bias.shape != (G7,) or h0.shape != (B, D) or s0.shape != (B, D):
         raise ValueError(

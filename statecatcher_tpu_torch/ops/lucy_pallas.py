@@ -51,8 +51,6 @@ from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
 from statecatcher_tpu_torch.ops.scan import linear_scan_seq
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# K5a and K12 launch a block per (column tile, batch row): B is the grid's y
-_GRID_Y = 65535
 
 
 # --------------------------------------------------------------------------- #
@@ -84,8 +82,8 @@ def linear_scan_rev_ref(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def _check(a: torch.Tensor, others) -> tuple[int, int, int]:
     if a.dtype not in _DTYPE_CODE:
         raise TypeError(f"the scan takes float32 or bfloat16, got {a.dtype}")
-    if a.ndim != 3 or min(a.shape) == 0 or a.shape[0] * a.shape[2] > 2**31 - 1:
-        raise ValueError(f"a must be a non-empty (B, T, D), got {tuple(a.shape)}")
+    if a.ndim != 3 or min(a.shape) == 0 or max(a.shape) > 2**31 - 1:
+        raise ValueError(f"a must be a non-empty (B, T, D) of int32 sizes, got {tuple(a.shape)}")
     for name, t in others:
         if t.shape != a.shape or t.dtype != a.dtype or t.device != a.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not fit a "
@@ -104,8 +102,6 @@ def linear_scan_fwd(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor) -> torch
     if not a.is_cuda:
         return linear_scan_ref(a, b, s0)
     B, T, D = _check(a, [("b", b)])
-    if B > _GRID_Y:
-        raise ValueError(f"B = {B} does not fit the grid (K5a takes B ≤ {_GRID_Y})")
     if s0.shape != (B, D) or s0.device != a.device:
         raise ValueError(f"s0 {tuple(s0.shape)} on {s0.device} must be ({B}, {D}) on {a.device}")
     from statecatcher_tpu_torch.ops._kernels import library
@@ -229,8 +225,6 @@ def _fused_cell_kernel(gates, h0, s0, frame_mask):
     if gates.ndim != 4 or gates.shape[2] != 7 or min(gates.shape) == 0:
         raise ValueError(f"gates must be a non-empty (B, T, 7, D), got {tuple(gates.shape)}")
     B, T, _, D = gates.shape
-    if B > _GRID_Y:
-        raise ValueError(f"B = {B} does not fit the grid (K12 takes B ≤ {_GRID_Y})")
     if not gates.is_contiguous():
         raise ValueError("gates must be contiguous")
     dev = gates.device

@@ -22,10 +22,10 @@ frame ring and through the producer warp's own loads, and bit for bit
 between two calls), K9a, K9b and K10 (the mLSTM; K9a and K9b also
 over the chunk lengths, head counts and widths of their chunk-parallel
 passes, with tied gates, and bit for bit between two calls; K9a and K10 at
-the streaming shape of one chunk), K12 (the fused masked cell; also at
-the edges of its ring, with fully masked rows) and K5a (also at the edges
-of its ring) bit for bit the plain versions in f32, and K11 (the dual scan),
-each against its plain version; the
+the streaming shape of one chunk), K12 (the fused masked cell), K11 (the
+dual scan), K5a and K5b (each also at the edges of its ring; K12 and K11
+with fully masked rows) bit for bit the plain versions in f32; K1, K2,
+K5a, K5b, K12 and K11 at B = 65536, past the grid's 65535 rows; the
 autograd Functions' gradients on the card against the CPU; and the xLSTM
 and native LucyRNN encoders on the card against the CPU.
 
@@ -1409,17 +1409,43 @@ K5A_RING_EDGES = [(2, 1, 128, torch.float32, False), (2, 31, 128, torch.float32,
                   (2, 40, 128, torch.float32, True), (2, 40, 129, torch.bfloat16, True)]
 
 
+# K5b walks K5a's ring backwards and K11 forwards (the same tiles of 32
+# steps, 4 stages, 32 f32 / 64 bf16 columns a block): T = 1, a tile's length
+# and ± 1, S tiles ± 1 and the flagship's 1598; D = 100, 128, 512, ragged and
+# odd bf16 widths; inputs offset from their allocation by 1, 2 or 4 elements
+# (copy units of 4 and 8 bytes in f32, of 2, 4 and 8 in bf16).
+K5B_RING_EDGES = [(2, 1, 128, torch.float32, 0), (2, 31, 128, torch.float32, 0),
+                  (2, 32, 128, torch.float32, 0), (2, 33, 128, torch.float32, 0),
+                  (2, 127, 100, torch.float32, 0), (2, 129, 512, torch.float32, 0),
+                  (2, 1598, 512, torch.float32, 0), (1, 32, 512, torch.float32, 0),
+                  (3, 70, 100, torch.float32, 1), (2, 65, 128, torch.float32, 2),
+                  (2, 1, 256, torch.bfloat16, 0), (2, 129, 101, torch.bfloat16, 0),
+                  (2, 33, 520, torch.bfloat16, 0), (2, 127, 128, torch.bfloat16, 1),
+                  (2, 31, 128, torch.bfloat16, 2), (2, 1598, 512, torch.bfloat16, 4)]
+K11_RING_EDGES = [(2, 1, 128, torch.float32, 0), (2, 31, 128, torch.float32, 0),
+                  (2, 32, 128, torch.float32, 0), (2, 33, 128, torch.float32, 0),
+                  (2, 127, 100, torch.float32, 0), (2, 129, 512, torch.float32, 0),
+                  (2, 1598, 512, torch.float32, 0), (1, 32, 512, torch.float32, 0),
+                  (3, 40, 100, torch.float32, 1), (2, 65, 128, torch.float32, 2),
+                  (2, 1, 256, torch.bfloat16, 0), (2, 129, 101, torch.bfloat16, 0),
+                  (2, 33, 520, torch.bfloat16, 0), (2, 127, 128, torch.bfloat16, 1),
+                  (2, 31, 128, torch.bfloat16, 2), (2, 1598, 512, torch.bfloat16, 4)]
+
+
 def _ring_id(case):
     B, T, D, dtype, offset = case
-    return f"B{B}-T{T}-D{D}-{str(dtype).split('.')[-1]}" + ("-offset" if offset else "")
+    return (f"B{B}-T{T}-D{D}-{str(dtype).split('.')[-1]}"
+            + ("-offset" if offset is True else f"-offset{offset}" if offset else ""))
 
 
 def _offset_view(x, offset):
-    """x itself, or a copy of x whose storage starts one element before it."""
+    """x itself, or a copy of x whose storage starts ``offset`` elements (one
+    for True) past its allocation."""
     if not offset:
         return x
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    view = buf[1:].view(x.shape)
+    n = int(offset)
+    buf = torch.empty(x.numel() + n, dtype=x.dtype, device=x.device)
+    view = buf[n:].view(x.shape)
     view.copy_(x)
     assert view.is_contiguous() and view.data_ptr() % 16
     return view
@@ -1505,28 +1531,144 @@ def test_linear_scan_fwd_ring_edges(cuda_device, B, T, D, dtype, offset):
 
 
 @pytest.mark.cuda
-def test_k12_and_k5a_refuse_a_batch_past_the_grid(cuda_device):
-    """K5a and K12 launch a block per (column tile, batch row): B past the
-    grid's 65535 rows is refused before any launch."""
-    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, lucy_fused_cell
+@pytest.mark.parametrize("B,T,D,dtype,offset", K5B_RING_EDGES, ids=map(_ring_id, K5B_RING_EDGES))
+def test_linear_scan_rev_ring_edges(cuda_device, B, T, D, dtype, offset):
+    """K5b at the edges of its ring, against its plain version: f32 bit for
+    bit, bf16 to one bf16 step."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_rev, linear_scan_rev_ref
 
-    B = 65536
-    a = torch.ones((B, 1, 1), device=cuda_device)
-    s0 = torch.zeros((B, 1), device=cuda_device)
-    n = (linear_scan_fwd.launches, lucy_fused_cell.launches)
-    with pytest.raises(ValueError, match="grid"):
-        linear_scan_fwd(a, a, s0)
-    with pytest.raises(ValueError, match="grid"):
-        lucy_fused_cell(torch.ones((B, 1, 7, 1), device=cuda_device), s0, s0)
-    assert (linear_scan_fwd.launches, lucy_fused_cell.launches) == n
+    rng = np.random.default_rng(T + D + 1)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    a = _offset_view(torch.sigmoid(f(B, T, D) + 2.0).to(dtype), offset)
+    g = _offset_view(f(B, T, D).to(dtype), offset)
+    before = linear_scan_rev.launches
+    got = linear_scan_rev(a, g)
+    want = linear_scan_rev_ref(a, g)
+    torch.cuda.synchronize()
+    assert linear_scan_rev.launches == before + 1 and got.shape == (B, T, D)
+    _assert_equal_or_one_bf16_step(got, want)
+
+
+def _dual_planes(seed, B, T, D, dtype, dev, mask=None):
+    """(a_s, b_s, a_h, h_pre_n) of the gate chain on conditioned gates, in
+    ``dtype``, and h0, s0 (f32)."""
+    from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
+
+    gates, bias, h0, s0 = _on(dev, conditioned_cell_data(seed, B, T, D))
+    a_s, b_s, a_h, _, h_pre = lucy_gate_coeffs(gates, mask, bias)
+    return [x.to(dtype) for x in (a_s, b_s, a_h, h_pre)], h0, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,dtype,offset", K11_RING_EDGES, ids=map(_ring_id, K11_RING_EDGES))
+def test_dual_scan_kernel_ring_edges(cuda_device, B, T, D, dtype, offset):
+    """K11 at the edges of its ring, on the masked gate chain's planes,
+    against its plain version: f32 bit for bit, bf16 to one bf16 step; h and
+    s both."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_dual_scan_ref
+
+    planes, h0, s0 = _dual_planes(80 + T + D, B, T, D, dtype, cuda_device,
+                                  _frame_mask(B, T, cuda_device))
+    planes = [_offset_view(x, offset) for x in planes]
+    before = lucy_dual_scan.launches
+    with torch.inference_mode():
+        h, s = lucy_dual_scan(*planes, h0, s0)
+        h_ref, s_ref = lucy_dual_scan_ref(*planes, h0, s0)
+    torch.cuda.synchronize()
+    assert lucy_dual_scan.launches == before + 1
+    assert h.shape == s.shape == (B, T, D)
+    _assert_equal_or_one_bf16_step(h, h_ref)
+    _assert_equal_or_one_bf16_step(s, s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dual_scan_kernel_fully_masked_and_first_frame_masked_rows(cuda_device, dtype):
+    """K11 on the planes of a row masked throughout (a_h = a_s = 1, b_s = 0:
+    h and s stay h0 and s0 at every step, exactly) and of a row whose first
+    frame is masked (step 0 keeps h0, s0), against its plain version: f32
+    bit for bit, bf16 to one bf16 step."""
+    from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_dual_scan_ref
+
+    B, T, D = 3, 40, 200
+    mask = torch.ones((B, T), dtype=torch.bool, device=cuda_device)
+    mask[0] = False
+    mask[1, 0] = False
+    planes, h0, s0 = _dual_planes(90, B, T, D, dtype, cuda_device, mask)
+    assert (planes[0][0] == 1).all() and (planes[1][0] == 0).all() and (planes[2][0] == 1).all()
+    with torch.inference_mode():
+        h, s = lucy_dual_scan(*planes, h0, s0)
+        h_ref, s_ref = lucy_dual_scan_ref(*planes, h0, s0)
+    torch.cuda.synchronize()
+    _assert_equal_or_one_bf16_step(h, h_ref)
+    _assert_equal_or_one_bf16_step(s, s_ref)
+    for x, x0 in ((h, h0), (s, s0)):
+        assert torch.equal(x[0], x0[0].to(dtype).expand(T, D))
+        assert torch.equal(x[1, 0], x0[1].to(dtype))
+        assert not torch.equal(x[1, 1], x0[1].to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5a", "K12", "K5b", "K11"])
+def test_cell_kernels_take_a_batch_past_the_grid(cuda_device, kernel):
+    """B = 65536, one row past the grid's 65535: the launcher walks the batch
+    in two slices, and the wrapper's one call counts one launch.  Against the
+    plain version, every row (the second slice's one row too): K5a, K5b, K12
+    and K11 bit for bit in f32; K1 and K2 at their f32 tolerances (K1
+    contracts its arithmetic); K2's d_bias (the wrapper's sum of the per-row
+    sums of both slices) against the float64 sum of its own d_gates."""
+    from statecatcher_tpu_torch.ops import lucy_pallas as lp
+
+    B, T, D = 65536, 3, 8
+    dev = cuda_device
+    gates, bias, h0, s0 = _on(dev, conditioned_cell_data(100, B, T, D))
+    rng = np.random.default_rng(101)
+    g_h = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32)).to(dev)
+    planes, _, _ = _dual_planes(102, B, T, D, torch.float32, dev)
+    g4 = (gates + bias).reshape(B, T, 7, D)
+    with torch.inference_mode():
+        h_s = lucy_cell_fused_lm_ref(gates, bias, h0, s0)
+    run = {
+        "K1": (lucy_cell_fused_lm, lucy_cell_fused_lm, lucy_cell_fused_lm_ref,
+               (gates, bias, h0, s0)),
+        "K2": (lucy_cell_fused_lm_bwd, lucy_cell_fused_lm_bwd, lucy_cell_fused_lm_bwd_ref,
+               (gates, bias, h0, s0, *h_s, g_h, 0.1 * g_h)),
+        "K5a": (lp.linear_scan_fwd, lp.linear_scan_fwd, lp.linear_scan_ref,
+                (planes[0], planes[1], s0)),
+        "K12": (lp.lucy_fused_cell, lp.lucy_fused_cell, lp.lucy_fused_cell_ref, (g4, h0, s0)),
+        "K5b": (lp.linear_scan_rev, lp.linear_scan_rev, lp.linear_scan_rev_ref,
+                (planes[0], g_h)),
+        "K11": (lp.lucy_dual_scan, lp.lucy_dual_scan, lp.lucy_dual_scan_ref, (*planes, h0, s0)),
+    }
+    counter, fn, ref, args = run[kernel]
+    with torch.inference_mode():
+        before = counter.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        want = ref(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].shape[0] == B
+    if kernel == "K1":
+        assert_cell_close(*(x.cpu().numpy() for x in got + want))
+    elif kernel == "K2":
+        for name, a, b in zip(("d_gates", "dh0", "ds0"), got, want):
+            assert_grad_close(a.cpu().numpy(), b.cpu().numpy(), name)
+        sums = got[0].double().sum(dim=(0, 1))
+        np.testing.assert_allclose(got[3].cpu().numpy(), sums.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6 * got[0].double().abs().sum(dim=(0, 1)).max().item())
+    else:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D,dtype", [(2, 45, 128, torch.float32), (3, 33, 100, torch.float32),
                                          (4, 64, 256, torch.bfloat16)])
 def test_dual_scan_kernel_matches_plain(cuda_device, B, T, D, dtype):
-    """K11 against its plain version on the planes of the masked gate chain,
-    with the tolerances of the K12 test."""
+    """K11 against its plain version on the planes of the masked gate chain:
+    f32 bit for bit, bf16 with the tolerances of the K12 test."""
     from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
     from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_dual_scan_ref
 
@@ -1540,10 +1682,10 @@ def test_dual_scan_kernel_matches_plain(cuda_device, B, T, D, dtype):
     torch.cuda.synchronize()
     assert lucy_dual_scan.launches == before + 1
     assert h.dtype == s.dtype == dtype
+    if dtype == torch.float32:                  # the same operations, each rounded once
+        assert torch.equal(h, h_ref) and torch.equal(s, s_ref)
     h, s, h_ref, s_ref = (t.float().cpu().numpy() for t in (h, s, h_ref, s_ref))
-    if dtype == torch.float32:
-        assert_cell_close(h, s, h_ref, s_ref)
-    else:
+    if dtype != torch.float32:
         np.testing.assert_allclose(h, h_ref, rtol=2e-2, atol=2e-2)
         assert (np.abs(s - s_ref) <= 1e-3 * np.abs(s_ref).max() + 1e-2 * np.abs(s_ref)).all()
 

@@ -15,7 +15,11 @@ taken through an interpret-mode kernel), at T = 300 (not a multiple of its
 256-row time chunk) and T = 1, D = 128: in float32 to 4e-6 of the state's
 scale (the TPU kernel composes each chunk by Hillis–Steele doubling, the
 port walks time sequentially: they differ by float32 round-off), in
-bfloat16 to one bfloat16 step (both round a float32 carry once).
+bfloat16 to one bfloat16 step (both round a float32 carry once).  The
+reverse scan (K5b's plain version, ``linear_scan_rev_ref``) is held the same
+way against ``_linear_scan_pallas_rev_impl``, which visits its time chunks
+from the latest: at T = 300 (the ragged chunk visited first, its rows past T
+identity maps), T = 1 and D = 200 (JAX pads D to 128 lanes).
 """
 
 import jax
@@ -26,6 +30,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from statecatcher_tpu.ops.lucy_pallas import _linear_scan_pallas_fwd_impl as j_pallas_fwd
+from statecatcher_tpu.ops.lucy_pallas import _linear_scan_pallas_rev_impl as j_pallas_rev
 from statecatcher_tpu.ops.scan import linear_scan_seq as j_scan
 from statecatcher_tpu_torch.ops.lucy_pallas import (
     linear_scan_pallas,
@@ -127,6 +132,27 @@ def test_forward_matches_jax_interpret_kernel(B, T, D, dtype):
     s = linear_scan_pallas(*xs, torch.from_numpy(s0))
     assert s.dtype == xs[0].dtype and s.shape == (B, T, D) and want.shape == (B, T, D)
     got, want = s.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6).all()
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=4e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 300, 128, np.float32), (3, 1, 128, np.float32),
+                                         (2, 300, 200, np.float32), (2, 300, 128, "bfloat16"),
+                                         (2, 1, 200, "bfloat16")])
+def test_reverse_matches_jax_interpret_kernel(B, T, D, dtype):
+    a, _, _, g = _scan_data(T + D + 2, B, T, D, np.float32)
+    a = 0.97 + 0.06 * (a - 0.5)                              # slow decay: long memory
+    xs = [torch.from_numpy(a), torch.from_numpy(g)]
+    if dtype == "bfloat16":
+        xs = [x.bfloat16() for x in xs]
+    with pltpu.force_tpu_interpret_mode():
+        want = j_pallas_rev(*(jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if dtype == "bfloat16" else jnp.float32) for x in xs))
+    lam = linear_scan_rev(*xs)
+    assert lam.dtype == xs[0].dtype and lam.shape == (B, T, D) and want.shape == (B, T, D)
+    got, want = lam.float().numpy(), np.asarray(want.astype(jnp.float32))
     if dtype == "bfloat16":
         assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6).all()
     else:

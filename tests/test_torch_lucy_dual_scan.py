@@ -7,7 +7,8 @@ package.
     ``pltpu.force_tpu_interpret_mode()``, in float32, on the four planes
     (a_s, b_s, a_h, h_pre_n) that JAX's ``lucy_gate_coeffs`` makes from
     conditioned gates, masked and unmasked, with D = 200 (not a multiple of
-    128, which JAX pads) and T = 300 (two of JAX's 256-row time chunks).
+    128, which JAX pads), T = 257 and T = 300 (two of JAX's 256-row time
+    chunks, the second ragged) and T = 1.
     Tolerances of the fused cell's kernel checks
     (tests/test_torch_cuda.py:assert_cell_close): h atol 2e-5, s within 1e-6
     of its scale plus 1e-4 relative (Hillis–Steele chunks against a
@@ -53,7 +54,7 @@ def planes(seed, B, T, D, masked, dtype=np.float32):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("T,D", [(5, 128), (40, 200), (300, 128)])
+@pytest.mark.parametrize("T,D", [(1, 128), (5, 128), (40, 200), (257, 128), (300, 128)])
 def test_forward_matches_jax_interpret_kernel(T, D, masked):
     B = 2
     xs = planes(T + D, B, T, D, masked)

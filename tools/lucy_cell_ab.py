@@ -25,11 +25,13 @@ phase 5's CTC training group (B=32, K=4, f32; the kernel path alone twice,
 the second run's ms per segment), phase 6's CTC row (B=96, bf16, K=8),
 phase 15's RNN-T rows (U=64 and U=128, K=4), phase 12's masked segment and
 training group (the split route, K5a/K5b; K=2), phase 24's masked segment,
-streams and training group through K12 (K=2) and phase 26's native
-segment (K5a).  With ``--profile`` it also prints the device time of each
+streams and training group through K12 (K=2), phase 25's masked segment
+and training group through K11 (K=2; their backwards run K5b) and phase
+26's native segment (K5a).  With ``--profile`` it also prints the device time of each
 CUDA kernel of one call of every kernel timed at B=32 (``torch.profiler``).
 With ``--sass`` it prints, for each kernel of the libraries of K1, K12/K11
-and K5a/K5b, its instruction count, the order of its memory and barrier
+and K5a/K5b (the ring scan's instantiations for K5a, K5b and K11 among
+them), its instruction count, the order of its memory and barrier
 instructions in the SASS (run-length coded) and a digest of its SASS with
 addresses, constant-bank offsets and names taken out (two builds whose
 digests agree run the same instructions).  With ``--save DIR`` it writes
@@ -290,8 +292,10 @@ def main() -> int:
 
     masked = cfg.apply_overrides(cs.MASKED)
     kcfg = masked.apply_overrides(["--model.lucyrnn.kernel_impl", "auto-fused"])
+    dcfg = masked.apply_overrides(["--model.lucyrnn.kernel_impl", "pallas-dual"])
     ncfg = masked.apply_overrides(cs.NATIVE)
     for c, counters, tag in ((masked, None, "split"), (kcfg, {"K12": lucy_fused_cell}, "k12"),
+                             (dcfg, {"K11": lucy_dual_scan}, "dual"),
                              (ncfg, {"K5a": linear_scan_fwd}, "native")):
         model = cs.build_speech_model(c.model, c.frontend.n_mfcc, "ctc", device=dev,
                                       generator=torch.Generator().manual_seed(cs.SEED))

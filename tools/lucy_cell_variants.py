@@ -1,5 +1,5 @@
 """Tile sizes and parts of the LucyRNN cell kernels (K1, K2, the masked cell
-K12 and the forward linear scan K5a), timed on one card.
+K12, the linear scan K5a/K5b and the dual scan K11), timed on one card.
 
     PYTHONPATH=. python tools/lucy_cell_variants.py [variant ...]
     PYTHONPATH=<parent checkout> python tools/lucy_cell_variants.py "parent: ..."
@@ -7,18 +7,15 @@ K12 and the forward linear scan K5a), timed on one card.
 Builds ``lucy_fused_lm_fwd.cu``, ``lucy_fused_lm_bwd.cu``,
 ``lucy_cell_scan.cu`` and ``linear_scan.cu`` once per variant from copies
 patched at exact source strings (other tile constants; the "no ..."
-variants take one part of a kernel's work away: where the time goes; "k5a
-bulk copies" fills K5a's ring by one thread's ``cp.async.bulk`` a row, with
-an mbarrier a stage, in place of the copy warps' ``cp.async``: it takes D
-a multiple of the column tile and rows on 16 bytes, as the timed shapes
-are) into ``build/lucy_variants/``, prints each build's registers and
-spills, and times through the port's wrappers (CUDA events), at B=32,
-T=1598, D=512 in f32 and bf16: K1 and K2 (also at bench.py's B=96 bf16)
-for the "k1"/"k2" variants, K5a for the "k5a" ones, K12 unmasked and
-masked for the "k12" ones, and all of them for "shipped"; and at the
-streaming shape (B=1, T=32, f32: the device time replayed from a CUDA
-graph, and for K1 the host time of a call and a device sync) K1, K5a and
-K12.  Each variant's outputs are held bit for bit against the shipped
+variants take one part of a kernel's work away: where the time goes) into
+``build/lucy_variants/``, prints each build's registers and spills, and
+times through the port's wrappers (CUDA events), at B=32, T=1598, D=512 in
+f32 and bf16: K1 and K2 (also at bench.py's B=96 bf16) for the "k1"/"k2"
+variants, K5a and K5b for the "k5a"/"k5b" ones (the two share the ring's
+geometry, ``ScanTile``), K11 for the "k11" ones, K12 unmasked and masked
+for the "k12" ones, and all of them for "shipped"; and at the streaming
+shape (B=1, T=32, f32: the device time replayed from a CUDA graph, and for
+K1 the host time of a call and a device sync) K1, K5a and K12.  Each variant's outputs are held bit for bit against the shipped
 build's (the per-element arithmetic does not depend on the tiling; d_bias's
 order of sums does).  An edit of the kernels' bodies updates the patches:
 the tool exits naming one it no longer finds.  The sources are those of
@@ -116,64 +113,42 @@ def const(src: str, name: str, old: str, new: str) -> tuple[str, str, str]:
             f"  static constexpr int {name} = {new};")
 
 
-# K5a: the dependent chain taken away (the walk copies a), and K5a's launch
-# opted in to more than 48 KB of shared memory (for the larger tiles)
-K5A_NO_WALK = (SCAN, """          s = __fadd_rn(__fmul_rn(lucy_tile::to_f32(in[t * DT]), s),
-                        lucy_tile::to_f32(in[(TC + t) * DT]));""",
-               "          s = lucy_tile::to_f32(in[t * DT]);")
-K5A_BIG_SMEM = (SCAN, "  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(",
-                "  lucy_tile::allow_smem(kernel, P::kSmem);\n"
-                "  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(")
-# K5a's ring filled by one thread's bulk copies (cp.async.bulk, a row of DT
-# elements each) completing on an mbarrier a stage; every thread waits on
-# the stage's barrier before the phase's block barrier.  Rows past T are
-# not copied (the walk's steps past T are never stored).
-K5A_BULK = [
-    (SCAN, """  auto load = [&](int j) {                                 // copy threads: tile j's a and b
-    if (j < nT) {
-      const int t0 = j * TC;
-      lucy_tile::copy_rows<Tx, DT, VB>(
-          stages + (j % S) * P::kStageElems, 2 * TC,
-          [&](int r) -> const Tx* {
-            const int t = t0 + (r < TC ? r : r - TC);
-            return t < T ? (r < TC ? ab : bb) + static_cast<size_t>(t) * D : nullptr;
-          },
-          d0, D, a, ct, P::kCopy);
-    }
-    lucy_tile::cp_async_commit();
-  };""", """  __shared__ __align__(8) unsigned long long bars[S];
-  auto sa = [](const void* q) { return static_cast<unsigned>(__cvta_generic_to_shared(q)); };
-  if (threadIdx.x == 0)
-    for (int i = 0; i < S; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(sa(bars + i)) : "memory");
-  __syncthreads();
-  auto load = [&](int j) {                                 // one thread: tile j's rows
-    if (j < nT && ct == 0) {
-      const int t0 = j * TC, rows = T - t0 < TC ? T - t0 : TC;
-      constexpr unsigned kRow = DT * sizeof(Tx);
-      const unsigned bar = sa(bars + j % S);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(bar),
-                   "r"(2 * rows * kRow) : "memory");
-      Tx* st = stages + (j % S) * P::kStageElems;
-      for (int r = 0; r < rows; ++r) {
-        const size_t off = static_cast<size_t>(t0 + r) * D + d0;
-        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                     "[%0], [%1], %2, [%3];\\n" ::"r"(sa(st + r * DT)), "l"(ab + off),
-                     "r"(kRow), "r"(bar) : "memory");
-        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                     "[%0], [%1], %2, [%3];\\n" ::"r"(sa(st + (TC + r) * DT)), "l"(bb + off),
-                     "r"(kRow), "r"(bar) : "memory");
-      }
-    }
-  };"""),
-    (SCAN, """    if (!walker) lucy_tile::cp_async_wait<S - 2>();        // tile j has landed
-    __syncthreads();""", """    if (j < nT)
-      asm volatile("{\\n .reg .pred done;\\n WAIT:\\n"
-                   " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\\n"
-                   " @!done bra WAIT;\\n}\\n" ::"r"(sa(bars + j % S)), "r"((j / S) & 1)
-                   : "memory");
-    __syncthreads();"""),
-]
+# The ring scans' walks taken away (each step copies an input): K5a, K5b
+# and K11
+K5A_NO_WALK = (SCAN, "    c[0] = __fadd_rn(__fmul_rn(x(0), c[0]), x(1));",
+               "    c[0] = x(0);")
+K5B_NO_WALK = (SCAN, "    c[0] = __fadd_rn(x(1), __fmul_rn(c[1], c[0]));",
+               "    c[0] = x(1);")
+K11_NO_WALK = (CELL, "    MaskedCellChain<false>::step(x(0), x(1), x(2), x(3), c[0], c[1]);",
+               "    c[0] = x(1);\n    c[1] = x(3);")
+# a ring of 32 columns a block in bf16 too (one walking warp, twice the blocks)
+K5_DT32 = const(SCAN, "DT", "128 / static_cast<int>(sizeof(Tx))", "32")
+K11_DT32 = const(CELL, "DT", "128 / static_cast<int>(sizeof(P))", "32")
+
+
+# The ring scan's loads of more than two planes (lucy_tile.cuh) in one pass
+# over all planes' rows, a row's plane by a chain of compares, in place of a
+# pass a plane (timed for K11, four planes in); and K5a's and K5b's two
+# planes loaded a pass a plane
+RING_ONE_PASS = (TILE, """#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          copy_rows<Tx, DT, VB>(
+              stages + (j % S) * P::kStageElems + i * TC * DT, TC,
+              [&](int r) -> const Tx* {
+                return t0 + r < T ? in[i] + static_cast<size_t>(t0 + r) * D : nullptr;
+              },
+              d0, D, x0, ct, P::kCopy);""", """        static_assert(NI == 4, "four planes");
+        copy_rows<Tx, DT, VB>(
+            stages + (j % S) * P::kStageElems, NI * TC,
+            [&](int r) -> const Tx* {
+              const int t = t0 + (r < TC ? r : r < 2 * TC ? r - TC : r < 3 * TC ? r - 2 * TC
+                                                                             : r - 3 * TC);
+              return t < T ? (r < TC ? in[0] : r < 2 * TC ? in[1] : r < 3 * TC ? in[2] : in[3]) +
+                                 static_cast<size_t>(t) * D
+                           : nullptr;
+            },
+            d0, D, x0, ct, P::kCopy);""")
+RING_PLANE_PASSES = (TILE, "      if constexpr (NI == 2) {", "      if constexpr (false) {")
 
 
 # The one-thread-per-column K1 that this design replaced (run with that
@@ -211,16 +186,27 @@ VARIANTS = {
     "k2 tc 8 in f32": [const(BWD, "TC", "sizeof(G) == 4 ? 4 : 8", "8")],
     "k2 4 stages": [const(BWD, "S", "5", "4")],
     "k5a no walk": [K5A_NO_WALK],
+    "k5b no walk": [K5B_NO_WALK],
     "k5a tc 16": [const(SCAN, "TC", "32", "16")],
-    "k5a tc 64": [const(SCAN, "TC", "32", "64"), K5A_BIG_SMEM],
+    "k5a tc 64": [const(SCAN, "TC", "32", "64")],
     "k5a 3 stages": [const(SCAN, "S", "4", "3")],
-    "k5a 6 stages": [const(SCAN, "S", "4", "6"), K5A_BIG_SMEM],
+    "k5a 6 stages": [const(SCAN, "S", "4", "6")],
     "k5a 2 copy warps": [const(SCAN, "kCopy", "128", "64")],
     "k5a 8 copy warps": [const(SCAN, "kCopy", "128", "256")],
     "k5a 64 columns f32 / 128 bf16": [
-        const(SCAN, "DT", "128 / static_cast<int>(sizeof(Tx))", "256 / static_cast<int>(sizeof(Tx))"),
-        K5A_BIG_SMEM],
-    "k5a bulk copies": K5A_BULK,
+        const(SCAN, "DT", "128 / static_cast<int>(sizeof(Tx))", "256 / static_cast<int>(sizeof(Tx))")],
+    "k5a 32 columns bf16": [K5_DT32],
+    "k11 no walk": [K11_NO_WALK],
+    "k11 tc 16": [const(CELL, "TC", "32", "16")],
+    "k11 tc 24": [const(CELL, "TC", "32", "24")],
+    "k11 3 stages": [const(CELL, "S", "4", "3")],
+    "k11 tc 16, 3 stages": [const(CELL, "TC", "32", "16"), const(CELL, "S", "4", "3")],
+    "k11 2 copy warps": [const(CELL, "kCopy", "128", "64")],
+    "k11 8 copy warps": [const(CELL, "kCopy", "128", "256")],
+    "k11 32 columns bf16": [K11_DT32],
+    "k11 32 columns bf16, no walk": [K11_DT32, K11_NO_WALK],
+    "k11 one pass": [RING_ONE_PASS],
+    "k5a a pass a plane": [RING_PLANE_PASSES],
     "parent: bf16 gates converted at use": PARENT_CONVERT_AT_USE,
 }
 SHAPES = (("f32", 32, torch.float32), ("bf16", 32, torch.bfloat16),
@@ -230,11 +216,12 @@ SHAPES = (("f32", 32, torch.float32), ("bf16", 32, torch.bfloat16),
 def family(name: str) -> set[str]:
     """The kernels a variant times: all for "shipped", else its prefix's."""
     if name == "shipped":
-        return {"K1", "K2", "K5a", "K12"}
+        return {"K1", "K2", "K5a", "K5b", "K12", "K11"}
     head = name.split()[0]
     if head == "parent:":
         return {"K1", "K2"}
-    return {"k1": {"K1", "K2"}, "k2": {"K1", "K2"}, "k5a": {"K5a"}, "k12": {"K12"}}[head]
+    return {"k1": {"K1", "K2"}, "k2": {"K1", "K2"}, "k5a": {"K5a", "K5b"},
+            "k5b": {"K5a", "K5b"}, "k12": {"K12"}, "k11": {"K11"}}[head]
 
 
 def build(name: str, patches: list) -> dict[str, ctypes.CDLL]:
@@ -256,7 +243,8 @@ def build(name: str, patches: list) -> dict[str, ctypes.CDLL]:
                 text = text.replace(old, new, 1)
         (out_dir / src).write_text(text)
     libs, procs = {}, {}
-    wanted = {"K1": LIBS[:2], "K2": LIBS[:2], "K12": LIBS[2:3], "K5a": LIBS[3:]}
+    wanted = {"K1": LIBS[:2], "K2": LIBS[:2], "K12": LIBS[2:3], "K11": LIBS[2:3],
+              "K5a": LIBS[3:], "K5b": LIBS[3:]}
     for lib in sorted({lib for k in family(name) for lib in wanted[k]}):
         target = out_dir / f"{lib}.so"
         cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(target),
@@ -292,7 +280,12 @@ def main() -> int:
     cs = load_chip_smoke()
     from statecatcher_tpu_torch.ops import _kernels
     from statecatcher_tpu_torch.ops.lucy_fused_lm import lucy_cell_fused_lm, lucy_cell_fused_lm_bwd
-    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, lucy_fused_cell
+    from statecatcher_tpu_torch.ops.lucy_pallas import (
+        linear_scan_fwd,
+        linear_scan_rev,
+        lucy_dual_scan,
+        lucy_fused_cell,
+    )
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -306,16 +299,17 @@ def main() -> int:
         g_h = torch.randn((B, 1598, 512), generator=gen, device=dev).to(dtype)
         inputs[label] = (gates, bias, h0, s0, g_h)
     streaming = cs.conditioned_cell_inputs(gen, 1, 32, 512, torch.float32, dev)
-    # K5a and K12: the masked gate chain's planes and the gates with the bias
-    # added, at B=32 in f32 and bf16 and at the streaming shape
+    # K5a, K5b, K11 and K12: the masked gate chain's planes and the gates with
+    # the bias added, at B=32 in f32 and bf16 and at the streaming shape
     cell = {}
     for label, B, T, dtype in (("f32", 32, 1598, torch.float32),
                                ("bf16", 32, 1598, torch.bfloat16),
                                ("streaming f32", 1, 32, torch.float32)):
         gates, bias, h0, s0 = cs.conditioned_cell_inputs(gen, B, T, 512, torch.float32, dev)
         mask = cs.masked_rows(B, T, dev)
-        a_s, b_s = (x.to(dtype) for x in cs.lucy_gate_coeffs(gates, mask, bias)[:2])
-        cell[label] = ((gates + bias).reshape(B, T, 7, 512).to(dtype), h0, s0, mask, a_s, b_s)
+        planes = [x.to(dtype) for i, x in enumerate(cs.lucy_gate_coeffs(gates, mask, bias))
+                  if i != 3]
+        cell[label] = ((gates + bias).reshape(B, T, 7, 512).to(dtype), h0, s0, mask, planes)
         del gates
     want, results = {}, {}
     for name in ["shipped"] + [n for n in names if n != "shipped"]:
@@ -348,11 +342,15 @@ def main() -> int:
                 results[f"{name} | streaming f32"] = {"K1": k1, "K1 host": host}
                 print(f"[variant] {name} | streaming f32: K1 {k1:.4f} ms on the card, {host:.4f} "
                       f"ms a call on the host's clock", flush=True)
-            for label, (g4, h0, s0, mask, a_s, b_s) in cell.items():
+            for label, (g4, h0, s0, mask, (a_s, b_s, a_h, h_pre)) in cell.items():
                 small = label.startswith("streaming")
                 runs = []
                 if "K5a" in kernels:
                     runs.append(("K5a", lambda: (linear_scan_fwd(a_s, b_s, s0),)))
+                if "K5b" in kernels and not small:
+                    runs.append(("K5b", lambda: (linear_scan_rev(a_s, b_s),)))
+                if "K11" in kernels and not small:
+                    runs.append(("K11", lambda: lucy_dual_scan(a_s, b_s, a_h, h_pre, h0, s0)))
                 if "K12" in kernels:
                     runs += [("K12", lambda: lucy_fused_cell(g4, h0, s0, None)),
                              ("K12 masked", lambda: lucy_fused_cell(g4, h0, s0, mask))]
