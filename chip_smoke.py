@@ -7,8 +7,9 @@ It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
 csrc`` (one nvcc per source, all started together) and drives the flagship
 LucyRNN (4 × 512, vocab 1024, 80 MFCC, float32, seeded random weights;
 RNN-T joiner 64; the 7-gate cell, masked or not, through each of its
-kernels, and the 6-gate native variant) and the xLSTM of the config's
-defaults through the port's entry points:
+kernels, and the 6-gate native variant), the xLSTM and the LSTM of the
+config's defaults through the port's entry points, and evaluates and
+beam-decodes the flagship:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills)
      and the tensor-core (HMMA) instructions of the joint's forward and
@@ -38,7 +39,10 @@ defaults through the port's entry points:
      benchmark);
   7. CLI: ``python -m statecatcher_tpu_torch.cli`` trains a few dispatches on
      a generated WAV+VTT fixture and writes a checkpoint; a second run
-     resumes from its cursor;
+     resumes from its cursor; then ``python -m statecatcher_tpu_torch.eval``
+     on the resumed run (its WER line), and ``evaluate`` with the run's
+     tokenizer and data on random weights, greedy and beam, kernel path
+     (K1) against plain path (hypotheses within 2 % edit distance);
   8. kernels K6a, K6b, K7a, K7b: the fused RNN-T joint (forward, backward)
      and the transducer α/β lattice against their plain versions at the
      RNN-T training shape (B=32, T=1598, U=48, J=64, V=1024; f32, and bf16
@@ -82,7 +86,8 @@ defaults through the port's entry points:
      plain path;
  15. RNN-T throughput at B=96, K=4 × 16 s, bf16, U=64 and U=128 (bench.py's
      RNN-T rows; both under the default band; printed only);
- 16. CLI in RNN-T mode: two dispatches;
+ 16. CLI in RNN-T mode: two dispatches; then eval as in phase 7, with the
+     RNN-T decoders (rnnt-greedy, rnnt-beam);
  17. kernels K9a, K9b and K10: the fused mLSTM forward and backward and the
      head-major chunkwise forward against their plain versions at the
      xLSTM's shape (B=32, T=1598, 2 heads, dqk=128, dv=256, chunk 128; f32,
@@ -117,10 +122,23 @@ defaults through the port's entry points:
  26. the native LucyRNN (``variant="native"``, 4 × 512, vocab 1024, masked;
      its scans through K5): the batched encode, three streams, a CTC
      training group of K=2 and the CLI with a resume;
- 27. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 9, 10, 12, 14, 18, 19, 20 and 24–26; each counter is
-     set to 0 just before a phase and read just after it, so comparison
-     launches are not counted).
+ 27. the LSTM of the config's defaults (no ``--model.encoder``: 4 × 512,
+     vocab 1024, 80 MFCC, f32; a torch recurrence, no TPU kernel): phase 2's
+     batched encode with the segment's time (the row whose mask ends early
+     carries its last valid frame's state), a CTC training group of K=2 at
+     B=32 (K3/K4 against their plain versions) and the CLI with a resume;
+ 28. ``ctc_beam_search`` (beam 8, top 16, as eval runs it) at B=32, T=1598,
+     V=1024 on the flagship's log-probs: the card's live hypotheses against
+     the same function's on the CPU, with both times;
+ 29. the flagship through ``StreamingRecognizer(decoder="beam")``: three
+     streams with commits on the way, against the same search and commits
+     replayed over the same log-probs (equal tokens) and against one
+     offline search (within 2 % edit distance: exact f32 ties are broken by
+     hash order, which a commit changes); chunk latency;
+ 30. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27 and 29; each
+     counter is set to 0 just before a phase and read just after it, so
+     comparison launches are not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -142,6 +160,8 @@ import time
 import numpy as np
 import torch
 
+from statecatcher_tpu_torch import eval as port_eval
+from statecatcher_tpu_torch.beam import beam_commit, beam_hypotheses, ctc_beam_search
 from statecatcher_tpu_torch.config import Config
 from statecatcher_tpu_torch.decode import ctc_greedy_decode_to_lists
 from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask, num_frames
@@ -462,14 +482,16 @@ def run_segments(model, cfg, audio, masks):
 
 
 def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
-    """Phases 2, 12 and 18: 3 carried 16 s segments at B=32, the last with a
-    partial sample mask, kernel path vs plain path.  Under
+    """Phases 2, 12, 18 and 27: 3 carried 16 s segments at B=32, the last
+    with a partial sample mask, kernel path vs plain path.  Under
     ``mask_state_updates`` the masked segment runs the masked cell (the
     split path through K5 unless ``kernel_impl`` names K12 or K11) and a row
-    whose mask ends early must carry its last valid frame's state.  Returns
-    the launches of ``counters`` (name → kernel wrapper; by default K1 and
-    K5a, the 7-gate LucyRNN's), each of which must launch (the default K5a
-    only when masked), and the kernel path's ms per segment."""
+    whose mask ends early must carry its last valid frame's state; so must
+    the LSTM's, which masks inside its recurrence.  Returns the launches of
+    ``counters`` (name → kernel wrapper; by default K1 and K5a, the 7-gate
+    LucyRNN's; {} for the LSTM, which has no kernel), each of which must
+    launch (the default K5a only when masked), and the kernel path's ms per
+    segment."""
     B, S = 32, 16 * 16000
     masked = cfg.model.encoder == "lucyrnn" and cfg.model.lucyrnn.mask_state_updates
     tag = tag or ("[batched masked]" if masked else "[batched]")
@@ -480,8 +502,9 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     last_mask = torch.arange(S, device=dev)[None, :] < torch.from_numpy(lens).to(dev)[:, None]
     masks = [None, None, last_mask]
     T = num_frames(S, cfg.frontend)
-    optional = set() if counters or masked else {"K5a"}
-    counters = counters or {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
+    optional = set() if counters is not None or masked else {"K5a"}
+    if counters is None:
+        counters = {"K1": lucy_cell_fused_lm, "K5a": linear_scan_fwd}
     with torch.inference_mode():
         run_segments(model, cfg, audio, masks)                    # warm-up, masked path too
         for c in counters.values():
@@ -492,7 +515,7 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
             plain = run_segments(model, cfg, audio, masks)
     if any(n == 0 and name not in optional for name, n in launches.items()):
         raise AssertionError(f"the batched path launched {launches}")
-    if masked:
+    if masked or cfg.model.encoder == "lstm":
         check_last_valid_state(model, cfg, *kern[-1], tag=tag)
     agree = total = 0
     for k, ((lp, carry, sec, fmask), (lp_p, carry_p, sec_p, _)) in enumerate(zip(kern, plain)):
@@ -529,24 +552,30 @@ def check_last_valid_state(model, cfg, lp, carry, _sec, fmask, tag="[batched mas
     so the logits stay those of the last valid frame past it, and the
     projection of the carried h equals them (within f32 round-off of the
     projection, 1e-5 of their scale).  The carry is (B, tracks, L, D), or
-    (B, L, D) for the native variant: track 0's last layer either way."""
+    (B, L, D) for the native variant and the LSTM: track 0's last layer.
+    The LSTM outputs zero on a masked frame, so past its last valid frame
+    the logits are its classifier's bias."""
     row = int(fmask.sum(1).argmin())
     last = int(fmask[row].sum()) - 1
     if not bool(fmask[row, :last + 1].all()) or last + 1 >= fmask.shape[1]:
         raise AssertionError(f"row {row}: its frame mask is not a prefix ending early")
+    lstm = cfg.model.encoder == "lstm"
     with torch.inference_mode():
         L = cfg.model.num_layers
         h_T = carry["h"][row].reshape(-1, L, carry["h"].shape[-1])[0, L - 1]
-        logits = torch.log_softmax(model.asr.encoder.output_proj(h_T[None]).float(), -1)[0]
+        proj = model.asr.classifier if lstm else model.asr.encoder.output_proj
+        logits = torch.log_softmax(proj(h_T[None]).float(), -1)[0]
+        tail = (torch.log_softmax(proj.bias.float(), -1) if lstm else lp[row, last])
     want = lp[row, last]
     scale = want.abs().max().item()
-    d_tail = (lp[row, last + 1:] - want).abs().max().item()
+    d_tail = (lp[row, last + 1:] - tail).abs().max().item()
     d_carry = (logits - want).abs().max().item()
     if d_tail > 1e-5 * scale or d_carry > 1e-5 * scale:
         raise AssertionError(f"row {row}: the state moved after its last valid frame {last} "
                              f"(max |Δ| {d_tail:.3e} past it, {d_carry:.3e} from the carry)")
-    log(f"{tag} row {row} ends at frame {last} of {fmask.shape[1]}: its log-probs "
-        f"past it and from its carried h equal frame {last}'s (max |Δ| {max(d_tail, d_carry):.2e})")
+    past = "its classifier's bias" if lstm else f"frame {last}'s"
+    log(f"{tag} row {row} ends at frame {last} of {fmask.shape[1]}: its log-probs from its "
+        f"carried h equal frame {last}'s, past it {past} (max |Δ| {max(d_tail, d_carry):.2e})")
 
 
 def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming]") -> int:
@@ -874,6 +903,7 @@ TRAIN_KERNELS = {
                  "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
     "native ctc": {"K5a": (linear_scan_fwd, 2), "K5b": (linear_scan_rev, 2),
                    "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "lstm ctc": {"K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
 }
 
 
@@ -900,7 +930,7 @@ def train_setup(cfg, dev, K, B=32, S=16 * 16000, U=128, mode="ctc", degenerate=F
 
 def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=None,
                      degenerate=False) -> dict:
-    """Phases 5, 9, 12, 14, 20 and 24–26: one group of K carried 16 s segments at B=32
+    """Phases 5, 9, 12, 14, 20, 24–26 and 27: one group of K carried 16 s segments at B=32
     through ``make_segment_scan_step`` in ``mode`` ("ctc" or "rnnt"), kernel
     path against plain path; ``path`` names the kernels it must launch
     (``TRAIN_KERNELS``; the mode by default).  With ``degenerate``, row 1's
@@ -1149,13 +1179,16 @@ def run_cli(args: list[str]) -> dict:
     return summary
 
 
-def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn", tag=None) -> None:
-    """Phases 7, 22 and 26: the CLI trains 2 dispatches on a generated fixture,
-    then a second run resumes from the checkpoint's cursor and trains one
-    more."""
+def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn", tag=None) -> tuple:
+    """Phases 7, 22, 26 and 27: the CLI trains 2 dispatches on a generated
+    fixture, then a second run resumes from the checkpoint's cursor and
+    trains one more.  ``encoder=None`` passes no ``--model.encoder`` (the
+    config's default, the LSTM).  Returns (the resumed run's directory, the
+    CLI's model and data overrides)."""
     shutil.rmtree(WORK, ignore_errors=True)
     data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
-    common = ["--model.encoder", encoder, "--data.source", "local", "--data.local_dir", data,
+    common = [*(["--model.encoder", encoder] if encoder else []),
+              "--data.source", "local", "--data.local_dir", data,
               "--data.target_duration", str(target), "--data.batch_size", "4",
               "--data.num_workers", "4", "--train.segments_per_dispatch", "1",
               "--train.log_every_n", "2", *extra]
@@ -1174,6 +1207,7 @@ def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn", tag=None) ->
         f"{[round(x, 4) for x in first['loss_history']]}, checkpoint cursor {meta['cursor']}; "
         f"resumed at step 2, loss {second['loss_history'][0]:.4f}, global_step 3 "
         f"({time.perf_counter() - t0:.1f} s for both runs)")
+    return second["run_dir"], common
 
 
 def joint_inputs(gen, B, T, U, J, V, dev, dtype, blank_id):
@@ -1796,23 +1830,26 @@ def phase_rnnt_streaming(model, cfg, dev) -> int:
     return launches
 
 
-def phase_cli_rnnt(seconds=48.0, target=16) -> None:
+def phase_cli_rnnt(seconds=48.0, target=16) -> tuple:
     """Phase 16: the CLI trains RNN-T for two dispatches on a generated
-    fixture (~100 characters per 16 s segment: the default band)."""
+    fixture (~100 characters per 16 s segment: the default band).  Returns
+    (the run's directory, the CLI's model and data overrides)."""
     shutil.rmtree(WORK, ignore_errors=True)
     data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
     t0 = time.perf_counter()
-    summary = run_cli(["--model.encoder", "lucyrnn", "--data.source", "local",
-                       "--data.local_dir", data, "--data.target_duration", str(target),
-                       "--data.batch_size", "4", "--data.num_workers", "4",
-                       "--train.segments_per_dispatch", "1", "--train.log_every_n", "2",
-                       "--train.mode", "rnnt", "--train.steps", "2",
-                       "--train.model_dir", os.path.join(WORK, "rnnt")])
+    common = ["--model.encoder", "lucyrnn", "--data.source", "local",
+              "--data.local_dir", data, "--data.target_duration", str(target),
+              "--data.batch_size", "4", "--data.num_workers", "4",
+              "--train.segments_per_dispatch", "1", "--train.log_every_n", "2",
+              "--train.mode", "rnnt"]
+    summary = run_cli(common + ["--train.steps", "2",
+                                "--train.model_dir", os.path.join(WORK, "rnnt")])
     if summary["global_step"] != 2 or len(summary["loss_history"]) != 2:
         raise AssertionError(f"RNN-T CLI run: step {summary['global_step']}, "
                              f"losses {summary['loss_history']}")
     log(f"[cli rnnt] 4 recordings × {seconds:g} s, {target} s segments: losses "
         f"{[round(x, 4) for x in summary['loss_history']]} ({time.perf_counter() - t0:.1f} s)")
+    return summary["run_dir"], common
 
 
 def mlstm_ops(B, H, Tp, L, dqk, dv, backward: bool) -> tuple[float, float]:
@@ -2127,6 +2164,242 @@ def phase_cell_scan_kernels(dev) -> dict:
     return out
 
 
+def phase_eval(run_dir, overrides, decoders, dev, tag) -> int:
+    """Phases 7 and 16, after the CLI: eval.py on the run directory it wrote.
+    First ``python -m statecatcher_tpu_torch.eval`` as a user runs it (the
+    run's newest checkpoint and tokenizer, one batch of the fixture: 4
+    recordings × 3 segments; its WER line is printed).  Then, since two or
+    three updates leave a LucyRNN's logits within round-off of each other
+    (its output projection is zero at init), ``evaluate`` with the run's
+    tokenizer and data on the flagship's ``randomize_`` weights (the RNN-T
+    joiner's widened as phase 10's), kernel path (K1) against plain path,
+    for each of ``decoders``: the same references, and hypotheses whose
+    edit distance to the plain path's is at most 2 % of its characters
+    (phase 2 holds 99.9 % of greedy frames equal; a beam's choice among
+    candidates whose f32 scores tie, or nearly, turns on round-off, and a
+    changed choice moves the rest of the hypothesis).  Returns K1's
+    launches on the kernel path's evaluations."""
+    proc = subprocess.run([sys.executable, "-m", "statecatcher_tpu_torch.eval", "--ckpt", run_dir,
+                           "--decoder", decoders[0], "--max-batches", "1", *overrides],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"eval exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    if not re.fullmatch(r"WER: \S+  CER: \S+  \(4 utterances, \d+ segments\)", line):
+        raise AssertionError(f"eval printed {line!r}")
+    log(f"{tag} python -m statecatcher_tpu_torch.eval --decoder {decoders[0]} on the CLI's "
+        f"run: {line}")
+    cfg, tok, params = port_eval.load_run(run_dir, Config().apply_overrides(overrides), dev)
+    mode = cfg.train.mode
+    model = rnnt_model(cfg, dev) if mode == "rnnt" else build_speech_model(
+        cfg.model, cfg.frontend.n_mfcc, mode, device=dev)
+    if mode != "rnnt":
+        randomize_(model, SEED + 1)
+    params = model.state_dict()
+    del model
+    launches = 0
+    for decoder in decoders:
+        lucy_cell_fused_lm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = port_eval.evaluate(cfg, params, tok, max_batches=1, decoder=decoder, device=dev)
+        sec = time.perf_counter() - t0
+        n = lucy_cell_fused_lm.launches
+        launches += n
+        with plain_kernels():
+            t0 = time.perf_counter()
+            res_p = port_eval.evaluate(cfg, params, tok, max_batches=1, decoder=decoder,
+                                       device=dev)
+            sec_p = time.perf_counter() - t0
+        if n == 0:
+            raise AssertionError(f"{tag} {decoder}: evaluation launched no K1")
+        if (res.refs != res_p.refs or res.num_segments != res_p.num_segments
+                or res.num_utterances != 4):
+            raise AssertionError(f"{tag} {decoder}: references or counts differ")
+        dist = sum(levenshtein(list(a), list(b)) for a, b in zip(res.hyps, res_p.hyps))
+        chars = sum(len(h) for h in res_p.hyps)
+        if not chars or dist > 0.02 * chars:
+            raise AssertionError(f"{tag} {decoder}: kernel and plain hypotheses {dist} edits "
+                                 f"apart over {chars} characters")
+        log(f"{tag} evaluate --decoder {decoder} (randomize_ weights, 4 recordings × "
+            f"{res.num_segments} × 16 s): "
+            f"WER {res.wer:.4f} / {res_p.wer:.4f}, CER {res.cer:.4f} / {res_p.cer:.4f} (kernel / "
+            f"plain path); hypotheses {chars} characters, {dist} edits apart "
+            f"({'the same' if res.hyps == res_p.hyps else 'not the same'}); {sec:.2f} s kernel "
+            f"path, {sec_p:.2f} s plain; K1 launches {n}")
+    return launches
+
+
+def phase_lstm(dev) -> dict:
+    """Phase 27: the LSTM at the config's defaults (no ``--model.encoder``: 4
+    × 512, vocab 1024, 80 MFCC, f32; the recurrence is torch, with no TPU
+    kernel): phase 2's batched encode (the row whose mask ends early carries
+    its last valid frame's state; the output past it is zero), a CTC
+    training group of K=2 at B=32 (K3/K4 against their plain versions), and
+    the CLI with no ``--model.encoder``, resumed."""
+    cfg = Config()
+    m = cfg.model
+    if m.encoder != "lstm":
+        raise AssertionError(f"the config's default encoder is {m.encoder!r}")
+    model = build_speech_model(m, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    log(f"[model] SpeechModel lstm {m.num_layers} × {m.hidden_size}, vocab {m.vocab_size}, "
+        f"{cfg.frontend.kind} {cfg.frontend.n_mfcc}, {m.dtype}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    _, per_seg = phase_batched(model.eval(), cfg, dev, {}, "[lstm batched]")
+    del model
+    log(f"[lstm batched] the LSTM's 16 s segment at B=32: {per_seg[0]:.1f}, {per_seg[1]:.1f} "
+        f"ms unmasked, {per_seg[2]:.1f} ms masked ({m.num_layers} × 1598 steps in torch)")
+    n_train = phase_train_step(cfg, dev, K=2, path="lstm ctc")
+    phase_cli(encoder=None, tag="[cli lstm default]")
+    return n_train
+
+
+def phase_ctc_beam(model, cfg, dev) -> None:
+    """Phase 28: ``ctc_beam_search`` (beam 8, top 16, as eval runs it; buffers
+    of T tokens, which no hypothesis can outgrow) at B=32, T=1598, V=1024 on
+    the flagship's log-probs of a 16 s batch, rows of other lengths among
+    them: on the card, then the same function on the CPU on the same
+    log-probs.  The live hypotheses must be
+    the same token lists in the same order, and their scores within 1e-5
+    (relative) of the CPU's."""
+    B, S = 32, 16 * 16000
+    rng = np.random.default_rng(SEED + 11)
+    audio = torch.from_numpy(synth_audio(rng, B, S)).to(dev)
+    with torch.inference_mode():
+        logits, _ = model(compute_features(audio, cfg.frontend))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+    T = lp.shape[1]
+    in_lens = torch.full((B,), T, dtype=torch.int32)
+    in_lens[1:6] = torch.tensor([0, 1, T // 3, T // 2, T - 1], dtype=torch.int32)
+    kw = dict(beam=8, topk=16, blank_id=0, max_len=T)
+    ctc_beam_search(lp[:, :8], in_lens.to(dev), **kw)                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, tot = ctc_beam_search(lp, in_lens.to(dev), **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st_c, tot_c = ctc_beam_search(lp.cpu(), in_lens, **kw)
+    sec_c = time.perf_counter() - t0
+    got, want = beam_hypotheses(st, tot), beam_hypotheses(st_c, tot_c)
+    if [[t for _, t in r] for r in got] != [[t for _, t in r] for r in want]:
+        bad = [b for b, (g, w) in enumerate(zip(got, want))
+               if [t for _, t in g] != [t for _, t in w]]
+        raise AssertionError(f"ctc_beam_search: the card's live hypotheses differ from the CPU's "
+                             f"in rows {bad}")
+    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want) for (a, _), (b, _) in zip(g, w)
+              if b != 0)
+    if rel > 1e-5:
+        raise AssertionError(f"ctc_beam_search: scores {rel:.3e} (relative) from the CPU's")
+    lens = [len(r[0][1]) for r in want if r]
+    log(f"[ctc beam] B={B}, T={T}, V={lp.shape[-1]}, beam 8, top 16: {sec * 1e3:.1f} ms on the "
+        f"card ({sec / T * 1e6:.1f} µs a frame), {sec_c * 1e3:.1f} ms on the CPU; live "
+        f"hypotheses the same ({sum(len(r) for r in got)} over {B} rows), scores max rel "
+        f"{rel:.2e}; best hypothesis {min(lens)}–{max(lens)} tokens")
+
+
+def beam_replay(chunks, beam: int, max_out: int, n_full: int):
+    """The beam recognizer's decode, written out: ``ctc_beam_search`` over
+    each chunk's log-probs with the state carried; after each of the first
+    ``n_full`` (full) chunks a commit once the fill bound reaches half the
+    buffer (forcing along the best beam to keep half of it free), after the
+    flushed rest one once a buffer is half full.  → (tokens, committed
+    tokens, forced commits: those that pruned a live beam)."""
+    st = tot = None
+    committed, fill, forced, resid = [], 0, 0, None
+    dev = chunks[0].device
+    for i, lp in enumerate(chunks):
+        st, tot = ctc_beam_search(lp, torch.tensor([lp.shape[1]], device=dev), beam=beam,
+                                  max_len=max_out, init_state=st)
+        resid = None
+        if i < n_full:
+            fill += lp.shape[1]
+            due = fill >= max_out // 2
+        else:
+            due = int(st.lens.max()) >= max_out // 2
+        if due:
+            live = int((tot > -1e29).sum())
+            st, com, best, fill = beam_commit(st, tot, reserve=max_out // 2, return_best=True)
+            tot = torch.logaddexp(st.p_b, st.p_nb)
+            forced += int((tot > -1e29).sum()) < live
+            committed += com[0]
+            resid = best[0] if i < n_full else None
+    if resid is None:
+        hyps = beam_hypotheses(st, tot)[0]
+        resid = hyps[0][1] if hyps else []
+    return committed + resid, committed, forced
+
+
+def phase_beam_streaming(model, cfg, dev) -> int:
+    """Phase 29: three ~10 s streams through ``StreamingRecognizer(decoder=
+    "beam")`` (beam 8, buffers of 512, so what the live beams agree on is
+    committed to the host every few chunks).  The streamed and committed
+    tokens must equal ``beam_replay``'s on the same log-probs (those the
+    recognizer decoded, chunk by chunk).  Against one ``ctc_beam_search``
+    over all of them with a buffer that holds them the tokens may differ,
+    as JAX's do: a commit re-hashes the residual prefixes, and the order of
+    candidates whose f32 scores tie exactly follows their hashes (at scores
+    of ~2000 an ulp is 1.2e-4, so ties among the weaker beams occur; a
+    forced commit also prunes the beams that disagree with the best one).
+    Held: at most 2 % of the tokens apart.  Returns K1's launches."""
+    rng = np.random.default_rng(SEED + 12)
+    streams = [synth_audio(rng, 1, 160000 + int(rng.integers(0, 8000)))[0] for _ in range(3)]
+    warm = StreamingRecognizer(model, cfg, chunk_frames=32, decoder="beam", device=dev)
+    warm.accept_waveform(streams[0][:16000])                   # warm-up, not counted
+    latencies, runs = [], []
+    lucy_cell_fused_lm.launches = 0
+    for audio in streams:
+        rec = StreamingRecognizer(model, cfg, chunk_frames=32, decoder="beam", device=dev)
+        step, advance, frames = rec._step_chunk, rec._advance_beam, []
+
+        def timed(chunk, step=step):
+            t0 = time.perf_counter()
+            step(chunk)
+            torch.cuda.synchronize()                            # the beam state is on the card
+            latencies.append(time.perf_counter() - t0)
+
+        def kept(lp, advance=advance, frames=frames):
+            frames.append(lp.clone())
+            advance(lp)
+
+        rec._step_chunk, rec._advance_beam = timed, kept
+        pos = 0
+        while pos < len(audio):
+            n = int(rng.integers(100, 8000))
+            rec.accept_waveform(audio[pos:pos + n])
+            pos += n
+        n_full = len(frames)
+        rec.finish()
+        runs.append((rec.tokens, rec.committed_tokens, frames, n_full, rec.max_out))
+    launches = lucy_cell_fused_lm.launches
+    if launches == 0:
+        raise AssertionError("the beam streaming path launched no fused-cell kernel")
+    for k, (toks, committed, frames, n_full, max_out) in enumerate(runs):
+        want, want_com, forced = beam_replay(frames, 8, max_out, n_full)
+        lp = torch.cat(frames, dim=1)
+        st, tot = ctc_beam_search(lp, torch.tensor([lp.shape[1]], device=dev), beam=8,
+                                  max_len=lp.shape[1] + 1)
+        whole = beam_hypotheses(st, tot)[0][0][1]
+        dist = levenshtein(toks, whole)
+        log(f"[beam streaming] stream {k}: {lp.shape[1]} frames in {len(frames)} chunks, "
+            f"{len(toks)} tokens streamed ({len(committed)} committed on the way, {forced} "
+            f"commit(s) forced), {len(whole)} in one offline search, edit distance {dist}")
+        if toks != want or committed != want_com or not committed:
+            raise AssertionError(f"stream {k}: the recognizer's tokens differ from the replay "
+                                 f"of its decode ({levenshtein(toks, want)} edits), or nothing "
+                                 f"was committed")
+        if dist > 0.02 * len(whole):
+            raise AssertionError(f"stream {k}: the streamed tokens are {dist} edits from one "
+                                 f"offline search over {len(whole)} tokens")
+    lat = np.asarray(latencies) * 1e3
+    log(f"[beam streaming] {len(lat)} chunks of 32 frames (320 ms): latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; fused-cell "
+        f"launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -2206,7 +2479,8 @@ def main() -> int:
     del model
     n_train = phase_train_step(cfg, dev)
     phase_throughput(cfg, dev, K=8)
-    phase_cli()
+    run_dir, overrides = phase_cli()
+    n_eval = phase_eval(run_dir, overrides, ("greedy", "beam"), dev, "[eval ctc]")
 
     rk = phase_rnnt_kernels(dev)
     n_rtrain = phase_train_step(cfg, dev, K=2, U=48, mode="rnnt")
@@ -2228,7 +2502,8 @@ def main() -> int:
                                 degenerate=True)
     for U in (64, 128):
         phase_throughput(cfg, dev, K=4, U=U, mode="rnnt")
-    phase_cli_rnnt()
+    run_dir, overrides = phase_cli_rnnt()
+    n_reval = phase_eval(run_dir, overrides, ("rnnt-greedy", "rnnt-beam"), dev, "[eval rnnt]")
 
     k9 = phase_mlstm_kernels(dev)
     xcfg = Config().apply_overrides(XLSTM)
@@ -2282,24 +2557,35 @@ def main() -> int:
     n_ntrain = phase_train_step(ncfg, dev, K=2, path="native ctc")
     phase_cli(extra=NATIVE, tag="[cli native]")
 
+    n_ltrain = phase_lstm(dev)
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    model.eval()
+    phase_ctc_beam(model, cfg, dev)
+    n_bstream = phase_beam_streaming(model, cfg, dev)
+    del model
+
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
-            + n_mbatched["K1"] + n_btrain["K1"])
+            + n_mbatched["K1"] + n_btrain["K1"] + n_eval + n_reval + n_bstream)
     n_k2 = n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
     n_k5a = (n_mbatched["K5a"] + n_mtrain["K5a"] + n_nbatched["K5a"] + n_nstream
              + n_ntrain["K5a"])
     n_k5b = n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
     n_k3 = (n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"] + n_ktrain["K3"] + n_dtrain["K3"]
-            + n_ntrain["K3"])
+            + n_ntrain["K3"] + n_ltrain["K3"])
     n_k4 = (n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"] + n_ktrain["K4"] + n_dtrain["K4"]
-            + n_ntrain["K4"])
+            + n_ntrain["K4"] + n_ltrain["K4"])
     n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
     n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
     n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
     log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
-        f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}; K2 {n_k2}; K3 {n_k3}, "
-        f"K4 {n_k4} (train, masked, xlstm, k12, dual and native train); K5a {n_k5a} (masked "
+        f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}, eval ctc {n_eval}, "
+        f"eval rnnt {n_reval}, beam streaming {n_bstream}; K2 {n_k2}; K3 {n_k3}, K4 {n_k4} "
+        f"(train, masked, xlstm, k12, dual, native and lstm train; lstm {n_ltrain['K3']}, "
+        f"{n_ltrain['K4']}); K5a {n_k5a} (masked "
         f"batched + train, native batched + streaming + train), K5b {n_k5b} (masked, k12, dual "
         f"and native train); K12 batched {n_kbatched['K12']}, streaming {n_kstream}, train "
         f"{n_ktrain['K12']}; K11 batched {n_dbatched['K11']}, train {n_dtrain['K11']}; "

@@ -1,9 +1,12 @@
 """Weight bridge: flax params tree ⇄ PyTorch state_dict.
 
 Covers the trees of ``ASRModel`` and ``SpeechModel`` (the ASR module under
-``asr``, the RNN-T joiner under ``joiner``) for the LucyRNN (7-gate and
-native) and xLSTM encoders.  Dense and GateProj kernels are (in, out) in
-flax and (out, in) here, so they are transposed; a LayerNorm's or
+``asr``, the RNN-T joiner under ``joiner``) for the LSTM, LucyRNN (7-gate
+and native) and xLSTM encoders.  Dense and GateProj kernels are (in, out) in
+flax and (out, in) here, so they are transposed; the LSTM's ``w_ih`` (Din,
+4H), ``w_hh`` (H, 4H) and its two biases keep the flax layout on both sides
+(the port computes ``x @ w_ih`` as JAX does), so they are copied as they
+are, and its ``classifier`` is a Dense; a LayerNorm's or
 RMSNorm's ``scale`` is its ``weight``; an Embed's ``embedding`` is its
 ``weight``; ``join_kernel`` stays (J, V).  The flax side is plain numpy
 (``np.asarray`` of each leaf), so this module needs no JAX.  Both
@@ -33,6 +36,12 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
 
     if cfg.input_proj_dim > 0:
         dense(("proj",), "proj")
+    if cfg.encoder == "lstm":
+        for l in range(cfg.num_layers):
+            for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                out.append((("encoder", f"layer{l}", name), f"encoder.layer{l}.{name}", False))
+        dense(("classifier",), "classifier")
+        return out
     if cfg.encoder == "xlstm":
         _xlstm_mapping(cfg, dense, out)
         return out

@@ -4,7 +4,8 @@ Own copy of ``statecatcher_tpu/metrics.py`` (framework-free).
 
 Replaces the reference's jiwer dependency (reference train.py:19,250) with a
 small host-side Levenshtein, and the reference's Aim calls
-(train.py:44-48,542-560) with a sink interface (stdout/JSONL).  The
+(train.py:44-48,542-560) with a sink interface (stdout, JSONL, and Aim when
+the ``aim`` package imports).  The
 per-parameter grad-norm host sync the reference does every update
 (train.py:555-560, a throughput hazard) is replaced by a single device-side
 global-norm scalar fetched asynchronously.
@@ -105,12 +106,41 @@ class JsonlSink(MetricsSink):
         self._f.close()
 
 
+class AimSink(MetricsSink):
+    """Aim experiment tracking (reference train.py:44-48,316-319), gated on
+    the ``aim`` package: construction raises ImportError without it.  The
+    package is optional and not among this project's requirements; the
+    adapter's calls are tested against a stub module
+    (tests/test_torch_lstm.py), not against a real Aim run."""
+
+    def __init__(self, experiment: str):
+        import aim  # optional dependency
+
+        self._run = aim.Run(experiment=experiment)
+
+    def track(self, value, name, step):
+        self._run.track(value, name=name, step=step)
+
+    def set_params(self, params):
+        self._run["hparams"] = params
+
+    def close(self):
+        self._run.close()
+
+
 def make_sinks(logger, run_dir: str) -> "MultiSink":
-    """Default sink stack: log + JSONL (the JAX package's Aim sink is not
-    ported)."""
+    """Default sink stack: log + JSONL (+ Aim when ``aim`` imports).  The
+    Aim experiment is ``asr_statecatcher_<run dir's name>``, as the JAX
+    training loop names it."""
     import os
 
-    return MultiSink([LoggingSink(logger), JsonlSink(os.path.join(run_dir, "metrics.jsonl"))])
+    sinks: list[MetricsSink] = [LoggingSink(logger),
+                                JsonlSink(os.path.join(run_dir, "metrics.jsonl"))]
+    try:
+        sinks.append(AimSink(f"asr_statecatcher_{os.path.basename(run_dir)}"))
+    except ImportError:
+        pass
+    return MultiSink(sinks)
 
 
 class MultiSink(MetricsSink):

@@ -1,14 +1,16 @@
 """ASRModel: input projection, frame stacking, masking policy, encoder.
 
-Port of ``statecatcher_tpu/models/asr.py`` for the LucyRNN encoder (the
-7-gate ``variant="triton"`` and the 6-gate ``variant="native"``) and the
-xLSTM encoder: the optional input projection, ``stack_order``
-trim-and-fold, zero-input masking of padded frames, and the cast of the
-carried state to ``carry_dtype``.  The stateful
-contract is the JAX package's: ``logits, new_state = model(feats, state,
-frame_mask)``.
+Port of ``statecatcher_tpu/models/asr.py`` for the LSTM encoder (the
+config's default), the LucyRNN encoder (the 7-gate ``variant="triton"`` and
+the 6-gate ``variant="native"``) and the xLSTM encoder: the optional input
+projection, ``stack_order`` trim-and-fold, the masking policy, and the cast
+of the carried state to ``carry_dtype``.  The LSTM masks inside its
+recurrence (frozen state, zero output) and has its own ``classifier`` Dense
+to the vocabulary; the other encoders get zero-input masking of padded
+frames and project to the vocabulary themselves.  The stateful contract is
+the JAX package's: ``logits, new_state = model(feats, state, frame_mask)``.
 
-The LSTM and RWKV encoders are not ported yet and raise.
+The RWKV encoder is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 from statecatcher_tpu_torch import resolve_device
 from statecatcher_tpu_torch.config import ModelConfig
 from statecatcher_tpu_torch.models.layers import Dense, torch_dtype
+from statecatcher_tpu_torch.models.lstm import LSTMEncoder, lstm_init_carry
 from statecatcher_tpu_torch.models.lucyrnn import LucyRNNEncoder
 from statecatcher_tpu_torch.models.lucyrnn_native import LucyNativeEncoder
 from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
@@ -29,10 +32,10 @@ from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
-    if cfg.encoder not in ("lucyrnn", "xlstm"):
+    if cfg.encoder not in ("lstm", "lucyrnn", "xlstm"):
         raise NotImplementedError(
-            f"encoder={cfg.encoder!r} is not ported yet (ROADMAP.md queue 1 item 2); "
-            "'lucyrnn' and 'xlstm' are")
+            f"encoder={cfg.encoder!r} is not ported yet (the RWKV encoder, models/rwkv.py); "
+            "'lstm', 'lucyrnn' and 'xlstm' are")
     if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant not in ("triton", "native"):
         raise NotImplementedError(
             f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported; the 7-gate 'triton' "
@@ -40,8 +43,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class ASRModel(nn.Module):
-    """Input projection → frame stacking → LucyRNN (7-gate or native) or
-    xLSTM encoder (→ vocab logits).
+    """Input projection → frame stacking → LSTM encoder → classifier, or
+    LucyRNN (7-gate or native) or xLSTM encoder (→ vocab logits).
 
     Parameters are initialised on the CPU from ``generator`` (a fresh one
     seeded 0 when None) and then moved to ``device``.
@@ -66,7 +69,13 @@ class ASRModel(nn.Module):
         else:
             self.proj = None
         in_dim *= max(1, cfg.stack_order)
-        if cfg.encoder == "xlstm":
+        self.classifier = None
+        if cfg.encoder == "lstm":
+            self.encoder = LSTMEncoder(in_dim, cfg.hidden_size, cfg.num_layers, dtype=self.dtype,
+                                       param_dtype=param_dtype, generator=generator)
+            self.classifier = Dense(cfg.hidden_size, cfg.vocab_size, dtype=self.dtype,
+                                    param_dtype=param_dtype, generator=generator)
+        elif cfg.encoder == "xlstm":
             self.encoder = XLSTMEncoder(in_dim, cfg.vocab_size, cfg.xlstm, dtype=self.dtype,
                                         param_dtype=param_dtype, generator=generator)
         else:
@@ -102,10 +111,15 @@ class ASRModel(nn.Module):
             B, T, F = x.shape
             Tt = T - (T % s)
             x = x[:, :Tt].reshape(B, Tt // s, F * s)
-        if frame_mask is not None:
-            # zero-input masking (reference model.py:374-377)
-            x = x * frame_mask[..., None].to(x.dtype)
-        logits, new_state = self.encoder(x, state, frame_mask)
+        if self.classifier is not None:
+            # the LSTM masks inside its recurrence
+            y, new_state = self.encoder(x, state, frame_mask)
+            logits = self.classifier(y)
+        else:
+            if frame_mask is not None:
+                # zero-input masking (reference model.py:374-377)
+                x = x * frame_mask[..., None].to(x.dtype)
+            logits, new_state = self.encoder(x, state, frame_mask)
         cdt = carry_dtype(cfg)
         return logits, {k: v.to(cdt) for k, v in new_state.items()}
 
@@ -117,13 +131,15 @@ def carry_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> dict:
-    """Zero carry of the encoder: LucyRNN {"h", "s"} of (B, tracks, L, D)
-    (native: (B, L, D)); xLSTM {"C", "n", "m"}
-    (``models/xlstm.py:xlstm_init_carry``)."""
+    """Zero carry of the encoder: LSTM {"h", "c"} of (B, L, H); LucyRNN
+    {"h", "s"} of (B, tracks, L, D) (native: (B, L, D)); xLSTM {"C", "n",
+    "m"} (``models/xlstm.py:xlstm_init_carry``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if dtype is None:
         dtype = carry_dtype(cfg)
+    if cfg.encoder == "lstm":
+        return lstm_init_carry(batch_size, cfg.num_layers, cfg.hidden_size, dtype, dev)
     if cfg.encoder == "xlstm":
         return xlstm_init_carry(cfg.xlstm, batch_size, dtype, dev)
     if cfg.lucyrnn.variant == "native":

@@ -50,7 +50,7 @@ from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_fused_ce
 from statecatcher_tpu_torch.ops.scan import SCAN_IMPLS, linear_scan
 
 # kernel_impl values whose TPU kernels are not ported yet → ROADMAP.md row
-_UNPORTED = {"sp": "queue 1 item 5, multi-GPU (ops/scan_sp.py sequence-parallel scan)"}
+_UNPORTED = {"sp": "multi-GPU (ops/scan_sp.py, the sequence-parallel scan)"}
 _K12_IMPLS = ("pallas-fused", "auto-fused")
 
 

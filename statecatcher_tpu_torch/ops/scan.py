@@ -32,13 +32,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor,
     """s_t = a_t·s_{t−1} + b_t for (B, T, D) a, b and (B, D) s0, through K5
     (``linear_scan_pallas``), differentiable.  ``impl`` "sp" (the
     sequence-parallel scan across devices) raises on the card: it is not
-    ported (ROADMAP.md queue 1 item 5, multi-GPU)."""
+    ported (``ops/scan_sp.py``; multi-GPU in ROADMAP.md)."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"Unknown scan impl {impl!r}")
     if impl == "sp" and a.is_cuda:
         raise NotImplementedError(
             "the sequence-parallel scan (impl='sp', ops/scan_sp.py) is not ported yet: "
-            "see ROADMAP.md, queue 1 item 5 (multi-GPU)")
+            "see ROADMAP.md, multi-GPU (parallel/*, ops/scan_sp.py)")
     from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_pallas
 
     return linear_scan_pallas(a, b, s0)

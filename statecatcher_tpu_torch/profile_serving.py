@@ -1,10 +1,11 @@
 """Where the serving path's device time goes, from a ``torch.profiler`` trace.
 
-    python -m statecatcher_tpu_torch.profile_serving [--encoder lucyrnn|xlstm]
+    python -m statecatcher_tpu_torch.profile_serving [--encoder lucyrnn|xlstm|lstm]
         [--chunks 30] [--out DIR]
 
 Builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC, float32), or
-with ``--encoder xlstm`` the xLSTM-CTC of the config's defaults, with
+with ``--encoder xlstm`` the xLSTM-CTC of the config's defaults, or with
+``--encoder lstm`` the LSTM-CTC of the config's defaults (4 × 512), with
 seeded random weights on the card and traces two windows after a warm-up:
 
   * batched: one 16 s segment at B=32 (features → model → log-softmax);
@@ -12,7 +13,8 @@ seeded random weights on the card and traces two windows after a warm-up:
 
 For each it prints the host wall time, the device's busy time (the sum of
 its kernels and copies, which run on one stream and do not overlap) and
-idle share, and the device time by kernel name, largest first.  With
+idle share, the number of device operations (kernels and copies) and the
+device time by kernel name, largest first.  With
 ``--out`` it also writes each window's chrome trace there.
 """
 
@@ -45,7 +47,8 @@ def _report(label: str, prof, wall_s: float, top: int = 12) -> None:
     if busy_us == 0:
         raise RuntimeError(f"{label}: the trace holds no device activity")
     print(f"[{label}] host wall {wall_s * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {1 - busy_us / (wall_s * 1e6):.1%}")
+          f"idle share {1 - busy_us / (wall_s * 1e6):.1%}, "
+          f"{sum(v[1] for v in by_name.values())} device operations")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[{label}]   {us / 1e3:9.3f} ms {us / busy_us:6.1%} {n:5d}×  {name[:110]}")
 
@@ -65,7 +68,7 @@ def _traced(label: str, fn, out: Path | None) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm"), default="lucyrnn")
+    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm", "lstm"), default="lucyrnn")
     ap.add_argument("--chunks", type=int, default=30)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()

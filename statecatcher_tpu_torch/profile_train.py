@@ -1,12 +1,13 @@
 """Where one training segment's device time goes, from a ``torch.profiler``
 trace.
 
-    python -m statecatcher_tpu_torch.profile_train [--encoder lucyrnn|xlstm]
+    python -m statecatcher_tpu_torch.profile_train [--encoder lucyrnn|xlstm|lstm]
         [--mode ctc|rnnt] [--batch 32] [--dtype float32] [--tokens U] [--out DIR]
 
 Builds the flagship LucyRNN (4 × 512, vocab 1024, 80 MFCC) or, with
 ``--encoder xlstm``, the xLSTM of the config's defaults (E=512, 2 heads, 3
-blocks, chunk 128), in CTC or RNN-T mode (the joiner at the config's 64 ×
+blocks, chunk 128), or with ``--encoder lstm`` the LSTM of the config's
+defaults (4 × 512), in CTC or RNN-T mode (the joiner at the config's 64 ×
 64) with seeded random weights on the card and traces one 16 s training
 segment of ``make_segment_scan_step``
 (U random tokens: 128 for CTC, 48 for RNN-T, where the auto band is the
@@ -88,7 +89,7 @@ def _groups(prof) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm"), default="lucyrnn")
+    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm", "lstm"), default="lucyrnn")
     ap.add_argument("--mode", choices=("ctc", "rnnt"), default="ctc")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--dtype", default="float32")

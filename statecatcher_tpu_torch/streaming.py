@@ -1,8 +1,9 @@
 """Streaming recognizer: incremental encode + greedy decode with the encoder
 state carried from chunk to chunk.
 
-Port of ``statecatcher_tpu/streaming.py`` for ``decoder="greedy"`` (CTC) and
-``decoder="rnnt"`` (greedy transducer), with the same chunk bookkeeping:
+Port of ``statecatcher_tpu/streaming.py`` for ``decoder="greedy"`` (CTC),
+``decoder="beam"`` (CTC prefix beam) and ``decoder="rnnt"`` (greedy
+transducer), with the same chunk bookkeeping:
 waveform pieces of any size are buffered; every ``chunk_samples = hop ·
 chunk_frames`` new samples (plus the ``n_fft − hop`` lookahead the last frame
 needs) are featurised, encoded with the carry threaded through, and decoded,
@@ -16,8 +17,12 @@ rate.  Everything runs under ``torch.inference_mode()``.
     emitted tokens are drained to the host once the buffer may be half full
     (at most ``max_symbols`` = 4 emissions per frame), so streams of any
     length fit a fixed ``max_out`` buffer.
-
-The ``"beam"`` decoder is not ported yet.
+  * beam: per chunk the prefix beam state (``beam.py``) advances on the
+    device and the best beam is packed there as ``[len, toks…]``, so
+    ``tokens`` costs one small copy; once the buffers may be half full (at
+    most one CTC emission per frame) the prefix every live beam agrees on is
+    committed to the host (``beam_commit``, forcing along the best beam to
+    keep half the buffer free), so streams of any length fit ``max_out``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from statecatcher_tpu_torch import resolve_device
+from statecatcher_tpu_torch.beam import beam_commit, beam_hypotheses, ctc_beam_search
 from statecatcher_tpu_torch.config import Config
 from statecatcher_tpu_torch.frontend import compute_features
 from statecatcher_tpu_torch.models.asr import init_carry
@@ -44,16 +50,14 @@ class StreamingRecognizer:
 
     ``model`` is an ``ASRModel`` or ``SpeechModel`` whose parameters already
     live on ``device``; ``decoder="rnnt"`` needs a ``SpeechModel`` in RNN-T
-    mode.
+    mode.  ``beam`` is the CTC beam width.
     """
 
     def __init__(self, model, cfg: Config, tokenizer=None, chunk_frames: int = 32,
-                 decoder: str = "greedy", blank_id: int = 0, max_out: int = 512,
-                 device="cuda"):
-        if decoder not in ("greedy", "rnnt"):
-            raise NotImplementedError(
-                f"decoder={decoder!r} is not ported yet (ROADMAP.md queue 1 item 3, CTC "
-                "prefix beam); 'greedy' and 'rnnt' are")
+                 decoder: str = "greedy", beam: int = 8, blank_id: int = 0,
+                 max_out: int = 512, device="cuda"):
+        if decoder not in ("greedy", "beam", "rnnt"):
+            raise ValueError(f"decoder must be 'greedy', 'beam' or 'rnnt', got {decoder!r}")
         if decoder == "rnnt" and getattr(model, "mode", None) != "rnnt":
             raise ValueError("decoder='rnnt' needs a SpeechModel built with mode='rnnt'")
         dev = resolve_device(device)
@@ -65,6 +69,7 @@ class StreamingRecognizer:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.decoder = decoder
+        self.beam = beam
         self.blank_id = blank_id
         self.max_out = max_out
         fe = cfg.frontend
@@ -86,8 +91,8 @@ class StreamingRecognizer:
 
     # ------------------------------------------------------------------ #
     def _encode_chunk(self, chunk: np.ndarray) -> torch.Tensor:
-        """One chunk of samples → (1, T, V) float32 log-probs (greedy) or
-        (1, T, J) float32 join-space projections (rnnt); advances the
+        """One chunk of samples → (1, T, V) float32 log-probs (greedy, beam)
+        or (1, T, J) float32 join-space projections (rnnt); advances the
         carry."""
         with torch.inference_mode():
             audio = torch.from_numpy(chunk[None]).to(self.device)
@@ -99,12 +104,41 @@ class StreamingRecognizer:
 
     def _step_chunk(self, chunk: np.ndarray):
         """Encode one full chunk and decode it: the (T,) argmax on the host
-        (greedy), or the transducer state advanced on the device (rnnt)."""
+        (greedy), or the transducer or beam state advanced on the device
+        (rnnt, beam; beam also packs its best beam there)."""
         out = self._encode_chunk(chunk)
         if self.decoder == "rnnt":
             self._advance_rnnt(out)
             return None
+        if self.decoder == "beam":
+            self._advance_beam(out)
+            with torch.inference_mode():
+                st = self._beam_state
+                b = torch.argmax(self._totals[0])
+                self._best_packed = torch.cat([st.lens[0, b][None], st.toks[0, b]])
+            return None
         return torch.argmax(out[0], dim=-1).cpu().numpy()
+
+    def _advance_beam(self, lp: torch.Tensor) -> None:
+        with torch.inference_mode():
+            self._beam_state, self._totals = ctc_beam_search(
+                lp, torch.tensor([lp.shape[1]], device=self.device), beam=self.beam,
+                blank_id=self.blank_id, max_len=self.max_out, init_state=self._beam_state)
+        self._best_packed = None
+        self._best_resid_host = None
+
+    def _commit_beam(self) -> None:
+        """Commit what every live beam agrees on, keeping half the buffer
+        free; the best beam's residual comes back from the host arrays."""
+        self._beam_state, com, best_resid, fill = beam_commit(
+            self._beam_state, self._totals, reserve=self.max_out // 2, return_best=True)
+        with torch.inference_mode():
+            # forced commits can prune beams: refresh the totals
+            self._totals = torch.logaddexp(self._beam_state.p_b, self._beam_state.p_nb)
+        self._committed.extend(com[0])
+        self._fill_bound = fill
+        self._best_packed = None                      # the residual shifted
+        self._best_resid_host = best_resid[0]
 
     def _advance_rnnt(self, enc_p: torch.Tensor) -> None:
         with torch.inference_mode():
@@ -132,6 +166,11 @@ class StreamingRecognizer:
                 self._fill_bound += t_enc * _RNNT_MAX_SYMBOLS
                 if self._fill_bound >= self.max_out // 2:
                     self._drain()
+            elif self.decoder == "beam":
+                self._step_chunk(chunk)
+                self._fill_bound += t_enc                 # ≤ 1 CTC emission a frame
+                if self._fill_bound >= self.max_out // 2:
+                    self._commit_beam()
             else:
                 self._absorb_greedy(self._step_chunk(chunk))
 
@@ -157,25 +196,45 @@ class StreamingRecognizer:
                 self._advance_rnnt(out)
                 if int(self._rnnt_state.out_len[0]) >= self.max_out // 2:
                     self._drain()
+            elif self.decoder == "beam":
+                self._advance_beam(out)
+                if int(self._beam_state.lens.max()) >= self.max_out // 2:
+                    self._beam_state, com = beam_commit(self._beam_state, self._totals,
+                                                        reserve=self.max_out // 2)
+                    with torch.inference_mode():
+                        self._totals = torch.logaddexp(self._beam_state.p_b,
+                                                       self._beam_state.p_nb)
+                    self._committed.extend(com[0])
             else:
                 self._absorb_greedy(torch.argmax(out[0], dim=-1).cpu().numpy())
 
     # ------------------------------------------------------------------ #
     @property
     def tokens(self) -> list[int]:
-        """Full current hypothesis (rnnt: the drained prefix and the
-        buffer's residual)."""
+        """Full current hypothesis (rnnt, beam: the committed prefix and the
+        buffer's residual, for beam the best beam's)."""
         if self.decoder == "rnnt":
             return self._committed + rnnt_state_to_lists(self._rnnt_state)[0]
-        return list(self._tokens)
+        if self.decoder == "greedy":
+            return list(self._tokens)
+        if self._beam_state is None:
+            return list(self._committed)
+        if self._best_packed is not None:
+            packed = self._best_packed.cpu().numpy()          # one small copy
+            return self._committed + packed[1:1 + int(packed[0])].tolist()
+        if self._best_resid_host is not None:                 # after a commit: no copy
+            return self._committed + list(self._best_resid_host)
+        hyps = beam_hypotheses(self._beam_state, self._totals)[0]
+        return self._committed + (hyps[0][1] if hyps else [])
 
     @property
     def committed_tokens(self) -> list[int]:
         """Tokens that can no longer change: for greedy CTC every emitted
-        token; for rnnt the drained ones."""
-        if self.decoder == "rnnt":
-            return list(self._committed)
-        return list(self._tokens)
+        token; for rnnt the drained ones; for beam the prefix every live
+        beam agreed on at a commit."""
+        if self.decoder == "greedy":
+            return list(self._tokens)
+        return list(self._committed)
 
     @property
     def committed_text(self) -> str:
@@ -200,3 +259,7 @@ class StreamingRecognizer:
         self._fill_bound = 0
         self._rnnt_state = (rnnt_decode_init(1, self.max_out, self.blank_id, self.device)
                             if self.decoder == "rnnt" else None)
+        self._beam_state = None       # built by the first chunk's search
+        self._totals = None
+        self._best_packed = None      # device [len, toks…] of the best beam
+        self._best_resid_host = None  # the best beam's residual after a commit

@@ -30,8 +30,8 @@ def load_tokenizer(path: str) -> "Tokenizer":
     """
     if path.endswith(".model"):
         raise NotImplementedError(
-            "sentencepiece tokenizers are not ported yet (ROADMAP.md queue 1, "
-            "training slice: tokenizer/spm.py)")
+            "sentencepiece tokenizers are not ported yet (tokenizer/spm.py; ROADMAP.md, "
+            "the host side)")
     with open(path) as f:
         blob = json.load(f)
     kind = blob.get("type")
@@ -41,6 +41,6 @@ def load_tokenizer(path: str) -> "Tokenizer":
         return CharTokenizer.from_dict(blob)
     if kind == "unigram":
         raise NotImplementedError(
-            "the unigram tokenizer is not ported yet (ROADMAP.md queue 1, "
-            "training slice: tokenizer/unigram.py)")
+            "the unigram tokenizer is not ported yet (tokenizer/unigram.py; ROADMAP.md, "
+            "the host side)")
     raise ValueError(f"Unknown tokenizer model format in {path}")

@@ -21,8 +21,8 @@ the metrics window) from which a run resumes mid-recording-batch exactly.
 
 Both training modes run (``train.mode`` "ctc" or "rnnt"; the step holds
 the difference).  Not ported yet, and raising: the HTTP data source
-(``data/client.py``), multi-process and multi-device training (ROADMAP.md
-queue 1 item 5), the debug and profiler hooks (item 5).  Where the JAX
+(``data/client.py``), multi-process and multi-device training
+(``parallel/*``), the debug and profiler hooks (``debug.py``).  Where the JAX
 package reads ``jax.process_index()``/``process_count()`` this loop is
 rank 0 of 1.
 """
@@ -91,7 +91,7 @@ def build_dataset(cfg: Config):
         )
     raise NotImplementedError(
         f"data.source={cfg.data.source!r}: the HTTP data client (data/client.py) is not "
-        "ported yet (ROADMAP.md queue 1, training slice); use data.source=local")
+        "ported yet (ROADMAP.md, the host side); use data.source=local")
 
 
 def build_tokenizer(cfg: Config):
@@ -116,12 +116,12 @@ def build_tokenizer(cfg: Config):
 def _check_supported(cfg: Config) -> None:
     if cfg.mesh.data_parallel > 1 or cfg.mesh.model_parallel > 1:
         raise NotImplementedError(
-            "data/model parallel meshes are not ported yet (ROADMAP.md queue 1 item 5, "
+            "data/model parallel meshes are not ported yet (parallel/mesh.py; ROADMAP.md, "
             "multi-GPU); this loop trains on one device")
     if cfg.train.debug or cfg.train.profile_dir:
         raise NotImplementedError(
             "train.debug and train.profile_dir (debug.py) are not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
+            "(ROADMAP.md, multi-GPU and debug)")
 
 
 def train(

@@ -161,7 +161,7 @@ def _no_mesh(mesh_plan) -> None:
     if mesh_plan is not None:
         raise NotImplementedError(
             "mesh plans (data, tensor and sequence parallelism) are not ported yet "
-            "(ROADMAP.md queue 1 item 5, multi-GPU)")
+            "(parallel/mesh.py, parallel/distributed.py: multi-GPU in ROADMAP.md)")
 
 
 def _pred_shape(audio: torch.Tensor, cfg: Config) -> tuple[int, int]:

@@ -27,7 +27,9 @@ dual scan), K5a and K5b (each also at the edges of its ring; K12 and K11
 with fully masked rows) bit for bit the plain versions in f32; K1, K2,
 K5a, K5b, K12 and K11 at B = 65536, past the grid's 65535 rows; the
 autograd Functions' gradients on the card against the CPU; and the xLSTM
-and native LucyRNN encoders on the card against the CPU.
+and native LucyRNN encoders on the card against the CPU; the LSTM encoder
+(a torch recurrence) and the CTC and RNN-T beam searches on the card
+against the CPU.
 
 Tolerances of the fused cell forward (f32, unit-normal gates):
   * h is bounded by 1: atol 2e-5.
@@ -1772,3 +1774,68 @@ def test_native_encoder_on_card_matches_cpu(cuda_device, fused, decay):
     assert runs[1][1].keys() == runs[0][1].keys()
     for k, a in runs[1][1].items():
         assert_grad_close(a, runs[0][1][k], k, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lstm_encoder_on_card_matches_cpu(cuda_device):
+    """The LSTM (2 layers × 64, a frame mask with holes and a row masked
+    throughout) on the card against the CPU over two carried segments:
+    logits and carry within 1e-4 of their scale, parameter gradients within
+    1e-3 relative plus 1e-4 of each one's largest value."""
+    from statecatcher_tpu_torch.config import Config
+    from statecatcher_tpu_torch.models.asr import build_model, init_carry
+
+    cfg = Config().apply_overrides(["--model.hidden_size", "64", "--model.num_layers", "2",
+                                    "--model.vocab_size", "40"])
+    rng = np.random.default_rng(6)
+    feats = [torch.from_numpy(rng.standard_normal((3, 50, 24)).astype(np.float32))
+             for _ in range(2)]
+    mask = torch.ones((3, 50), dtype=torch.bool)
+    mask[0, 10:20] = False
+    mask[1] = False
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = build_model(cfg.model, 24, device=dev, generator=torch.Generator().manual_seed(0))
+        carry, outs, loss = init_carry(cfg.model, 3, device=dev), [], 0.0
+        for k, x in enumerate(feats):
+            logits, carry = model(x.to(dev), carry, mask.to(dev) if k else None)
+            outs.append(logits)
+            loss = loss + (logits * torch.linspace(-1, 1, 40, device=dev)).sum()
+        loss.backward()
+        runs.append(([o.detach().cpu() for o in outs] + [v.detach().cpu() for v in carry.values()],
+                     {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}))
+    assert_scaled_close(runs[1][0], runs[0][0], ("logits 0", "logits 1", "h", "c"), 1e-4)
+    for k, a in runs[1][1].items():
+        assert_grad_close(a, runs[0][1][k], k, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [0, 5])
+def test_beam_searches_on_card_match_cpu(cuda_device, forced):
+    """The CTC prefix beam (forced-blank frames whose non-blank log-probs tie
+    at −1e30 among them) and the RNN-T beam on the card against the same
+    functions on the CPU, in float64, where no two candidates tie by
+    round-off: the same state but the scores, which agree to 1e-12."""
+    from statecatcher_tpu_torch.beam import ctc_beam_search
+    from statecatcher_tpu_torch.rnnt_decode import rnnt_beam_search
+
+    rng = np.random.default_rng(7 + forced)
+    x = rng.standard_normal((4, 40, 30)) * 2.5
+    lp = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    lp[0, :forced] = -1e30
+    lp[0, :forced, 0] = 0.0
+    in_lens = torch.tensor([40, 0, 17, 39])
+    enc = torch.from_numpy(rng.standard_normal((4, 20, 6)))
+    tables = [torch.from_numpy(rng.standard_normal(s)) for s in ((30, 6), (6, 30), (30,))]
+    out = []
+    for dev in ("cpu", cuda_device):
+        st, tot = ctc_beam_search(torch.from_numpy(lp).to(dev), in_lens.to(dev), beam=6, topk=8,
+                                  max_len=48)
+        rst = rnnt_beam_search(enc.to(dev), *(t.to(dev) for t in tables), in_lens.to(dev) // 2,
+                               beam=4, topk=4, max_out=32)
+        out.append([x.cpu() for x in (*st, tot, *rst)])
+    for a, b in zip(out[1], out[0]):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
+        else:
+            assert torch.equal(a, b)

@@ -22,6 +22,7 @@ from statecatcher_tpu.models.speech import build_speech_model as j_build_speech
 from statecatcher_tpu_torch.config import Config
 from statecatcher_tpu_torch.convert import flax_to_torch, torch_to_flax
 from statecatcher_tpu_torch.models.asr import build_model, init_carry
+from statecatcher_tpu_torch.models.lstm import LSTMEncoder
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.testing import levenshtein, randomize_
 
@@ -150,9 +151,15 @@ def test_carry_layout_and_dtype():
     ["--model.encoder", "rwkv"],
 ])
 def test_unported_models_raise(override):
-    # xlstm (tests/test_torch_xlstm.py) and LucyRNN's native variant
-    # (tests/test_torch_lucyrnn_native.py) are ported; these still raise
+    # xlstm (tests/test_torch_xlstm.py), LucyRNN's native variant
+    # (tests/test_torch_lucyrnn_native.py) and the LSTM
+    # (tests/test_torch_lstm.py) are ported: the LSTM builds, in both modes;
+    # RWKV still raises
     cfg = Config().apply_overrides(override)
+    if cfg.model.encoder == "lstm":
+        assert isinstance(build_model(cfg.model, F, device="cpu").encoder, LSTMEncoder)
+        assert build_speech_model(cfg.model, F, "rnnt", device="cpu").joiner is not None
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.model, F, device="cpu")
     # RNN-T mode is ported; its encoder is held to the same rule

@@ -128,8 +128,11 @@ def test_committed_text_matches_jax_recognizer(setup):
 
 def test_unported_decoders_raise(setup):
     cfg, model, _, _ = setup
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StreamingRecognizer(model, cfg, decoder="beam", device="cpu")
+    # the CTC prefix beam is ported (tests/test_torch_beam.py): it constructs
+    rec = StreamingRecognizer(model, cfg, decoder="beam", beam=4, device="cpu")
+    assert rec.decoder == "beam" and rec.beam == 4 and rec.tokens == []
+    with pytest.raises(ValueError, match="decoder"):
+        StreamingRecognizer(model, cfg, decoder="prefix", device="cpu")
     # "rnnt" is ported (tests/test_torch_rnnt_decode.py); it needs a joiner
     with pytest.raises(ValueError, match="mode='rnnt'"):
         StreamingRecognizer(model, cfg, decoder="rnnt", device="cpu")
