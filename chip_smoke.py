@@ -7,9 +7,10 @@ It builds every CUDA kernel of the port from ``statecatcher_tpu_torch/ops/
 csrc`` (one nvcc per source, all started together) and drives the flagship
 LucyRNN (4 × 512, vocab 1024, 80 MFCC, float32, seeded random weights;
 RNN-T joiner 64; the 7-gate cell, masked or not, through each of its
-kernels, and the 6-gate native variant), the xLSTM and the LSTM of the
-config's defaults through the port's entry points, and evaluates and
-beam-decodes the flagship:
+kernels, and the 6-gate native variant), the xLSTM, the LSTM of the
+config's defaults and the RWKV through the port's entry points, evaluates
+and beam-decodes the flagship, and trains the RWKV from the port's HTTP
+data plane:
 
   0. the card's facts, the kernel builds (time, ``ptxas -v`` registers/spills)
      and the tensor-core (HMMA) instructions of the joint's forward and
@@ -135,9 +136,26 @@ beam-decodes the flagship:
      replayed over the same log-probs (equal tokens) and against one
      offline search (within 2 % edit distance: exact f32 ties are broken by
      hash order, which a commit changes); chunk latency;
- 30. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27 and 29; each
-     counter is set to 0 just before a phase and read just after it, so
+ 30. the RWKV at the flagship's widths (``--model.encoder rwkv``: 4 × 512,
+     vocab 1024, 80 MFCC, f32, ``randomize_`` weights; its WKV is torch, with
+     no TPU kernel): phase 2's batched encode (B=32, 3 carried 16 s
+     segments), one 16 s segment at B=4 on the card against the same on the
+     CPU (and a TF32 control pass that every limit must refuse), three
+     streams against an offline decode (as phase 3), and a CTC training
+     group of K=4 at B=32, U=128 (K3/K4 against their plain versions, at
+     phase 5's tolerances);
+ 31. the host side through the CLI: the port's fake data server on
+     loopback serving phase 7's fixture; a unigram tokenizer trained by
+     ``python -m statecatcher_tpu_torch.train_tokenizer`` from its VTTs; the
+     CLI training the RWKV from ``--data.source http`` with ``--train.debug``
+     and ``--train.profile_dir`` (finite losses, every consumed batch marked
+     done, the session ended, the carry checked, a trace written); the
+     native library live, its WAV decoder and Viterbi encoder equal to the
+     Python ones on the fixture; ``python -m statecatcher_tpu_torch.simulate``
+     over the same server;
+ 32. the ``kernels`` JSON line: each kernel's launches on the main path
+     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27, 29 and 30;
+     each counter is set to 0 just before a phase and read just after it, so
      comparison launches are not counted).
 
 Every check raises; nothing is caught.  Without a card (or outside the
@@ -160,6 +178,7 @@ import time
 import numpy as np
 import torch
 
+from statecatcher_tpu_torch import debug, native
 from statecatcher_tpu_torch import eval as port_eval
 from statecatcher_tpu_torch.beam import beam_commit, beam_hypotheses, ctc_beam_search
 from statecatcher_tpu_torch.config import Config
@@ -168,17 +187,7 @@ from statecatcher_tpu_torch.frontend import compute_features, compute_frame_mask
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.models.asr import init_carry
 from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
-from statecatcher_tpu_torch.ops import (
-    _kernels,
-    ctc_lattice,
-    lucy_fused_lm,
-    lucy_pallas,
-    mlstm_fused,
-    mlstm_pallas,
-    rnnt_band,
-    rnnt_joint,
-    rnnt_lattice,
-)
+from statecatcher_tpu_torch.ops import _kernels, rnnt_lattice
 from statecatcher_tpu_torch.ops.ctc_lattice import (
     ctc_alpha,
     ctc_alpha_ref,
@@ -251,6 +260,8 @@ FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vo
 XLSTM = ["--model.encoder", "xlstm"]             # E=512, 2 heads, 3 blocks, chunk 128, f32
 MASKED = ["--model.lucyrnn.mask_state_updates", "true"]
 NATIVE = ["--model.lucyrnn.variant", "native"]
+RWKV = ["--model.encoder", "rwkv"]                # 4 × 512, vocab 1024, f32
+CARD = ""                                        # nvidia-smi's name, power limit (main)
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
@@ -541,7 +552,7 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     per_seg = [r[2] * 1e3 for r in kern]
     log(f"{tag} B={B}, 3 × 16 s segments: {per_seg[0]:.1f} / {per_seg[1]:.1f} / "
         f"{per_seg[2]:.1f} ms per segment ({B * 16 / (sum(per_seg) / 3e3):.0f} audio-s/s); "
-        f"greedy frames agree {agree}/{total}; launches {launches}")
+        f"greedy frames agree {agree}/{total}; launches {launches} ({CARD})")
     return launches, per_seg
 
 
@@ -579,16 +590,18 @@ def check_last_valid_state(model, cfg, lp, carry, _sec, fmask, tag="[batched mas
 
 
 def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming]") -> int:
-    """Phases 3 and 19: three ~10 s streams through StreamingRecognizer vs
-    offline; returns the launches of ``counter`` (the encoder's forward
-    kernel: K1, or K9a for the xLSTM)."""
+    """Phases 3, 19, 24, 26 and 30: three ~10 s streams through
+    StreamingRecognizer vs offline; returns the launches of ``counter`` (the
+    encoder's forward kernel: K1, or K9a for the xLSTM; None for the RWKV,
+    which has none)."""
     rng = np.random.default_rng(SEED + 3)
     streams = [synth_audio(rng, 1, 160000 + int(rng.integers(0, 8000)))[0] for _ in range(3)]
     warm = StreamingRecognizer(model, cfg, chunk_frames=32, device=dev)
     warm.accept_waveform(streams[0][:16000])                   # warm-up, not counted
 
     latencies, results = [], []
-    counter.launches = 0
+    if counter is not None:
+        counter.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for audio in streams:
@@ -609,9 +622,9 @@ def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming
             pos += n
         rec.finish()
         results.append(rec.tokens)
-    launches = counter.launches
+    launches = 0 if counter is None else counter.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches == 0:
+    if counter is not None and launches == 0:
         raise AssertionError(f"the streaming path launched no {counter.__name__} kernel")
 
     for k, (audio, toks) in enumerate(zip(streams, results)):
@@ -628,7 +641,9 @@ def phase_streaming(model, cfg, dev, counter=lucy_cell_fused_lm, tag="[streaming
     lat = np.asarray(latencies) * 1e3
     log(f"{tag} {len(lat)} chunks of 32 frames (320 ms): latency p50 "
         f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms; peak device "
-        f"memory {peak:.3f} GiB; {counter.__name__} launches {launches}")
+        f"memory {peak:.3f} GiB; "
+        + ("no kernel" if counter is None else f"{counter.__name__} launches {launches}")
+        + (f" ({CARD})" if counter is None else ""))
     return launches
 
 
@@ -822,40 +837,10 @@ def phase_lattice(dev) -> dict:
 # (module, attribute, plain version) of every kernel wrapper of the model and
 # training paths: K1, K2, K3, K4, K5a, K5b, K6a, K6b, K7a, K7b, K8a, K8b,
 # banded α, β, K9a, K9b, K10, K12, K11
-PLAIN = [
-    (lucy_fused_lm, "_fwd_kernel", lucy_cell_fused_lm_ref),
-    (lucy_fused_lm, "_bwd_kernel", lucy_cell_fused_lm_bwd_ref),
-    (ctc_lattice, "ctc_alpha", ctc_alpha_ref), (ctc_lattice, "ctc_beta", ctc_beta_ref),
-    (lucy_pallas, "linear_scan_fwd", linear_scan_ref),
-    (lucy_pallas, "linear_scan_rev", linear_scan_rev_ref),
-    (rnnt_joint, "rnnt_joint_fwd", joint_blank_emit_ref),
-    (rnnt_joint, "rnnt_joint_bwd", joint_blank_emit_bwd_ref),
-    (rnnt_lattice, "rnnt_alpha", rnnt_alpha_ref), (rnnt_lattice, "rnnt_beta", rnnt_beta_ref),
-    (rnnt_band, "rnnt_band_fwd", joint_blank_emit_banded_ref),
-    (rnnt_band, "rnnt_band_bwd", joint_blank_emit_banded_bwd_ref),
-    (rnnt_band, "rnnt_band_alpha", rnnt_band_alpha_ref),
-    (rnnt_band, "rnnt_band_beta", rnnt_band_beta_ref),
-    (mlstm_fused, "mlstm_fused_fwd", mlstm_fused_fwd_ref),
-    (mlstm_fused, "mlstm_fused_bwd", mlstm_fused_bwd_ref),
-    (mlstm_pallas, "mlstm_pallas_fwd", mlstm_chunkwise),
-    (lucy_pallas, "_fused_cell_kernel", lucy_fused_cell_ref),
-    (lucy_pallas, "_dual_scan_kernel", lucy_dual_scan_ref),
-]
-
-
-@contextlib.contextmanager
-def plain_kernels():
-    """Route every kernel of the model and training paths to its plain
-    version on the card, so the kernel path can be held against the plain
-    path on the same inputs."""
-    saved = [getattr(mod, name) for mod, name, _ in PLAIN]
-    for mod, name, plain in PLAIN:
-        setattr(mod, name, plain)
-    try:
-        yield
-    finally:
-        for (mod, name, _), kernel in zip(PLAIN, saved):
-            setattr(mod, name, kernel)
+# every kernel slot and its plain version (``debug.kernel_slots``);
+# ``plain_kernels`` routes the model and training paths to the plain versions
+PLAIN = debug.kernel_slots()
+plain_kernels = debug.kernel_interpret_mode
 
 
 def train_group(rng, K, B, S, U, V, dev, int16=True, degenerate=False):
@@ -904,6 +889,7 @@ TRAIN_KERNELS = {
     "native ctc": {"K5a": (linear_scan_fwd, 2), "K5b": (linear_scan_rev, 2),
                    "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
     "lstm ctc": {"K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "rwkv ctc": {"K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
 }
 
 
@@ -1018,7 +1004,7 @@ def phase_train_step(cfg, dev, K=4, B=32, S=16 * 16000, U=128, mode="ctc", path=
         f"{np.array2string(loss, precision=5)} vs {np.array2string(loss_p, precision=5)} (max rel "
         f"{d_loss.max():.2e}); grad norms max rel {d_gn.max():.2e}; params moved up to {moved:.3e}; "
         f"kernel vs plain: updates differ by {rel_upd:.2e} of their norm, max|Δ| {worst_dp:.3e}, "
-        f"{frac_off:.2e} of elements beyond 0.1·lr·K; the difference is most in {top}")
+        f"{frac_off:.2e} of elements beyond 0.1·lr·K; the difference is most in {top} ({CARD})")
     names = list(TRAIN_KERNELS[path])
     log(f"{tag} launches on the group: " + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
     want = [(n_layers(cfg) * per_layer if per_layer else 1) * K
@@ -2400,6 +2386,208 @@ def phase_beam_streaming(model, cfg, dev) -> int:
     return launches
 
 
+def phase_rwkv(dev) -> tuple:
+    """Phase 30: the RWKV at the flagship's widths (4 × 512, vocab 1024, 80
+    MFCC, f32, ``randomize_`` weights; the WKV is torch ops, parallel in
+    time, with no TPU kernel): phase 2's batched encode, one segment on the
+    card against the CPU, three streams against an offline decode, and a CTC
+    training group of K=4 at B=32, U=128 (K3/K4 against their plain
+    versions).  Returns the group's launches and the batched ms per
+    segment."""
+    cfg = Config().apply_overrides(RWKV)
+    m = cfg.model
+    model = build_speech_model(m, cfg.frontend.n_mfcc, "ctc", device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1)
+    model.eval()
+    log(f"[model] SpeechModel rwkv {m.num_layers} × {m.hidden_size}, vocab {m.vocab_size}, "
+        f"{cfg.frontend.kind} {cfg.frontend.n_mfcc}, {m.dtype}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    _, per_seg = phase_batched(model, cfg, dev, {}, "[rwkv batched]")
+    rwkv_card_vs_cpu(model, cfg, dev)
+    phase_streaming(model, cfg, dev, None, "[rwkv streaming]")
+    del model
+    n_train = phase_train_step(cfg, dev, K=4, path="rwkv ctc")
+    return n_train, per_seg
+
+
+# phase 30's card against the CPU: max|Δ| over the CPU's scale.  The log
+# numerators hold log(max(±v, 0) + 1e-20) terms, whose log jumps by tens where
+# a rounding moves v across 0 (sound readings up to 4.4e-5 over three seeds,
+# 7.7e-3 to 1.1e-1 with TF32 matmuls; tools/rwkv_tf32_control.py, PERF.md);
+# the others read 1.5e-7 to 3.1e-7 sound and 9.8e-5 to 3.4e-4 with TF32.
+RWKV_CARD_VS_CPU = {"log-probs": 1e-5, "last_x_tm": 1e-5, "last_x_cm": 1e-5, "log_den": 1e-5,
+                    "log_num_p": 1e-3, "log_num_n": 1e-3}
+
+
+def rwkv_card_vs_cpu(model, cfg, dev, B=4, S=16 * 16000) -> None:
+    """One 16 s segment at B=4 through the RWKV on the card and through a
+    copy of it on the CPU, from the same features: log-probs and the five
+    carry leaves within ``RWKV_CARD_VS_CPU`` of their scale, 99.9 % of
+    greedy frames equal.  A control pass on the card with TF32 matmuls
+    (10-bit mantissas) must break every one of those limits, so each tells
+    a card path whose f32 GEMMs fell to TF32 from a sound one."""
+    import copy
+
+    audio = torch.from_numpy(synth_audio(np.random.default_rng(SEED + 9), B, S)).to(dev)
+    cpu = copy.deepcopy(model).cpu()
+
+    def run(m, x):
+        logits, carry = m(x)
+        return torch.log_softmax(logits.float(), -1).cpu(), {k: v.cpu() for k, v in carry.items()}
+
+    with torch.inference_mode():
+        feats = compute_features(audio, cfg.frontend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, carry = run(model, feats)
+        sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lp_c, carry_c = run(cpu, feats.cpu())
+        sec_c = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            lp_t, carry_t = run(model, feats)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def gaps(lp_x, carry_x) -> dict:
+        """max|Δ| over the CPU's scale, for the log-probs and each carry leaf"""
+        pairs = [("log-probs", lp_x, lp_c)] + [(k, carry_x[k], carry_c[k]) for k in carry_c]
+        out = {}
+        for k, x, ref in pairs:
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"[rwkv card vs cpu] {k} not finite")
+            out[k] = (x - ref).abs().max().item() / ref.abs().max().item()
+        return out
+
+    sound, control = gaps(lp, carry), gaps(lp_t, carry_t)
+    text = ", ".join(f"{k} {sound[k]:.2e} (TF32 {control[k]:.2e}; limit {RWKV_CARD_VS_CPU[k]:g})"
+                     for k in sound)
+    log(f"[rwkv card vs cpu] B={B}, one {S / 16000:g} s segment, max|Δ|/scale against the CPU: "
+        + text)
+    over = [k for k, v in sound.items() if v > RWKV_CARD_VS_CPU[k]]
+    if over:
+        raise AssertionError(f"[rwkv card vs cpu] {over} beyond their limits")
+    blind = [k for k, v in control.items() if v <= RWKV_CARD_VS_CPU[k]]
+    if blind:
+        raise AssertionError(f"[rwkv card vs cpu] the TF32 control stays within the limits of "
+                             f"{blind}: they cannot tell it from a sound path")
+    same = (lp.argmax(-1) == lp_c.argmax(-1)).double().mean().item()
+    if same < 0.999:
+        raise AssertionError(f"[rwkv card vs cpu] greedy frames equal on {same:.4%} < 99.9%")
+    log(f"[rwkv card vs cpu] greedy frames equal {same:.4%}; {sec * 1e3:.1f} ms on the card, "
+        f"{sec_c * 1e3:.1f} ms on the CPU ({CARD})")
+
+
+def phase_host_side(dev) -> dict:
+    """Phase 31: the host side through the CLI (see the module's docstring).
+    Returns what the server recorded."""
+    from statecatcher_tpu_torch.data.audio import (
+        read_wav_bytes,
+        resample_linear,
+        resampled_count,
+        to_mono,
+    )
+    from statecatcher_tpu_torch.data.fake_server import FakeSpeechDataServer
+    from statecatcher_tpu_torch.data.vtt import vtt_to_segments_with_text
+    from statecatcher_tpu_torch.tokenizer import load_tokenizer
+    from statecatcher_tpu_torch.tokenizer.unigram import _viterbi_segment
+
+    if not native.available():
+        raise AssertionError(f"the native library is not live: {native.load_error()}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    data = write_cli_fixture(WORK, cue=4.0)
+    names = sorted(n[:-4] for n in os.listdir(data) if n.endswith(".wav"))
+    recs = [(open(os.path.join(data, n + ".wav"), "rb").read(),
+             open(os.path.join(data, n + ".vtt")).read()) for n in names]
+    # the native WAV decoder against the numpy reader, as read and resampled
+    t0 = time.perf_counter()
+    for blob, _ in recs:
+        for sr in (16000, 8000):
+            got = native.decode_wav_native(blob, sr)
+            wav, sr0, _ = read_wav_bytes(blob)
+            wav = to_mono(wav)
+            if sr0 != sr:
+                wav = resample_linear(wav, sr0, sr, n_out=resampled_count(len(wav), sr0, sr))
+            if got is None or got.shape != wav.shape or not np.array_equal(got, wav):
+                raise AssertionError(f"the native WAV decoder differs from the numpy reader at "
+                                     f"{sr} Hz")
+    t_dec = time.perf_counter() - t0
+
+    prefix = os.path.join(WORK, "tokenizer")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "statecatcher_tpu_torch.train_tokenizer",
+                           "--input", data, "--model-prefix", prefix, "--vocab-size", "64"],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or proc.stdout.strip() != f"Wrote {prefix}.json":
+        raise RuntimeError(f"train_tokenizer exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    t_tok = time.perf_counter() - t0
+    tok = load_tokenizer(prefix + ".json")
+    if tok._native is None:
+        raise AssertionError("the unigram tokenizer did not take the native Viterbi")
+    texts = [t for _, vtt in recs for _, _, t in vtt_to_segments_with_text(vtt)]
+    for text in texts + ["hello ¤ world"]:
+        py = []
+        for w in text.split():
+            seg = _viterbi_segment("▁" + w, tok._logp, tok._max_len)
+            py += [tok._id_of[p] for p in seg] if seg else tok._encode_with_unk("▁" + w)
+        if tok.encode(text) != py:
+            raise AssertionError(f"native and Python Viterbi differ on {text!r}")
+
+    prof = os.path.join(WORK, "profile")
+    with FakeSpeechDataServer(recs) as srv:
+        conf = os.path.join(WORK, "data.yaml")
+        with open(conf, "w") as f:
+            f.write("# the fake data server on loopback\n" + "".join(
+                f"{k}: '{v}'\n" for k, v in srv.client_config().items()))
+        http = ["--data.source", "http", "--data.config_path", conf,
+                "--data.target_duration", "16", "--data.batch_size", "4"]
+        t0 = time.perf_counter()
+        summary = run_cli([*RWKV, *http, "--train.sp_model", prefix + ".json",
+                           "--data.num_workers", "4", "--train.segments_per_dispatch", "2",
+                           "--train.steps", "3", "--train.log_every_n", "2",
+                           "--train.debug", "true", "--train.profile_dir", prof,
+                           "--train.model_dir", os.path.join(WORK, "run")])
+        t_cli = time.perf_counter() - t0
+        done = list(srv.state.marked_done)
+        completed = [m for lvl, m in srv.state.logs if m.startswith("Completed batch")]
+        sessions = dict(srv.state.sessions)
+        t0 = time.perf_counter()
+        sim = subprocess.run([sys.executable, "-m", "statecatcher_tpu_torch.simulate", *http,
+                              "--batches", "2"], cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        t_sim = time.perf_counter() - t0
+    if summary["global_step"] != 3 or len(summary["loss_history"]) != 3:
+        raise AssertionError(f"[cli rwkv http] {summary['global_step']} steps, losses "
+                             f"{summary['loss_history']}")
+    if not done or len(done) != len(completed) or done != [(0, i) for i in range(len(done))]:
+        raise AssertionError(f"[cli rwkv http] batches marked done {done}, completed "
+                             f"{completed}")
+    if sessions:
+        raise AssertionError(f"[cli rwkv http] the session was not ended: {sessions}")
+    train_log = open(os.path.join(summary["run_dir"], "train.log")).read()
+    if "check_carry passed" not in train_log:
+        raise AssertionError("[cli rwkv http] train.debug did not check the carry")
+    traces = [n for n in os.listdir(prof) if n.startswith("trace-") and n.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"[cli rwkv http] profile directory holds {os.listdir(prof)}")
+    trace_mb = os.path.getsize(os.path.join(prof, traces[0])) / 2**20
+    if sim.returncode != 0 or "simulated: {'batches': 2" not in sim.stdout:
+        raise RuntimeError(f"simulate exited {sim.returncode}:\n{sim.stdout[-1500:]}"
+                           f"\n{sim.stderr[-1500:]}")
+    log(f"[host] native library live ({native.library_path().name}): WAV decoder equal to the "
+        f"numpy reader on {len(recs)} × 48 s at 16 and 8 kHz ({t_dec * 1e3:.0f} ms for both), "
+        f"Viterbi equal on {len(texts) + 1} texts; train_tokenizer: vocab {tok.vocab_size} in "
+        f"{t_tok:.1f} s")
+    log(f"[cli rwkv http] python -m statecatcher_tpu_torch.cli --model.encoder rwkv "
+        f"--data.source http (loopback) --train.debug true --train.profile_dir: losses "
+        f"{[round(x, 4) for x in summary['loss_history']]}, batches marked done {done}, "
+        f"session ended, check_carry passed, trace {traces[0]} ({trace_mb:.1f} MiB); "
+        f"{t_cli:.1f} s; simulate --batches 2 in {t_sim:.1f} s ({CARD})")
+    return {"marked_done": done}
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -2412,12 +2600,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs one CUDA card",
               file=sys.stderr)
         return 1
+    global CARD
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     log(smi)                                                   # name, power limit
+    CARD = smi
     log(f"torch.cuda.get_device_name(0): {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     # full f32 matmuls (the JAX package uses Precision.HIGHEST); the frontend
@@ -2566,6 +2756,13 @@ def main() -> int:
     n_bstream = phase_beam_streaming(model, cfg, dev)
     del model
 
+    t0 = time.perf_counter()
+    n_wtrain, _ = phase_rwkv(dev)
+    log(f"[time] phase 30 (rwkv): {time.perf_counter() - t0:.1f} s ({CARD})")
+    t0 = time.perf_counter()
+    phase_host_side(dev)
+    log(f"[time] phase 31 (host side): {time.perf_counter() - t0:.1f} s ({CARD})")
+
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
             + n_mbatched["K1"] + n_btrain["K1"] + n_eval + n_reval + n_bstream)
@@ -2574,9 +2771,9 @@ def main() -> int:
              + n_ntrain["K5a"])
     n_k5b = n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
     n_k3 = (n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"] + n_ktrain["K3"] + n_dtrain["K3"]
-            + n_ntrain["K3"] + n_ltrain["K3"])
+            + n_ntrain["K3"] + n_ltrain["K3"] + n_wtrain["K3"])
     n_k4 = (n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"] + n_ktrain["K4"] + n_dtrain["K4"]
-            + n_ntrain["K4"] + n_ltrain["K4"])
+            + n_ntrain["K4"] + n_ltrain["K4"] + n_wtrain["K4"])
     n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
     n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
     n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
@@ -2584,8 +2781,8 @@ def main() -> int:
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
         f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}, eval ctc {n_eval}, "
         f"eval rnnt {n_reval}, beam streaming {n_bstream}; K2 {n_k2}; K3 {n_k3}, K4 {n_k4} "
-        f"(train, masked, xlstm, k12, dual, native and lstm train; lstm {n_ltrain['K3']}, "
-        f"{n_ltrain['K4']}); K5a {n_k5a} (masked "
+        f"(train, masked, xlstm, k12, dual, native, lstm and rwkv train; lstm {n_ltrain['K3']}, "
+        f"{n_ltrain['K4']}; rwkv {n_wtrain['K3']}, {n_wtrain['K4']}); K5a {n_k5a} (masked "
         f"batched + train, native batched + streaming + train), K5b {n_k5b} (masked, k12, dual "
         f"and native train); K12 batched {n_kbatched['K12']}, streaming {n_kstream}, train "
         f"{n_ktrain['K12']}; K11 batched {n_dbatched['K11']}, train {n_dtrain['K11']}; "
@@ -2630,7 +2827,7 @@ def main() -> int:
     ]
     if any(e[3] <= 0 for e in entries):
         raise AssertionError(f"a kernel of the main path never launched: {entries}")
-    log(f"[time] the whole run, builds included: {time.perf_counter() - t_run:.1f} s")
+    log(f"[time] the whole run, builds included: {time.perf_counter() - t_run:.1f} s ({CARD})")
     log(json.dumps({"kernels": [
         kernel_entry(name, csrc + src, "statecatcher_tpu/ops/" + tpu, n, m)
         for name, src, tpu, n, m in entries]}))

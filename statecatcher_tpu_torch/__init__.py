@@ -1,9 +1,10 @@
 """statecatcher_tpu_torch — the PyTorch/CUDA port of statecatcher_tpu.
 
 The JAX package beside it is the reference; this package re-implements its
-serving and training paths (LucyRNN and xLSTM encoders, CTC and RNN-T) in
-PyTorch, with every TPU kernel on those paths replaced by a CUDA kernel
-written for Hopper (``ops/csrc``).  The port
+serving, training and evaluation paths (LSTM, LucyRNN, xLSTM and RWKV
+encoders, CTC and RNN-T) and its host data plane in PyTorch, with every TPU
+kernel on those paths replaced by a CUDA kernel written for Hopper
+(``ops/csrc``).  The port
 imports ``torch`` and never JAX or anything of ``statecatcher_tpu``.
 
 Layer map (module names follow the JAX package):
@@ -11,8 +12,12 @@ Layer map (module names follow the JAX package):
   streaming.py          — StreamingRecognizer: chunked encode + greedy decode
   decode.py             — CTC greedy decode
   train/                — the segment-group step, optimizers, loop, checkpoints
-  models/               — SpeechModel → ASRModel → LucyRNNEncoder (LucyCell)
-                          or XLSTMEncoder (MLSTMLayer)
+  models/               — SpeechModel → ASRModel → LSTMEncoder, LucyRNNEncoder
+                          (LucyCell), XLSTMEncoder (MLSTMLayer) or RWKVEncoder
+  data/, native/        — the host data plane: HTTP client and fake server,
+                          local dataset, prefetch pipeline, C++ WAV decoder
+  tokenizer/            — char, unigram (native Viterbi) and sentencepiece
+  train_tokenizer.py, simulate.py, debug.py — the host-side tools
   ops/                  — the kernels' wrappers (CUDA on the card, their plain
                           versions on the CPU) and the torch code around them
   frontend.py           — STFT → mel → MFCC as full-f32 matmuls

@@ -2,13 +2,14 @@
 
 Covers the trees of ``ASRModel`` and ``SpeechModel`` (the ASR module under
 ``asr``, the RNN-T joiner under ``joiner``) for the LSTM, LucyRNN (7-gate
-and native) and xLSTM encoders.  Dense and GateProj kernels are (in, out) in
+and native), xLSTM and RWKV encoders.  Dense and GateProj kernels are (in, out) in
 flax and (out, in) here, so they are transposed; the LSTM's ``w_ih`` (Din,
 4H), ``w_hh`` (H, 4H) and its two biases keep the flax layout on both sides
 (the port computes ``x @ w_ih`` as JAX does), so they are copied as they
 are, and its ``classifier`` is a Dense; a LayerNorm's or
 RMSNorm's ``scale`` is its ``weight``; an Embed's ``embedding`` is its
-``weight``; ``join_kernel`` stays (J, V).  The flax side is plain numpy
+``weight``; ``join_kernel`` stays (J, V); RWKV's ``mix_*``,
+``time_decay`` and ``time_first`` vectors keep their names.  The flax side is plain numpy
 (``np.asarray`` of each leaf), so this module needs no JAX.  Both
 directions copy values exactly: flax → torch → flax is bit-identical.
 """
@@ -44,6 +45,9 @@ def _mapping(cfg: ModelConfig) -> list[tuple[tuple[str, ...], str, bool]]:
         return out
     if cfg.encoder == "xlstm":
         _xlstm_mapping(cfg, dense, out)
+        return out
+    if cfg.encoder == "rwkv":
+        _rwkv_mapping(cfg, dense, out)
         return out
     if cfg.lucyrnn.variant == "native":
         _native_mapping(cfg, dense, out)
@@ -84,6 +88,32 @@ def _xlstm_mapping(cfg: ModelConfig, dense, out: list) -> None:
             dense(("encoder", f"block{bi}_ffn", name), f"encoder.block{bi}_ffn.{name}",
                   bias=False)
     norm("final_norm")
+    dense(("encoder", "vocab_proj"), "encoder.vocab_proj")
+
+
+def _rwkv_mapping(cfg: ModelConfig, dense, out: list) -> None:
+    """Append the RWKV encoder's leaves to ``out`` (``dense`` appends there)."""
+    def leaf(path, key):
+        out.append((("encoder",) + path, "encoder." + key, False))
+
+    def norm(name):
+        leaf((name, "scale"), f"{name}.weight")
+        leaf((name, "bias"), f"{name}.bias")
+
+    dense(("encoder", "input_proj"), "encoder.input_proj")
+    for l in range(cfg.num_layers):
+        tm, cm = f"time_mix{l}", f"channel_mix{l}"
+        norm(f"ln_tm{l}")
+        for name in ("mix_k", "mix_v", "mix_r", "time_decay", "time_first"):
+            leaf((tm, name), f"{tm}.{name}")
+        for name in ("key", "value", "receptance", "output"):
+            dense(("encoder", tm, name), f"encoder.{tm}.{name}", bias=False)
+        norm(f"ln_cm{l}")
+        for name in ("mix_k", "mix_r"):
+            leaf((cm, name), f"{cm}.{name}")
+        for name in ("key", "receptance", "value"):
+            dense(("encoder", cm, name), f"encoder.{cm}.{name}", bias=False)
+    norm("ln_out")
     dense(("encoder", "vocab_proj"), "encoder.vocab_proj")
 
 

@@ -1,7 +1,9 @@
-"""Audio decode: pure-numpy WAV reader plus an optional ffmpeg subprocess path.
+"""Audio decode: the native C++ WAV decoder, a pure-numpy WAV reader with
+the same results, and an optional ffmpeg subprocess path.
 
 Own copy of ``statecatcher_tpu/data/audio.py`` (the port imports nothing of
-the JAX package), without its native C++ WAV decoder.
+the JAX package).  A WAV goes through ``native.decode_wav_native`` when the
+library is live (``native.available()``), else through the numpy reader.
 
 The reference pipes every download through ffmpeg → 16-bit PCM mono WAV →
 soundfile → ``float32 / 32767`` (reference dataset.py:155-164).  Neither
@@ -19,6 +21,8 @@ import subprocess
 from typing import Optional
 
 import numpy as np
+
+from statecatcher_tpu_torch.native import decode_wav_native
 
 _FFMPEG = shutil.which("ffmpeg")
 FFMPEG_TIMEOUT_S = 600          # an hour-long recording decodes in well under this
@@ -53,8 +57,11 @@ def decode_audio(data: bytes, target_sr: int) -> np.ndarray:
     (dataset.py:163-164).
     """
     if _is_wav(data):
-        # (the JAX package's default path here is its native C++ decoder,
-        # not ported; the output length is sized as that decoder sizes it)
+        # the native decoder; None when it is not live or refuses the bytes
+        out = decode_wav_native(data, target_sr)
+        if out is not None:
+            return out
+        # the numpy reader sizes a resampled output as the native decoder does
         wav, sr, _ = read_wav_bytes(data)
         wav = to_mono(wav)
         if sr != target_sr:

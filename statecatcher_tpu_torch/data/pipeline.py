@@ -109,6 +109,10 @@ class BatchPipeline:
                 continue
             return out
 
+    def next_batch(self) -> PreparedBatch:
+        """The next batch, prepared in the caller's thread (no prefetch)."""
+        return self._prepare_one()
+
     def _safe_item(self, item):
         try:
             return self.dataset.load_and_preprocess_batch_item(item, self.target_samples)

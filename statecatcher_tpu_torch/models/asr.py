@@ -1,16 +1,14 @@
 """ASRModel: input projection, frame stacking, masking policy, encoder.
 
-Port of ``statecatcher_tpu/models/asr.py`` for the LSTM encoder (the
-config's default), the LucyRNN encoder (the 7-gate ``variant="triton"`` and
-the 6-gate ``variant="native"``) and the xLSTM encoder: the optional input
+Port of ``statecatcher_tpu/models/asr.py`` for every encoder: the LSTM
+(the config's default), the LucyRNN (the 7-gate ``variant="triton"`` and
+the 6-gate ``variant="native"``), the xLSTM and the RWKV: the optional input
 projection, ``stack_order`` trim-and-fold, the masking policy, and the cast
 of the carried state to ``carry_dtype``.  The LSTM masks inside its
 recurrence (frozen state, zero output) and has its own ``classifier`` Dense
 to the vocabulary; the other encoders get zero-input masking of padded
 frames and project to the vocabulary themselves.  The stateful contract is
 the JAX package's: ``logits, new_state = model(feats, state, frame_mask)``.
-
-The RWKV encoder is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -27,15 +25,14 @@ from statecatcher_tpu_torch.models.layers import Dense, torch_dtype
 from statecatcher_tpu_torch.models.lstm import LSTMEncoder, lstm_init_carry
 from statecatcher_tpu_torch.models.lucyrnn import LucyRNNEncoder
 from statecatcher_tpu_torch.models.lucyrnn_native import LucyNativeEncoder
+from statecatcher_tpu_torch.models.rwkv import RWKVEncoder, rwkv_init_carry
 from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
-    if cfg.encoder not in ("lstm", "lucyrnn", "xlstm"):
-        raise NotImplementedError(
-            f"encoder={cfg.encoder!r} is not ported yet (the RWKV encoder, models/rwkv.py); "
-            "'lstm', 'lucyrnn' and 'xlstm' are")
+    if cfg.encoder not in ("lstm", "lucyrnn", "xlstm", "rwkv"):
+        raise ValueError(f"Unknown encoder type: {cfg.encoder!r}")
     if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant not in ("triton", "native"):
         raise NotImplementedError(
             f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported; the 7-gate 'triton' "
@@ -44,7 +41,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class ASRModel(nn.Module):
     """Input projection → frame stacking → LSTM encoder → classifier, or
-    LucyRNN (7-gate or native) or xLSTM encoder (→ vocab logits).
+    LucyRNN (7-gate or native), xLSTM or RWKV encoder (→ vocab logits).
 
     Parameters are initialised on the CPU from ``generator`` (a fresh one
     seeded 0 when None) and then moved to ``device``.
@@ -78,6 +75,10 @@ class ASRModel(nn.Module):
         elif cfg.encoder == "xlstm":
             self.encoder = XLSTMEncoder(in_dim, cfg.vocab_size, cfg.xlstm, dtype=self.dtype,
                                         param_dtype=param_dtype, generator=generator)
+        elif cfg.encoder == "rwkv":
+            self.encoder = RWKVEncoder(in_dim, cfg.vocab_size, cfg.hidden_size, cfg.num_layers,
+                                       dtype=self.dtype, param_dtype=param_dtype,
+                                       generator=generator)
         else:
             lcfg = dataclasses.replace(cfg.lucyrnn, hidden_dim=cfg.hidden_size,
                                        num_layers=cfg.num_layers)
@@ -133,7 +134,8 @@ def carry_dtype(cfg: ModelConfig) -> torch.dtype:
 def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> dict:
     """Zero carry of the encoder: LSTM {"h", "c"} of (B, L, H); LucyRNN
     {"h", "s"} of (B, tracks, L, D) (native: (B, L, D)); xLSTM {"C", "n",
-    "m"} (``models/xlstm.py:xlstm_init_carry``)."""
+    "m"} (``models/xlstm.py:xlstm_init_carry``); RWKV's five (B, L, D)
+    leaves (``models/rwkv.py:rwkv_init_carry``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if dtype is None:
@@ -142,6 +144,8 @@ def init_carry(cfg: ModelConfig, batch_size: int, dtype=None, device="cuda") -> 
         return lstm_init_carry(batch_size, cfg.num_layers, cfg.hidden_size, dtype, dev)
     if cfg.encoder == "xlstm":
         return xlstm_init_carry(cfg.xlstm, batch_size, dtype, dev)
+    if cfg.encoder == "rwkv":
+        return rwkv_init_carry(cfg.hidden_size, cfg.num_layers, batch_size, dtype, dev)
     if cfg.lucyrnn.variant == "native":
         shape = (batch_size, cfg.num_layers, cfg.hidden_size)
     else:

@@ -1,11 +1,12 @@
 """Where the serving path's device time goes, from a ``torch.profiler`` trace.
 
-    python -m statecatcher_tpu_torch.profile_serving [--encoder lucyrnn|xlstm|lstm]
+    python -m statecatcher_tpu_torch.profile_serving [--encoder lucyrnn|xlstm|lstm|rwkv]
         [--chunks 30] [--out DIR]
 
 Builds the flagship LucyRNN-CTC (4 × 512, vocab 1024, 80 MFCC, float32), or
 with ``--encoder xlstm`` the xLSTM-CTC of the config's defaults, or with
-``--encoder lstm`` the LSTM-CTC of the config's defaults (4 × 512), with
+``--encoder lstm`` the LSTM-CTC of the config's defaults (4 × 512), or with
+``--encoder rwkv`` the RWKV-CTC at the same widths, with
 seeded random weights on the card and traces two windows after a warm-up:
 
   * batched: one 16 s segment at B=32 (features → model → log-softmax);
@@ -68,7 +69,7 @@ def _traced(label: str, fn, out: Path | None) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm", "lstm"), default="lucyrnn")
+    ap.add_argument("--encoder", choices=("lucyrnn", "xlstm", "lstm", "rwkv"), default="lucyrnn")
     ap.add_argument("--chunks", type=int, default=30)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()

@@ -23,15 +23,15 @@ class Tokenizer(Protocol):
 
 
 def load_tokenizer(path: str) -> "Tokenizer":
-    """Load a tokenizer model file: ``*.json`` of type "char".
+    """Load a tokenizer model file.
 
-    The JAX package also loads sentencepiece ``*.model`` files and its own
-    "unigram" JSON; those tokenizers are not ported yet and raise.
+    ``*.model`` → sentencepiece (requires the package); ``*.json`` → our own
+    char/unigram formats (dispatch on the ``"type"`` field).
     """
     if path.endswith(".model"):
-        raise NotImplementedError(
-            "sentencepiece tokenizers are not ported yet (tokenizer/spm.py; ROADMAP.md, "
-            "the host side)")
+        from statecatcher_tpu_torch.tokenizer.spm import SentencePieceTokenizer
+
+        return SentencePieceTokenizer(path)
     with open(path) as f:
         blob = json.load(f)
     kind = blob.get("type")
@@ -40,7 +40,7 @@ def load_tokenizer(path: str) -> "Tokenizer":
 
         return CharTokenizer.from_dict(blob)
     if kind == "unigram":
-        raise NotImplementedError(
-            "the unigram tokenizer is not ported yet (tokenizer/unigram.py; ROADMAP.md, "
-            "the host side)")
+        from statecatcher_tpu_torch.tokenizer.unigram import UnigramTokenizer
+
+        return UnigramTokenizer.from_dict(blob)
     raise ValueError(f"Unknown tokenizer model format in {path}")

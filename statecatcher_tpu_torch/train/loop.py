@@ -20,16 +20,20 @@ median/MAD window; a flagged recording's remaining segments train with
 the metrics window) from which a run resumes mid-recording-batch exactly.
 
 Both training modes run (``train.mode`` "ctc" or "rnnt"; the step holds
-the difference).  Not ported yet, and raising: the HTTP data source
-(``data/client.py``), multi-process and multi-device training
-(``parallel/*``), the debug and profiler hooks (``debug.py``).  Where the JAX
-package reads ``jax.process_index()``/``process_count()`` this loop is
-rank 0 of 1.
+the difference), over either data source (``data.source`` "local", or
+"http": ``data/client.py``'s session against the speechcatcher-data API,
+whose tokenizer must be named by ``train.sp_model``).  ``train.debug`` turns
+on autograd's anomaly mode for the run and checks the carry at its end;
+``train.profile_dir`` traces the run with ``torch.profiler`` (``debug.py``).
+Not ported yet, and raising: multi-process and multi-device training
+(``parallel/*``).  Where the JAX package reads
+``jax.process_index()``/``process_count()`` this loop is rank 0 of 1.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import os
@@ -39,7 +43,9 @@ import numpy as np
 import torch
 
 from statecatcher_tpu_torch import resolve_device
+from statecatcher_tpu_torch import debug
 from statecatcher_tpu_torch.config import Config
+from statecatcher_tpu_torch.data.client import SpeechDataset
 from statecatcher_tpu_torch.data.local import LocalSpeechDataset
 from statecatcher_tpu_torch.data.pipeline import (
     BatchPipeline,
@@ -89,9 +95,11 @@ def build_dataset(cfg: Config):
             shard_index=0,
             shard_count=1,
         )
-    raise NotImplementedError(
-        f"data.source={cfg.data.source!r}: the HTTP data client (data/client.py) is not "
-        "ported yet (ROADMAP.md, the host side); use data.source=local")
+    return SpeechDataset(
+        config_path=cfg.data.config_path,
+        batch_segment_strategy=cfg.data.batch_segment_strategy,
+        batch_samplerate=cfg.data.batch_samplerate,
+    )
 
 
 def build_tokenizer(cfg: Config):
@@ -118,10 +126,6 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "data/model parallel meshes are not ported yet (parallel/mesh.py; ROADMAP.md, "
             "multi-GPU); this loop trains on one device")
-    if cfg.train.debug or cfg.train.profile_dir:
-        raise NotImplementedError(
-            "train.debug and train.profile_dir (debug.py) are not ported yet "
-            "(ROADMAP.md, multi-GPU and debug)")
 
 
 def train(
@@ -143,7 +147,26 @@ def train(
     run_dir = setup_run_dir(cfg)
     log_handler = _setup_logging(run_dir)
     logger.info("Run directory: %s", run_dir)
+    try:
+        with contextlib.ExitStack() as stack:
+            if cfg.train.debug:
+                debug.enable_debug()
+                stack.callback(debug.disable_debug)
+            if cfg.train.profile_dir:
+                stack.enter_context(debug.profile(cfg.train.profile_dir))
+            summary, carry = _train(cfg, dataset, max_batches, initial_params, dev, run_dir)
+        if cfg.train.debug and summary["global_step"] > 0:
+            B = cfg.data.batch_size
+            n = debug.check_carry(carry, batch_size=B)
+            logger.info("debug: check_carry passed (%d leaves finite, batch-major, B=%d)", n, B)
+        return summary
+    finally:
+        logging.getLogger("statecatcher").removeHandler(log_handler)
+        log_handler.close()
 
+
+def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> tuple:
+    """The body of ``train``: the summary dict and the last carry."""
     tokenizer = build_tokenizer(cfg)
     vocab_size = tokenizer.vocab_size
     blank_id = tokenizer.blank_id
@@ -509,8 +532,6 @@ def train(
         save(prev_epoch if prev_epoch is not None else 0)
         sinks.close()
         logger.info("Stage timing: %s", timer.summary())
-        logging.getLogger("statecatcher").removeHandler(log_handler)
-        log_handler.close()
 
     return {
         "run_dir": run_dir,
@@ -520,4 +541,4 @@ def train(
         "audio_sec_per_sec": meter.audio_seconds_per_second,
         "stage_timing": timer.summary(),
         "hallucination_quarantined": halluc.flagged if halluc else 0,
-    }
+    }, carry

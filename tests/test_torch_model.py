@@ -23,6 +23,7 @@ from statecatcher_tpu_torch.config import Config
 from statecatcher_tpu_torch.convert import flax_to_torch, torch_to_flax
 from statecatcher_tpu_torch.models.asr import build_model, init_carry
 from statecatcher_tpu_torch.models.lstm import LSTMEncoder
+from statecatcher_tpu_torch.models.rwkv import RWKVEncoder
 from statecatcher_tpu_torch.models.speech import build_speech_model
 from statecatcher_tpu_torch.testing import levenshtein, randomize_
 
@@ -152,19 +153,13 @@ def test_carry_layout_and_dtype():
 ])
 def test_unported_models_raise(override):
     # xlstm (tests/test_torch_xlstm.py), LucyRNN's native variant
-    # (tests/test_torch_lucyrnn_native.py) and the LSTM
-    # (tests/test_torch_lstm.py) are ported: the LSTM builds, in both modes;
-    # RWKV still raises
+    # (tests/test_torch_lucyrnn_native.py), the LSTM (tests/test_torch_lstm.py)
+    # and RWKV (tests/test_torch_rwkv.py) are ported: each builds, in both
+    # modes
     cfg = Config().apply_overrides(override)
-    if cfg.model.encoder == "lstm":
-        assert isinstance(build_model(cfg.model, F, device="cpu").encoder, LSTMEncoder)
-        assert build_speech_model(cfg.model, F, "rnnt", device="cpu").joiner is not None
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.model, F, device="cpu")
-    # RNN-T mode is ported; its encoder is held to the same rule
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_speech_model(cfg.model, F, "rnnt", device="cpu")
+    want = {"lstm": LSTMEncoder, "rwkv": RWKVEncoder}[cfg.model.encoder]
+    assert isinstance(build_model(cfg.model, F, device="cpu").encoder, want)
+    assert build_speech_model(cfg.model, F, "rnnt", device="cpu").joiner is not None
 
 
 def test_randomize_is_seeded_and_offsets_gate_biases():
