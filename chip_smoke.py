@@ -154,9 +154,24 @@ data plane:
      Python ones on the fixture; ``python -m statecatcher_tpu_torch.simulate``
      over the same server;
  32. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27, 29 and 30;
-     each counter is set to 0 just before a phase and read just after it, so
-     comparison launches are not counted).
+     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27, 29, 30 and
+     33's ranks; each counter is set to 0 just before a phase and read just
+     after it, so comparison launches are not counted);
+ 33. multi-GPU training (``parallel/*``, ``ops/scan_sp.py``): world =
+     max(2, cards) rank processes of ``python -m
+     statecatcher_tpu_torch.parallel.dryrun`` with torchrun's environment
+     (NCCL with a card per rank; on one card gloo, every rank on cuda:0),
+     the flagship at B=32 global, K=2 × 16 s, U=128, row 31 (one rank's)
+     invalid: (a) data parallel over every rank (K1–K4), (b) tensor parallel
+     with mp=2 ("pallas": K5a/K5b on each rank's gate columns), (c) sequence
+     parallel over 2 ranks ("sp": K5a/K5b on each time shard), each held
+     against one process on the card at phase 5's tolerances, with ms per
+     segment per rank and the bytes all-reduced per update; (d) the CLI on
+     2 ranks with ``--mesh.data_parallel 2`` on phase 7's fixture (two
+     dispatches and a checkpoint, against phase 7's losses), a 2-rank resume
+     and a 1-process resume from that checkpoint (equal losses).  Every rank
+     has a time limit; a rank that fails or runs out of time fails the
+     phase.
 
 Every check raises; nothing is caught.  Without a card (or outside the
 repository) it exits non-zero before printing any result.  The last line of
@@ -262,6 +277,7 @@ MASKED = ["--model.lucyrnn.mask_state_updates", "true"]
 NATIVE = ["--model.lucyrnn.variant", "native"]
 RWKV = ["--model.encoder", "rwkv"]                # 4 × 512, vocab 1024, f32
 CARD = ""                                        # nvidia-smi's name, power limit (main)
+CLI_LOSSES: dict = {}                            # phase_cli's first runs' losses, by tag
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
@@ -1181,6 +1197,7 @@ def phase_cli(extra=(), seconds=48.0, target=16, encoder="lucyrnn", tag=None) ->
     t0 = time.perf_counter()
     first = run_cli(common + ["--train.steps", "2", "--train.model_dir",
                               os.path.join(WORK, "run1")])
+    CLI_LOSSES[tag or encoder] = first["loss_history"]
     meta = json.load(open(os.path.join(first["run_dir"], "ckpt", "2", "meta.json")))
     if meta["cursor"] != {"batches_done": 0, "seg_idx": 2}:
         raise AssertionError(f"checkpoint cursor {meta['cursor']}")
@@ -2588,6 +2605,219 @@ def phase_host_side(dev) -> dict:
     return {"marked_done": done}
 
 
+# phase 33's kernels: its K1/K2 (data parallel, "auto") and K5a/K5b (tensor
+# and sequence parallel, "pallas" and "sp") per segment and layer, K3/K4 per
+# segment, on every rank
+MULTI_GPU_KERNELS = {"dp": {"lucy_cell_fused_lm": 1, "lucy_cell_fused_lm_bwd": 1,
+                            "ctc_alpha": 0, "ctc_beta": 0},
+                     "tp": {"linear_scan_fwd": 2, "linear_scan_rev": 2, "ctc_alpha": 0,
+                            "ctc_beta": 0},
+                     "sp": {"linear_scan_fwd": 2, "linear_scan_rev": 2, "ctc_alpha": 0,
+                            "ctc_beta": 0}}
+RANK_TIMEOUT_S = 240.0
+
+
+def multi_gpu_layout() -> tuple[int, str, str]:
+    """(world, backend, --device) of phase 33: one rank per card over NCCL
+    with two cards or more; with one card two ranks on cuda:0 over gloo (NCCL
+    refuses two ranks of one communicator on one device)."""
+    n = torch.cuda.device_count()
+    return (n, "nccl", "cuda") if n >= 2 else (2, "gloo", "cuda:0")
+
+
+def launch(world: int, argv: list, module: str, tag: str) -> list[str]:
+    """``world`` rank processes of ``module`` with torchrun's environment;
+    every rank must exit 0 within RANK_TIMEOUT_S (a rank out of time is
+    killed and fails the phase).  Returns each rank's output."""
+    from statecatcher_tpu_torch.parallel.dryrun import launch_ranks
+
+    res = launch_ranks(world, argv, RANK_TIMEOUT_S, module=module, cwd=REPO)
+    for r, (rc, out) in enumerate(res):
+        if rc != 0:
+            raise RuntimeError(f"{tag} rank {r} of {world} exited {rc}:\n{out[-3000:]}")
+    return [out for _, out in res]
+
+
+def multi_gpu_reference(cfg, dev, params, group, K, B):
+    """One process on the card over the global batch: (outputs, carry,
+    parameters after the update)."""
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev)
+    model.load_state_dict(params)
+    state = init_train_state(model, cfg)
+    step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+    args = [torch.from_numpy(np.ascontiguousarray(group[k])).to(dev)
+            for k in ("audio", "mask", "tokens", "tok_lens", "row_valid")]
+    _, carry, outs = step(state, init_carry(cfg.model, B, device=dev), *args, np.ones(K, bool))
+    return outs, {k: v.cpu() for k, v in carry.items()}, snapshot(state)
+
+
+def check_against_one_process(tag, got, ref, p0, lr, K) -> str:
+    """Phase 5's tolerances: losses to 1e-4 and grad norms to 1e-3
+    (relative), the carry to 1e-3 of its scale, the updates within 1 % of
+    their norm with at most 0.1 % of the elements beyond 0.1·lr·K."""
+    outs, carry, params = ref
+    loss, loss_r = got["loss"].numpy(), outs.loss.cpu().numpy()
+    gn, gn_r = got["grad_norm"].numpy(), outs.grad_norm.cpu().numpy()
+    d_loss = np.abs(loss - loss_r) / np.abs(loss_r)
+    d_gn = np.abs(gn - gn_r) / np.abs(gn_r)
+    if not (np.isfinite(loss).all() and np.isfinite(gn).all()) or d_loss.max() > 1e-4 \
+            or d_gn.max() > 1e-3:
+        raise AssertionError(f"{tag} vs one process: losses {loss} vs {loss_r}, grad norms "
+                             f"{gn} vs {gn_r}")
+    for name in carry:
+        dc = (got["carry"][name] - carry[name]).abs().max().item()
+        if dc > 1e-3 * carry[name].abs().max().item():
+            raise AssertionError(f"{tag} carry {name}: max|Δ| {dc:.3e}")
+    flat = lambda d: torch.cat([d[k].flatten().float().cpu() for k in sorted(p0)])
+    p0_, pg, pr = flat(p0), flat(got["params"]), flat(params)
+    rel = ((pg - pr).norm() / (pr - p0_).norm()).item()
+    off = ((pg - pr).abs() > 0.1 * lr * K).float().mean().item()
+    if rel > 1e-2 or off > 1e-3:
+        raise AssertionError(f"{tag} vs one process: updates differ by {rel:.3e} of their "
+                             f"norm, {off:.3e} of elements beyond 0.1·lr·K")
+    return (f"losses max rel {d_loss.max():.2e}, grad norms {d_gn.max():.2e}, updates differ "
+            f"by {rel:.2e} of their norm, {off:.2e} of elements beyond 0.1·lr·K")
+
+
+def phase_multi_gpu(cfg, dev, K=2, B=32, S=16 * 16000, U=128, seconds=48.0, target=16) -> dict:
+    """Phase 33: multi-GPU training.  ``parallel/dryrun.py`` on ``world``
+    ranks (torchrun's environment) runs one group of K carried 16 s segments
+    at B=32 global (U=128, row 31, one rank's row, invalid) from the same
+    random weights (gate projections ×0.1, lr 1e-6) in three modes: (a) data
+    parallel over every rank ("auto": K1/K2), (b) tensor parallel with mp=2
+    ("pallas": K5a/K5b on each rank's columns), (c) sequence parallel over 2
+    ranks ("sp": K5a/K5b on each time shard); each held against one process
+    on the card over the same global batch, at phase 5's tolerances.  Then
+    (d) the CLI on 2 ranks with ``--mesh.data_parallel 2`` on phase 7's
+    fixture: two dispatches and a checkpoint (losses against phase 7's one
+    process), a 2-rank resume from it and a 1-process resume from the
+    2-rank checkpoint (equal losses).  Returns each kernel's launches,
+    summed over the ranks of (a)–(d)."""
+    t_phase = time.perf_counter()
+    world, backend, device = multi_gpu_layout()
+    log(f"[multi-gpu] backend {backend}, world {world} rank(s), --device {device}, "
+        f"{torch.cuda.device_count()} card(s) ({CARD})")
+    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6"])
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device="cpu",
+                               generator=torch.Generator().manual_seed(SEED))
+    randomize_(model, SEED + 1, gate_weight_scale=0.1)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    group = {k: v.cpu().numpy() for k, v in zip(
+        ("audio", "mask", "tokens", "tok_lens", "row_valid"),
+        train_group(np.random.default_rng(SEED + 6), K, B, S, U, cfg.model.vocab_size, "cpu"))}
+    group["seg_valid"] = np.ones(K, bool)
+    dp_half = str(world // 2)
+    modes = [("dp", ["--mesh.data_parallel", str(world)]),
+             ("tp", ["--mesh.data_parallel", dp_half, "--mesh.model_parallel", "2",
+                     "--model.lucyrnn.kernel_impl", "pallas"]),
+             ("sp", ["--mesh.data_parallel", dp_half, "--mesh.model_parallel", "2",
+                     "--model.lucyrnn.kernel_impl", "sp"])]
+    d = os.path.join(WORK, "multi_gpu")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    torch.save({"overrides": FLAGSHIP + ["--train.optim.lr", "1e-6"], "params": params,
+                "group": group, "modes": modes}, os.path.join(d, "in.pt"))
+    t0 = time.perf_counter()
+    launch(world, ["--inputs", os.path.join(d, "in.pt"), "--out", os.path.join(d, "out"),
+                   "--backend", backend, "--device", device, "--time-runs", "1"],
+           "statecatcher_tpu_torch.parallel.dryrun", "[multi-gpu dryrun]")
+    t_dry = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"out.rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    refs = {impl: multi_gpu_reference(cfg.apply_overrides(["--model.lucyrnn.kernel_impl", impl]),
+                                      dev, params, group, K, B)
+            for impl in ("auto", "pallas")}
+    launches: dict = {}
+    for name, _ in modes:
+        ref = refs["auto" if name == "dp" else "pallas"]
+        for r, res in enumerate(ranks):
+            got = res[name]
+            verdict = check_against_one_process(f"[multi-gpu {name}] rank {r}", got, ref, params,
+                                                1e-6, K)
+            want = {k: (n_layers(cfg) * per if per else 1) * K
+                    for k, per in MULTI_GPU_KERNELS[name].items()}
+            if {k: got["launches"].get(k, 0) for k in want} != want:
+                raise AssertionError(f"[multi-gpu {name}] rank {r} launches {got['launches']}; "
+                                     f"want {want}")
+            for k, n in got["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            dp_, mp_, _ = got["plan"]
+            log(f"[multi-gpu {name}] rank {r} of {dp_}x{mp_} on {res['topology']['device']} "
+                f"over {res['topology']['backend']}: {got['ms_per_segment']:.1f} ms per segment "
+                f"(first run {got['ms_per_segment_first']:.1f}), "
+                f"{got['allreduce_bytes_per_update'] / 2**20:.2f} MiB all-reduced over the data "
+                f"group per update, {got['model_group_bytes_per_update'] / 2**20:.2f} MiB over the "
+                f"model group; launches {got['launches']}; vs one process: {verdict} ({CARD})")
+    log(f"[multi-gpu] dryrun of the three modes on {world} ranks: {t_dry:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        # data parallel against one rank at the same per-rank batch
+        Bl = B // world
+        torch.save({"overrides": FLAGSHIP + ["--train.optim.lr", "1e-6"], "params": params,
+                    "group": {k: v[:, :Bl] if v.ndim > 1 else v for k, v in group.items()},
+                    "modes": [("dp", [])]}, os.path.join(d, "in1.pt"))
+        launch(1, ["--inputs", os.path.join(d, "in1.pt"), "--out", os.path.join(d, "out1"),
+                   "--device", "cuda", "--time-runs", "1"],
+               "statecatcher_tpu_torch.parallel.dryrun", "[multi-gpu one rank]")
+        one = torch.load(os.path.join(d, "out1.rank0.pt"), weights_only=False)["dp"]
+        dp_ms = [r["dp"]["ms_per_segment"] for r in ranks]
+        log(f"[multi-gpu scaling] data parallel, {Bl} rows per rank: 1 rank "
+            f"{one['ms_per_segment']:.1f} ms per segment, {world} ranks "
+            f"{', '.join(f'{x:.1f}' for x in dp_ms)} ms per segment (the slowest "
+            f"{max(dp_ms) / one['ms_per_segment']:.3f}× one rank's) ({CARD})")
+
+    # (d) the CLI over torchrun's environment, on phase 7's fixture
+    t0 = time.perf_counter()
+    data = write_cli_fixture(d, seconds=seconds, cue=target / 4)
+    common = [*FLAGSHIP, "--data.source", "local", "--data.local_dir", data,
+              "--data.target_duration", str(target), "--data.batch_size", "4",
+              "--data.num_workers", "4", "--train.segments_per_dispatch", "1",
+              "--train.log_every_n", "2", "--mesh.data_parallel", "2"]
+    cli_dev = ["--device", device, "--backend", backend]
+
+    def cli_ranks(extra, tag):
+        outs = launch(2, cli_dev + common + extra, "statecatcher_tpu_torch.cli", tag)
+        sums = [ast.literal_eval(o.strip().splitlines()[-1]) for o in outs]
+        if sums[0]["loss_history"] != sums[1]["loss_history"] or \
+                not np.isfinite(sums[0]["loss_history"]).all():
+            raise AssertionError(f"{tag} ranks disagree: {[x['loss_history'] for x in sums]}")
+        for x in sums:
+            for k, n in x["kernel_launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        return sums[0]
+
+    first = cli_ranks(["--train.steps", "2", "--train.model_dir", os.path.join(d, "run1")],
+                      "[multi-gpu cli]")
+    meta = json.load(open(os.path.join(first["run_dir"], "ckpt", "2", "meta.json")))
+    if meta["cursor"] != {"batches_done": 0, "seg_idx": 2}:
+        raise AssertionError(f"[multi-gpu cli] checkpoint cursor {meta['cursor']}")
+    one = CLI_LOSSES["lucyrnn"]
+    d_one = np.abs(np.array(first["loss_history"]) - one) / np.abs(one)
+    if d_one.max() > 1e-4:
+        raise AssertionError(f"[multi-gpu cli] 2 ranks {first['loss_history']} vs phase 7's "
+                             f"one process {one}")
+    resume = ["--train.steps", "3", "--train.resume_from", first["run_dir"]]
+    second = cli_ranks(resume + ["--train.model_dir", os.path.join(d, "run2")],
+                       "[multi-gpu cli resume]")
+    # one process trains unsharded whatever --mesh says, as the JAX loop does
+    single = run_cli(["--device", "cuda:0" if device.startswith("cuda") else device, *common,
+                      *resume,
+                      "--train.model_dir", os.path.join(d, "run3")])
+    for k, n in single["kernel_launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    a, b = second["loss_history"], single["loss_history"]
+    if len(a) != 1 or len(b) != 1 or abs(a[0] - b[0]) > 1e-4 * abs(b[0]):
+        raise AssertionError(f"[multi-gpu cli] resumed on 2 ranks {a}, on 1 process {b}")
+    log(f"[multi-gpu cli] 2 ranks, --mesh.data_parallel 2: losses "
+        f"{[round(x, 4) for x in first['loss_history']]} (phase 7's one process "
+        f"{[round(x, 4) for x in one]}, max rel {d_one.max():.2e}), checkpoint cursor "
+        f"{meta['cursor']}; resumed on 2 ranks {a[0]:.5f}, on 1 process {b[0]:.5f} "
+        f"({time.perf_counter() - t0:.1f} s for the three runs)")
+    log(f"[multi-gpu] launches over the ranks of (a)-(d): {launches}")
+    log(f"[time] phase 33 (multi-gpu): {time.perf_counter() - t_phase:.1f} s ({CARD})")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -2762,18 +2992,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_host_side(dev)
     log(f"[time] phase 31 (host side): {time.perf_counter() - t0:.1f} s ({CARD})")
+    n_multi = phase_multi_gpu(cfg, dev)
 
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
-            + n_mbatched["K1"] + n_btrain["K1"] + n_eval + n_reval + n_bstream)
-    n_k2 = n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
+            + n_mbatched["K1"] + n_btrain["K1"] + n_eval + n_reval + n_bstream
+            + n_multi.get("lucy_cell_fused_lm", 0))
+    n_k2 = (n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
+            + n_multi.get("lucy_cell_fused_lm_bwd", 0))
     n_k5a = (n_mbatched["K5a"] + n_mtrain["K5a"] + n_nbatched["K5a"] + n_nstream
-             + n_ntrain["K5a"])
-    n_k5b = n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
+             + n_ntrain["K5a"] + n_multi.get("linear_scan_fwd", 0))
+    n_k5b = (n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
+             + n_multi.get("linear_scan_rev", 0))
     n_k3 = (n_train["K3"] + n_mtrain["K3"] + n_xtrain["K3"] + n_ktrain["K3"] + n_dtrain["K3"]
-            + n_ntrain["K3"] + n_ltrain["K3"] + n_wtrain["K3"])
+            + n_ntrain["K3"] + n_ltrain["K3"] + n_wtrain["K3"] + n_multi.get("ctc_alpha", 0))
     n_k4 = (n_train["K4"] + n_mtrain["K4"] + n_xtrain["K4"] + n_ktrain["K4"] + n_dtrain["K4"]
-            + n_ntrain["K4"] + n_ltrain["K4"] + n_wtrain["K4"])
+            + n_ntrain["K4"] + n_ltrain["K4"] + n_wtrain["K4"] + n_multi.get("ctc_beta", 0))
     n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
     n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
     n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
@@ -2790,7 +3024,8 @@ def main() -> int:
         f"{n_rtrain['K7b']} (rnnt train); K8a {n_btrain['K8a']}, K8b {n_btrain['K8b']}, band α "
         f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); K9a xlstm "
         f"batched {n_xbatched['K9a']}, streaming {n_xstream}, train {n_xtrain['K9a']}; K9b "
-        f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched)")
+        f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched); "
+        f"the multi-GPU ranks' (phase 33, in the sums above) {n_multi}")
     entries = [
         ("lucy_cell_fused_lm", "lucy_fused_lm_fwd.cu", "lucy_fused_lm.py:156", n_k1,
          k1["batched f32"]),

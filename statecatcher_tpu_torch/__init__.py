@@ -12,6 +12,8 @@ Layer map (module names follow the JAX package):
   streaming.py          — StreamingRecognizer: chunked encode + greedy decode
   decode.py             — CTC greedy decode
   train/                — the segment-group step, optimizers, loop, checkpoints
+  parallel/             — multi-GPU: torchrun start-up, the (data, model) mesh
+                          of ranks, tensor-parallel shards, the dry run
   models/               — SpeechModel → ASRModel → LSTMEncoder, LucyRNNEncoder
                           (LucyCell), XLSTMEncoder (MLSTMLayer) or RWKVEncoder
   data/, native/        — the host data plane: HTTP client and fake server,

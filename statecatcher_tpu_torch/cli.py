@@ -9,6 +9,18 @@ The same dotted config overrides as the JAX package's CLI, e.g.::
 
 ``--device`` (default ``cuda``) picks where the model trains; ``--device
 cpu`` runs the plain PyTorch versions of the kernels.
+
+Multi-GPU: launched by ``torchrun --nproc_per_node N`` (or with its
+environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), each process joins the process group and trains on
+``cuda:LOCAL_RANK`` (an indexed ``--device`` such as ``cuda:0`` is kept:
+ranks that share a card) over ``--backend`` (default ``nccl`` on the card,
+``gloo`` on the CPU)::
+
+    torchrun --nproc_per_node 2 -m statecatcher_tpu_torch.cli --mesh.data_parallel 2 ...
+
+``--mesh.model_parallel 2`` splits the LucyRNN's gate columns over pairs of
+ranks, and with ``--model.lucyrnn.kernel_impl sp`` the scans' time axis.
 """
 
 from __future__ import annotations
@@ -37,11 +49,20 @@ def main(argv=None):
         with open(path) as f:
             cfg = Config.from_json(f.read())
     device = _pop(argv, "--device") or "cuda"
+    backend = _pop(argv, "--backend")
     cfg = cfg.apply_overrides(argv)
 
+    from statecatcher_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
     from statecatcher_tpu_torch.train.loop import train
 
-    summary = train(cfg, device=device)
+    topo = initialize_distributed(backend, device)
+    try:
+        summary = train(cfg, device=topo.device)
+    finally:
+        shutdown_distributed()
     print(summary)
     return 0
 

@@ -12,6 +12,8 @@ RMSNorm's ``scale`` is its ``weight``; an Embed's ``embedding`` is its
 ``time_decay`` and ``time_first`` vectors keep their names.  The flax side is plain numpy
 (``np.asarray`` of each leaf), so this module needs no JAX.  Both
 directions copy values exactly: flax → torch → flax is bit-identical.
+The state dict is always the whole model's; under tensor parallelism
+``parallel/mesh.py:shard_params_tp`` cuts each rank's rows from it.
 """
 
 from __future__ import annotations

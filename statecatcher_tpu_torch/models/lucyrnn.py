@@ -31,8 +31,18 @@ Each layer's recurrence runs one of four ways, as in the JAX package
     h-scan, each scan K5 (``ops/lucy_pallas.py``).
 
 The card runs the kernels, the CPU their plain versions.  ``kernel_impl=
-"sp"`` (the sequence-parallel scan, multi-GPU) is not ported and raises on
-the card.
+"sp"`` takes the split path with both scans sequence-parallel
+(``ops/scan_sp.py``: each rank of the model group scans a time shard through
+K5), and raises outside a ``sequence_parallel_scans`` context, as in JAX.
+
+Under tensor parallelism (``parallel/mesh.py:tensor_parallel``) a
+``LucyCell`` holds its model rank's rows of the gate projection, the 7 gates
+of D/mp hidden columns, and runs its cell on those columns: its input goes
+through Megatron's f (identity forward, all-reduce of dx over the model
+group in backward), its output h is gathered along D for the LayerNorm and
+the projections above (backward: this rank's columns), and the carry it
+returns is full D.  As JAX's ``tp_active`` steers the fused lane-major cell
+away, "auto" and "fused-lm*" take the split path there.
 """
 
 from __future__ import annotations
@@ -48,9 +58,9 @@ from statecatcher_tpu_torch.ops.lucy_fused_lm import lucy_cell_fused_lm
 from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
 from statecatcher_tpu_torch.ops.lucy_pallas import lucy_dual_scan, lucy_fused_cell
 from statecatcher_tpu_torch.ops.scan import SCAN_IMPLS, linear_scan
+from statecatcher_tpu_torch.parallel.distributed import copy_to_group, gather_dim
+from statecatcher_tpu_torch.parallel.mesh import tp_active, tp_group
 
-# kernel_impl values whose TPU kernels are not ported yet → ROADMAP.md row
-_UNPORTED = {"sp": "multi-GPU (ops/scan_sp.py, the sequence-parallel scan)"}
 _K12_IMPLS = ("pallas-fused", "auto-fused")
 
 
@@ -59,22 +69,17 @@ def cell_route(impl: str, on_cuda: bool, masked: bool) -> str:
     "k12" (the fused masked cell) for "pallas-fused" and "auto-fused",
     masked or not; "dual" (gate chain, then the dual scan K11) for
     "pallas-dual"; then "split" (gate chain, then the two scans through K5)
-    with a frame mask or for "pallas", and "fused" (K1/K2) for every other
-    scan algorithm (they compute the same recurrence).  "sp", whose kernel
-    is not ported, raises on the card rather than fall back; on the CPU it
-    runs the same function's plain version."""
+    with a frame mask, for "pallas" and "sp" (its scans sequence-parallel)
+    and under tensor parallelism (``tp_active``), and "fused" (K1/K2) for
+    every other scan algorithm (they compute the same recurrence)."""
     if impl not in SCAN_IMPLS and impl not in _K12_IMPLS and impl != "pallas-dual" \
             and not impl.startswith("fused-lm"):
         raise ValueError(f"Unknown kernel_impl {impl!r}")
-    if on_cuda and impl in _UNPORTED:
-        raise NotImplementedError(
-            f"kernel_impl={impl!r} is not ported to CUDA yet: see ROADMAP.md, "
-            f"{_UNPORTED[impl]}")
     if impl in _K12_IMPLS:
         return "k12"
     if impl == "pallas-dual":
         return "dual"
-    return "split" if masked or impl == "pallas" else "fused"
+    return "split" if masked or impl in ("pallas", "sp") or tp_active() else "fused"
 
 
 def lucy_cell_parallel(
@@ -89,7 +94,7 @@ def lucy_cell_parallel(
 
     With ``frame_mask``, masked steps leave (h, s) unchanged: their scan
     coefficients are the identity map (a = 1, b = 0)."""
-    route = cell_route(impl, gates.is_cuda, frame_mask is not None)   # raises if unported
+    route = cell_route(impl, gates.is_cuda, frame_mask is not None)
     if route == "k12":
         # the bias added in the gates' dtype (under bf16 the sum is rounded
         # to bf16 before the gate chain), then the (B, T, 7, D) view
@@ -153,10 +158,23 @@ class LucyCell(nn.Module):
                                   param_dtype=param_dtype, generator=generator)
 
     def forward(self, x, h0, s0, frame_mask=None):
-        gates, bias = self.gate_proj(x)
-        return lucy_cell_parallel(
-            gates, h0.to(gates.dtype), s0.to(gates.dtype),
+        tp = tp_group()
+        if tp is None:
+            gates, bias = self.gate_proj(x)
+            return lucy_cell_parallel(
+                gates, h0.to(gates.dtype), s0.to(gates.dtype),
+                impl=self.kernel_impl, frame_mask=frame_mask, bias=bias)
+        # this model rank's D/mp columns (its rows of the gate projection)
+        gates, bias = self.gate_proj(copy_to_group(x, tp))
+        Dl = gates.shape[-1] // 7
+        if h0.shape[-1] != Dl * tp.size:
+            raise ValueError(f"carry width {h0.shape[-1]} != {tp.size} model ranks × {Dl} columns")
+        cols = slice(tp.index * Dl, (tp.index + 1) * Dl)
+        h_all, _, s_T = lucy_cell_parallel(
+            gates, h0[:, cols].to(gates.dtype), s0[:, cols].to(gates.dtype),
             impl=self.kernel_impl, frame_mask=frame_mask, bias=bias)
+        h_all = gather_dim(h_all, tp, 2)
+        return h_all, h_all[:, -1, :], gather_dim(s_T, tp, 1)
 
 
 class LucyRNNEncoder(nn.Module):

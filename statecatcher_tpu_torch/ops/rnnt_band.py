@@ -543,11 +543,13 @@ def rnnt_nll_banded(blank_b, emit_b, o, t_lens, u_lens, time_block: int = 8):
 
 def rnnt_loss_banded(enc_proj, pred_proj, join_kernel, join_bias, labels, t_lens, u_lens,
                      blank_id: int = 0, row_valid=None, time_block: int = 8, band: int = 48,
-                     return_per: bool = False):
+                     return_per: bool = False, return_valid: bool = False):
     """Banded transducer loss: the mean over valid rows of the in-band NLL.
     ``band`` is the requested width in u (realised as ``band_width``).  A row
     whose band prunes every path (NLL ≥ 1e29) is zeroed and left out of the
-    mean, as the JAX package does."""
+    mean, as the JAX package does.  ``return_per`` adds the per-row NLL,
+    ``return_valid`` then the rows' weights in the mean (a data-parallel step
+    sums the mean's numerator and denominator over its ranks)."""
     B, T, _ = enc_proj.shape
     U1 = pred_proj.shape[1]
     Wp = band_width(band, U1, time_block)
@@ -562,4 +564,6 @@ def rnnt_loss_banded(enc_proj, pred_proj, join_kernel, join_bias, labels, t_lens
     finite = ok.to(per.dtype)
     valid = finite if row_valid is None else row_valid.to(per.dtype) * finite
     loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    if return_per and return_valid:
+        return loss, per, valid
     return (loss, per) if return_per else loss

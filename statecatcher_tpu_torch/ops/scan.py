@@ -6,7 +6,8 @@ reference (the plain version the cell and scan kernels are held against),
 and ``linear_scan``, which dispatches on ``impl`` as the JAX function does.
 Every scan algorithm there computes the same recurrence, so here every one
 of them is the scan kernel K5 (``ops/lucy_pallas.py``): on the card its CUDA
-kernels, on the CPU their plain versions.
+kernels, on the CPU their plain versions.  "sp" is the sequence-parallel
+scan (``ops/scan_sp.py``), whose ranks each run K5 on their time shard.
 """
 
 from __future__ import annotations
@@ -30,15 +31,15 @@ SCAN_IMPLS = ("auto", "assoc", "chunked", "xla-scan", "pallas", "sp")
 def linear_scan(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor,
                 impl: str = "auto") -> torch.Tensor:
     """s_t = a_t·s_{t−1} + b_t for (B, T, D) a, b and (B, D) s0, through K5
-    (``linear_scan_pallas``), differentiable.  ``impl`` "sp" (the
-    sequence-parallel scan across devices) raises on the card: it is not
-    ported (``ops/scan_sp.py``; multi-GPU in ROADMAP.md)."""
+    (``linear_scan_pallas``), differentiable.  ``impl`` "sp" is the
+    sequence-parallel scan (``ops/scan_sp.py:linear_scan_sp``), which raises
+    outside a ``sequence_parallel_scans`` context."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"Unknown scan impl {impl!r}")
-    if impl == "sp" and a.is_cuda:
-        raise NotImplementedError(
-            "the sequence-parallel scan (impl='sp', ops/scan_sp.py) is not ported yet: "
-            "see ROADMAP.md, multi-GPU (parallel/*, ops/scan_sp.py)")
+    if impl == "sp":
+        from statecatcher_tpu_torch.ops.scan_sp import linear_scan_sp
+
+        return linear_scan_sp(a, b, s0)
     from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_pallas
 
     return linear_scan_pallas(a, b, s0)

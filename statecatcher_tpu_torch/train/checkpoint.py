@@ -13,6 +13,13 @@ The run-dir layout is the same as ``statecatcher_tpu/train/checkpoint.py``:
 
 Each file is written to a temporary name and renamed, so a killed run leaves
 the previous checkpoint whole.  The newest ``max_to_keep`` steps are kept.
+
+Checkpoints do not depend on the mesh.  With a ``mesh_plan``
+(``parallel/mesh.py``) every rank takes part in a save: the parameters and
+optimizer moments are gathered from the tensor-parallel shards and the carry
+from the data ranks' rows into the global batch, and rank 0 writes them.
+Every rank restores the whole session and keeps its own shards and rows, so
+a run saved on 2 ranks resumes on 1, and the reverse.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from typing import Optional
 import torch
 
 from statecatcher_tpu_torch.config import Config
+from statecatcher_tpu_torch.parallel.mesh import gather_params_tp, shard_params_tp
+from statecatcher_tpu_torch.train.optim import tree_map
 
 
 def setup_run_dir(cfg: Config) -> str:
@@ -60,12 +69,21 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, train_state, meta: dict, carry=None) -> None:
+    def save(self, step: int, train_state, meta: dict, carry=None, mesh_plan=None) -> None:
         """Save the train state (``TrainState.state_dict()``), the loop's
-        metadata and the carry (a dict of tensors, or None)."""
+        metadata and the carry (a dict of tensors, or None); with
+        ``mesh_plan`` every rank calls it and rank 0 writes the whole
+        session."""
+        if mesh_plan is None:
+            state = train_state.state_dict()
+        else:
+            state, carry = _whole_session(train_state, carry, mesh_plan)
+            if not mesh_plan.is_primary:
+                mesh_plan.world.barrier()
+                return
         d = os.path.join(self.ckpt_dir, str(int(step)))
         os.makedirs(d, exist_ok=True)
-        blob = {"state": train_state.state_dict(),
+        blob = {"state": state,
                 "carry": None if carry is None else {k: v.detach().cpu() for k, v in carry.items()}}
         _atomic(os.path.join(d, "session.pt"), lambda p: torch.save(blob, p))
 
@@ -76,11 +94,15 @@ class CheckpointManager:
         _atomic(os.path.join(d, "meta.json"), write_meta)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, str(old)), ignore_errors=True)
+        if mesh_plan is not None:
+            mesh_plan.world.barrier()
 
-    def restore(self, train_state, carry_template: dict):
+    def restore(self, train_state, carry_template: dict, mesh_plan=None):
         """Load the newest checkpoint into ``train_state`` → (train_state,
         meta, carry), the carry on ``carry_template``'s devices and dtypes
-        (None if the checkpoint holds none)."""
+        (None if the checkpoint holds none).  With ``mesh_plan`` the state is
+        cut to this rank's shards and the carry to its rows (``carry_template``
+        is then this rank's)."""
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"No checkpoint under {self.run_dir}")
@@ -88,9 +110,30 @@ class CheckpointManager:
         blob = torch.load(os.path.join(d, "session.pt"), map_location="cpu", weights_only=True)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        train_state.load_state_dict(blob["state"])
-        carry = blob["carry"]
+        state, carry = blob["state"], blob["carry"]
+        if mesh_plan is not None:
+            names = state["params"].keys()
+            state = {**state, "params": shard_params_tp(state["params"], mesh_plan),
+                     "opt_state": shard_params_tp(state["opt_state"], mesh_plan, names)}
+            if carry is not None:
+                carry = mesh_plan.local_rows(carry)
+        train_state.load_state_dict(state)
         if carry is not None:
             carry = {k: v.to(carry_template[k].device, carry_template[k].dtype)
                      for k, v in carry.items()}
         return train_state, meta, carry
+
+
+def _whole_session(train_state, carry, plan) -> tuple[dict, dict]:
+    """(state dict, carry) of the whole model and the global batch, on the
+    CPU: the tensor-parallel shards and the data ranks' carry rows gathered
+    (collectives: every rank calls this)."""
+    cpu = lambda t: t.detach().to("cpu", copy=True)
+    params = {k: p.detach() for k, p in train_state.params.items()}
+    opt = gather_params_tp(train_state.opt_state, plan, params.keys())
+    params = gather_params_tp(params, plan)
+    if carry is not None:
+        carry = plan.gather_rows({k: v.detach() for k, v in carry.items()})
+    state = {"params": {k: cpu(v) for k, v in params.items()},
+             "opt_state": tree_map(cpu, opt), "step": cpu(train_state.step)}
+    return state, carry

@@ -25,9 +25,28 @@ the difference), over either data source (``data.source`` "local", or
 whose tokenizer must be named by ``train.sp_model``).  ``train.debug`` turns
 on autograd's anomaly mode for the run and checks the carry at its end;
 ``train.profile_dir`` traces the run with ``torch.profiler`` (``debug.py``).
-Not ported yet, and raising: multi-process and multi-device training
-(``parallel/*``).  Where the JAX package reads
-``jax.process_index()``/``process_count()`` this loop is rank 0 of 1.
+
+Under ``torch.distributed`` (one process per GPU, ``parallel/distributed.py:
+initialize_distributed``) every rank runs this loop on a ``dp × mp`` mesh
+(``parallel/mesh.py``; ``mesh.data_parallel`` -1 is world // mp, and dp·mp
+must be the world), as the JAX loop runs under ``jax.distributed``:
+
+  * rank 0 makes the run directory (``shared_run_dir`` hands it to every
+    rank), saves the tokenizer and logs to the sinks;
+  * a data rank owns B/dp rows; only the first rank of each model group
+    reads data (its own local shard: files i ≡ d mod dp, or its own HTTP
+    session) and hands each recording batch to the other ranks of its group,
+    which train on the same rows; it alone marks batches done;
+  * K and the token padding U are agreed over every rank (``sync_int``);
+  * ``model_parallel > 1`` is tensor parallel (the gate projections cut to
+    the rank's columns; "auto" becomes "pallas", as in JAX), or, with
+    ``kernel_impl="sp"``, sequence parallel;
+  * checkpoints hold the whole model and the global-B carry (rank 0 writes
+    them); on resume each rank takes its shards and rows, so a run resumes
+    on another world size.
+
+One process trains unsharded whatever ``mesh`` says, as the JAX loop does
+when ``data_parallel`` exceeds its devices.
 """
 
 from __future__ import annotations
@@ -57,12 +76,16 @@ from statecatcher_tpu_torch.decode import keep_to_token_lists
 from statecatcher_tpu_torch.frontend import feat_dim as frontend_feat_dim
 from statecatcher_tpu_torch.metrics import (
     LossOutlierDetector,
+    MultiSink,
     StageTimer,
     ThroughputMeter,
     make_sinks,
     wer,
 )
 from statecatcher_tpu_torch.models.speech import build_speech_model
+from statecatcher_tpu_torch.ops import launch_counts
+from statecatcher_tpu_torch.parallel.distributed import shared_run_dir, sync_int, world_group
+from statecatcher_tpu_torch.parallel.mesh import make_mesh_plan, shard_model_tp
 from statecatcher_tpu_torch.tokenizer import CharTokenizer, load_tokenizer
 from statecatcher_tpu_torch.train.checkpoint import CheckpointManager, setup_run_dir
 from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
@@ -70,11 +93,12 @@ from statecatcher_tpu_torch.train.step import init_train_state, make_segment_sca
 logger = logging.getLogger("statecatcher.train")
 
 
-def _setup_logging(run_dir: str):
+def _setup_logging(run_dir: str, rank: int = 0):
     root = logging.getLogger("statecatcher")
     root.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    fh = logging.FileHandler(os.path.join(run_dir, "train.log"))
+    fh = logging.FileHandler(os.path.join(run_dir, "train.log" if rank == 0
+                                          else f"train.rank{rank}.log"))
     fh.setFormatter(fmt)
     root.addHandler(fh)
     if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
@@ -84,7 +108,9 @@ def _setup_logging(run_dir: str):
     return fh
 
 
-def build_dataset(cfg: Config):
+def build_dataset(cfg: Config, shard_index: int = 0, shard_count: int = 1):
+    """The data source of ``cfg``; a local directory is striped over
+    ``shard_count`` data ranks (files i ≡ ``shard_index``)."""
     if cfg.data.source == "local":
         if not cfg.data.local_dir:
             raise ValueError("data.source=local requires data.local_dir")
@@ -92,8 +118,8 @@ def build_dataset(cfg: Config):
             cfg.data.local_dir,
             batch_segment_strategy=cfg.data.batch_segment_strategy,
             batch_samplerate=cfg.data.batch_samplerate,
-            shard_index=0,
-            shard_count=1,
+            shard_index=shard_index,
+            shard_count=shard_count,
         )
     return SpeechDataset(
         config_path=cfg.data.config_path,
@@ -121,11 +147,18 @@ def build_tokenizer(cfg: Config):
     raise ValueError("train.sp_model is required for http data source")
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.mesh.data_parallel > 1 or cfg.mesh.model_parallel > 1:
-        raise NotImplementedError(
-            "data/model parallel meshes are not ported yet (parallel/mesh.py; ROADMAP.md, "
-            "multi-GPU); this loop trains on one device")
+def _mesh_plan(cfg: Config):
+    """The mesh of this process group, or None for one process (which trains
+    unsharded, as the JAX loop does when the mesh exceeds its devices)."""
+    world = world_group()
+    if world.size == 1:
+        return None
+    mp = max(1, cfg.mesh.model_parallel)
+    dp = cfg.mesh.data_parallel if cfg.mesh.data_parallel > 0 else world.size // mp
+    if dp * mp != world.size:
+        raise ValueError(f"multi-process training needs every rank in the mesh: "
+                         f"{dp}x{mp} over {world.size} ranks")
+    return make_mesh_plan(cfg.mesh, sequence_parallel=cfg.model.lucyrnn.kernel_impl == "sp")
 
 
 def train(
@@ -140,12 +173,19 @@ def train(
     ``initial_params``: a state_dict of the port's SpeechModel (for example
     ``convert.flax_to_torch`` of JAX parameters) to start from instead of
     the seeded initialisation.  ``device`` is where the model trains; a CUDA
-    device without a card raises.
+    device without a card raises.  In a process group
+    (``initialize_distributed``) every rank calls it with its own device; the
+    ``dataset`` given is read by the first rank of each model group.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
-    run_dir = setup_run_dir(cfg)
-    log_handler = _setup_logging(run_dir)
+    launches0 = launch_counts()
+    plan = _mesh_plan(cfg)
+    if plan is None:
+        run_dir = setup_run_dir(cfg)
+    else:
+        # one run directory for every rank
+        run_dir = shared_run_dir(setup_run_dir(cfg) if plan.is_primary else "")
+    log_handler = _setup_logging(run_dir, 0 if plan is None else plan.world.index)
     logger.info("Run directory: %s", run_dir)
     try:
         with contextlib.ExitStack() as stack:
@@ -154,44 +194,61 @@ def train(
                 stack.callback(debug.disable_debug)
             if cfg.train.profile_dir:
                 stack.enter_context(debug.profile(cfg.train.profile_dir))
-            summary, carry = _train(cfg, dataset, max_batches, initial_params, dev, run_dir)
+            summary, carry = _train(cfg, dataset, max_batches, initial_params, dev, run_dir,
+                                    plan)
         if cfg.train.debug and summary["global_step"] > 0:
+            if plan is not None:
+                carry = plan.gather_rows(carry)          # the global batch's carry
             B = cfg.data.batch_size
             n = debug.check_carry(carry, batch_size=B)
             logger.info("debug: check_carry passed (%d leaves finite, batch-major, B=%d)", n, B)
+        summary["kernel_launches"] = {k: n - launches0[k] for k, n in launch_counts().items()
+                                      if n > launches0[k]}
         return summary
     finally:
         logging.getLogger("statecatcher").removeHandler(log_handler)
         log_handler.close()
 
 
-def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> tuple:
-    """The body of ``train``: the summary dict and the last carry."""
+def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir, plan) -> tuple:
+    """The body of ``train``: the summary dict and this rank's last carry."""
+    primary = plan is None or plan.is_primary
+    # the first rank of each model group reads the data of its rows
+    reader = plan is None or plan.model.index == 0
     tokenizer = build_tokenizer(cfg)
     vocab_size = tokenizer.vocab_size
     blank_id = tokenizer.blank_id
     logger.info("Vocab size: %d (blank_id=%d)", vocab_size, blank_id)
-    if hasattr(tokenizer, "save"):
+    if hasattr(tokenizer, "save") and primary:
         # snapshot next to the checkpoints so eval/inference reconstructs the
         # exact token mapping
         tokenizer.save(os.path.join(run_dir, "tokenizer.json"))
 
     model_cfg = dataclasses.replace(cfg.model, vocab_size=vocab_size)
+    if plan is not None and plan.tensor_parallel and model_cfg.lucyrnn.kernel_impl == "auto":
+        # as in JAX: tensor-parallel runs keep the split path (K5)
+        model_cfg = dataclasses.replace(model_cfg, lucyrnn=dataclasses.replace(
+            model_cfg.lucyrnn, kernel_impl="pallas"))
     fdim = frontend_feat_dim(cfg.frontend)
     model = build_speech_model(model_cfg, fdim, cfg.train.mode, device=dev,
                                generator=torch.Generator().manual_seed(cfg.train.seed))
     if initial_params is not None:
         sd = {k: torch.as_tensor(np.asarray(v)) for k, v in initial_params.items()}
         model.load_state_dict(sd)                        # strict: names and shapes match
+    n_params = sum(p.numel() for p in model.parameters())
+    if plan is not None and plan.tensor_parallel:
+        shard_model_tp(model, plan)                      # this rank's gate columns
 
     sr = cfg.data.batch_samplerate
     target_samples = int(sr * cfg.data.target_duration)
-    B = cfg.data.batch_size
+    B = cfg.data.batch_size if plan is None else plan.local_batch(cfg.data.batch_size)
 
-    state = init_train_state(model, cfg)
-    n_params = sum(p.numel() for p in model.parameters())
-    logger.info("Model built: %s, feat_dim=%d, vocab=%d, params=%.2fM, device=%s",
-                model_cfg.encoder, fdim, vocab_size, n_params / 1e6, dev)
+    state = init_train_state(model, cfg, plan)
+    logger.info("Model built: %s, feat_dim=%d, vocab=%d, params=%.2fM, device=%s%s",
+                model_cfg.encoder, fdim, vocab_size, n_params / 1e6, dev,
+                "" if plan is None else f", mesh {plan.data_size}x{plan.model_size} "
+                f"({'sequence' if plan.sequence_parallel else 'tensor'} parallel model axis), "
+                f"{B} rows/rank")
 
     ckpt = CheckpointManager(run_dir)
     start_epoch = 0
@@ -201,7 +258,7 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
     resume_window = None      # metrics window at the checkpointed boundary
     if cfg.train.resume_from:
         prev = CheckpointManager(cfg.train.resume_from)
-        state, meta, resume_carry = prev.restore(state, model.init_state(B))
+        state, meta, resume_carry = prev.restore(state, model.init_state(B), plan)
         global_step = int(meta["global_step"])
         start_epoch = int(meta["epoch"])
         resume_cursor = meta.get("cursor")
@@ -211,16 +268,20 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                     "restored" if resume_carry is not None else "absent")
 
     train_step = make_segment_scan_step(model, cfg, blank_id=blank_id,
-                                        ctc_impl=cfg.train.ctc_impl)
+                                        ctc_impl=cfg.train.ctc_impl, mesh_plan=plan)
 
-    if dataset is None:
-        dataset = build_dataset(cfg)
-    dataset.start_session(
-        batch_size=B, order=cfg.data.order,
-        min_duration=cfg.data.min_duration, max_duration=cfg.data.max_duration,
-    )
+    if not reader:
+        dataset = None
+    elif dataset is None:
+        dataset = (build_dataset(cfg) if plan is None
+                   else build_dataset(cfg, plan.data.index, plan.data_size))
+    if dataset is not None:
+        dataset.start_session(
+            batch_size=B, order=cfg.data.order,
+            min_duration=cfg.data.min_duration, max_duration=cfg.data.max_duration,
+        )
 
-    sinks = make_sinks(logger, run_dir)
+    sinks = make_sinks(logger, run_dir) if primary else MultiSink([])
     sinks.set_params({
         "encoder": model_cfg.encoder, "frontend": cfg.frontend.kind,
         "mode": cfg.train.mode, "lr": cfg.train.optim.lr,
@@ -304,10 +365,11 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                             f"{cfg.train.hallucination_zscore:g})"
                         )
                         logger.warning(msg)
-                        try:
-                            dataset.log("WARNING", msg)
-                        except Exception:
-                            pass
+                        if dataset is not None:
+                            try:
+                                dataset.log("WARNING", msg)
+                            except Exception:
+                                pass
         if len(losses) >= cfg.train.log_every_n:
             with timer.time("metrics"):
                 last = group - 1
@@ -348,19 +410,40 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                 },
             },
             carry=carry,
+            mesh_plan=plan,
         )
 
     def to_device(x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, non_blocking=True)
 
-    pipe = BatchPipeline(
-        dataset, target_samples, num_workers=cfg.data.num_workers,
-        prefetch=cfg.data.prefetch_batches,
-    ).start()
+    pipe = None
+    if dataset is not None:
+        pipe = BatchPipeline(
+            dataset, target_samples, num_workers=cfg.data.num_workers,
+            prefetch=cfg.data.prefetch_batches,
+        ).start()
+
+    def fetch():
+        """The next recording batch; the model group's reader hands its
+        batch to the other ranks of the group."""
+        if plan is None or plan.model_size == 1:
+            return pipe.get()
+        if pipe is None:
+            got = plan.model.broadcast_object(None)
+            if isinstance(got, str):
+                raise RuntimeError(f"the model group's reader failed: {got}")
+            return got
+        try:
+            got = pipe.get()
+        except BaseException as e:
+            plan.model.broadcast_object(f"{type(e).__name__}: {e}")
+            raise
+        return plan.model.broadcast_object(got)
+
     try:
         while not stop:
             with timer.time("fetch"):
-                batch = pipe.get()
+                batch = fetch()
             if skip_batches > 0:
                 # resume replay: the checkpointed session already processed
                 # this batch; consume and discard to restore data position
@@ -380,6 +463,8 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                 break
 
             K = batch.num_segments(cfg.data.batch_segment_strategy)
+            # every rank must agree on the segment count of the global batch
+            K = sync_int(K, "min" if cfg.data.batch_segment_strategy == "clipping" else "max")
             n_rows = len(batch.audio_items)
             quarantined = np.zeros(B, bool)
 
@@ -472,7 +557,7 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                     # common token padding across the group, bucketed to 16
                     flat = [t for seg in g_tokens for t in seg]
                     U = max(max((len(t) for t in flat), default=1), 1)
-                    U = -(-U // 16) * 16
+                    U = sync_int(-(-U // 16) * 16, "max")
                     tokens = np.full((KG, B, U), blank_id, dtype=np.int32)
                     tgt_lens = np.zeros((KG, B), dtype=np.int32)
                     for gi, seg in enumerate(g_tokens):
@@ -511,9 +596,10 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
                 if cfg.train.steps and global_step >= cfg.train.steps:
                     stop = True
 
-            with timer.time("mark_done"):
-                dataset.mark_batch_done(epoch, batch.batch_id)
-            dataset.log("INFO", f"Completed batch {batch.batch_id} @ epoch {epoch}")
+            if dataset is not None:
+                with timer.time("mark_done"):
+                    dataset.mark_batch_done(epoch, batch.batch_id)
+                dataset.log("INFO", f"Completed batch {batch.batch_id} @ epoch {epoch}")
             n_batches += 1
             batches_done_total += 1
             if seg_idx >= K:
@@ -527,8 +613,9 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir) -> t
         if pending is not None:
             _resolve_metrics(pending)
             pending = None
-        pipe.stop()
-        dataset.end_session()
+        if pipe is not None:
+            pipe.stop()
+            dataset.end_session()
         save(prev_epoch if prev_epoch is not None else 0)
         sinks.close()
         logger.info("Stage timing: %s", timer.summary())

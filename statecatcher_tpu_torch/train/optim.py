@@ -64,14 +64,18 @@ def _bias_correction(moment: torch.Tensor, decay: float, count: torch.Tensor) ->
 
 
 class ClipByGlobalNorm:
-    def __init__(self, max_norm: float):
+    """``norm`` computes the global norm of a gradient dict (``global_norm``;
+    under tensor parallelism the norm over every rank's shard)."""
+
+    def __init__(self, max_norm: float, norm: Callable = global_norm):
         self.max_norm = max_norm
+        self.norm = norm
 
     def init(self, params):
         return {}
 
     def update(self, grads, state, params=None):
-        g_norm = global_norm(grads)
+        g_norm = self.norm(grads)
         trigger = g_norm < self.max_norm
         return tree_map(lambda t: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * self.max_norm),
                         grads), state
@@ -194,9 +198,9 @@ def lr_schedule(optim: OptimConfig):
     return fn
 
 
-def build_optimizer(optim: OptimConfig):
-    """adam | adamw | lion with the global-norm clip and optional
-    accumulation, as ``statecatcher_tpu/train/step.py:build_optimizer``."""
+def build_optimizer(optim: OptimConfig, norm: Callable = global_norm):
+    """adam | adamw | lion with the global-norm clip (of ``norm``) and
+    optional accumulation, as ``statecatcher_tpu/train/step.py:build_optimizer``."""
     lr = lr_schedule(optim)
     if optim.optimizer == "adamw":
         tx = Chain(ScaleByAdam(optim.beta1, optim.beta2),
@@ -208,7 +212,7 @@ def build_optimizer(optim: OptimConfig):
         tx = Chain(ScaleByAdam(), ScaleByLearningRate(lr))
     else:
         raise ValueError(f"Unknown optimizer {optim.optimizer!r}")
-    tx = Chain(ClipByGlobalNorm(optim.max_grad_norm), tx)
+    tx = Chain(ClipByGlobalNorm(optim.max_grad_norm, norm), tx)
     if optim.accumulation_steps > 1:
         tx = MultiSteps(tx, optim.accumulation_steps)
     return tx

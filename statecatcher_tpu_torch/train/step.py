@@ -35,6 +35,21 @@ Port of ``statecatcher_tpu/train/step.py`` (``_make_step_body``,
 Unlike JAX's pure functions, the step updates the model's parameters and the
 optimizer state in place (``TrainState``), which saves a copy of each.
 
+With a ``mesh_plan`` (``parallel/mesh.py``; every rank runs the same step on
+its own rows, the counterpart of the JAX step's shardings):
+
+  * data parallelism: the loss is JAX's global ``row_valid``-masked mean:
+    the denominator is all-reduced over the data group before backward, and
+    the gradients are summed over it afterwards, with the loss, in one flat
+    bucket per dtype (a mean of local means would be another function
+    whenever the ranks hold different numbers of valid rows);
+  * tensor parallelism: the step runs inside ``tensor_parallel`` (the
+    LucyRNN cells on the rank's columns); the global norm, and so the clip
+    and the non-finite skip, sum the squares of the sharded leaves over the
+    model group and count the replicated ones once;
+  * sequence parallelism (``kernel_impl="sp"``): the step runs inside
+    ``sequence_parallel_scans`` (JAX's ``_maybe_sequence_parallel``).
+
 ``make_segment_scan_step`` runs the K segments of a group in a loop with the
 carry threaded through; ``seg_valid`` (a host array: the loop builds it)
 skips padded segments, and the outputs are stacked over K.
@@ -42,6 +57,7 @@ skips padded segments, and the outputs are stacked over K.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -60,6 +76,9 @@ from statecatcher_tpu_torch.ops.ctc import ctc_loss_per_example
 from statecatcher_tpu_torch.ops.rnnt import rnnt_loss_fused
 from statecatcher_tpu_torch.ops.rnnt_band import rnnt_loss_banded
 from statecatcher_tpu_torch.ops.rnnt_joint import rnnt_loss_pallas
+from statecatcher_tpu_torch.ops.scan_sp import sequence_parallel_scans
+from statecatcher_tpu_torch.parallel.distributed import RankGroup, psum_scalar
+from statecatcher_tpu_torch.parallel.mesh import tensor_parallel
 from statecatcher_tpu_torch.train.optim import (
     build_optimizer,
     global_norm,
@@ -121,12 +140,16 @@ class TrainState:
         self.step = sd["step"].to(dev)
 
 
-def init_train_state(model: torch.nn.Module, cfg: Config) -> TrainState:
+def init_train_state(model: torch.nn.Module, cfg: Config, mesh_plan=None) -> TrainState:
     """The optimizer of ``cfg.train.optim`` over ``model``'s parameters (the
-    model's own initialisation stands for the JAX package's dummy forward;
-    in RNN-T mode the joiner's parameters are among them)."""
+    model's own initialisation stands for the JAX package's dummy forward,
+    so no forward runs and no one-rank sequence-parallel context is needed;
+    in RNN-T mode the joiner's parameters are among them).  Under tensor
+    parallelism ``model`` holds this rank's shards and the clip takes the
+    plan's global norm."""
     _check_mode(cfg)
-    return TrainState(model, build_optimizer(cfg.train.optim))
+    norm = global_norm if mesh_plan is None else mesh_plan.global_norm
+    return TrainState(model, build_optimizer(cfg.train.optim, norm))
 
 
 def _check_mode(cfg: Config) -> None:
@@ -157,11 +180,48 @@ def resolve_rnnt_impl(impl: str, on_cuda: bool) -> str:
     return impl
 
 
-def _no_mesh(mesh_plan) -> None:
-    if mesh_plan is not None:
-        raise NotImplementedError(
-            "mesh plans (data, tensor and sequence parallelism) are not ported yet "
-            "(parallel/mesh.py, parallel/distributed.py: multi-GPU in ROADMAP.md)")
+@contextlib.contextmanager
+def mesh_context(cfg: Config, mesh_plan):
+    """The plan's tensor-parallel context and, for ``kernel_impl="sp"``, its
+    sequence-parallel one (JAX's ``_maybe_sequence_parallel``: without a
+    plan "sp" raises)."""
+    with contextlib.ExitStack() as stack:
+        if mesh_plan is not None:
+            stack.enter_context(tensor_parallel(mesh_plan))
+            if cfg.model.lucyrnn.kernel_impl == "sp":
+                stack.enter_context(sequence_parallel_scans(mesh_plan, cfg.mesh.sequence_axis))
+        yield
+
+
+def _in_mesh(step_fn, cfg: Config, mesh_plan):
+    """``step_fn`` run inside ``mesh_context``."""
+    if mesh_plan is None:
+        return step_fn
+
+    def wrapped(*args):
+        with mesh_context(cfg, mesh_plan):
+            return step_fn(*args)
+
+    return wrapped
+
+
+def _sum_bucket(grads: dict, loss: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Sum ``grads`` (in place of its entries) and ``loss`` over ``group``:
+    one flat all-reduce per dtype.  Returns the summed loss."""
+    named = {**grads, None: loss.reshape(1)}
+    by_dtype: dict = {}
+    for k, t in named.items():
+        by_dtype.setdefault(t.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = group.all_reduce(torch.cat([named[k].reshape(-1) for k in keys]))
+        o = 0
+        for k in keys:
+            n = named[k].numel()
+            named[k] = flat[o:o + n].view_as(named[k])
+            o += n
+    for k in grads:
+        grads[k] = named[k]
+    return named[None].reshape(())
 
 
 def _pred_shape(audio: torch.Tensor, cfg: Config) -> tuple[int, int]:
@@ -172,27 +232,35 @@ def _pred_shape(audio: torch.Tensor, cfg: Config) -> tuple[int, int]:
     return (audio.shape[0], T)
 
 
-def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
+def segment_features(audio: torch.Tensor, sample_mask: torch.Tensor, cfg: Config):
+    """One segment's (features, frame mask, frame lengths ≥ 1) as the step
+    computes them: int16 audio de-quantised on the device (÷ 32767.0); a
+    (B,) sample mask is a prefix length, a (B, S) one is pooled."""
+    stack_order = max(1, cfg.model.stack_order)
+    S = audio.shape[-1]
+    if audio.dtype == torch.int16:
+        audio = audio.to(torch.float32) / 32767.0
+    with torch.no_grad():
+        feats = compute_features(audio, cfg.frontend)
+    T = feats.shape[1]
+    if sample_mask.ndim == 1:
+        frame_mask, in_lens = frame_mask_from_lens(sample_mask, S, T, stack_order)
+    else:
+        frame_mask, in_lens = compute_frame_mask(sample_mask, T, stack_order)
+    return feats, frame_mask, torch.clamp(in_lens, min=1)
+
+
+def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str, mesh_plan=None):
     """The single-segment step body shared by both step makers."""
     _check_mode(cfg)
+    data = mesh_plan.data if mesh_plan is not None and mesh_plan.data_size > 1 else None
+    norm = global_norm if mesh_plan is None else mesh_plan.global_norm
     rnnt = cfg.train.mode == "rnnt"
-    fe = cfg.frontend
-    stack_order = max(1, cfg.model.stack_order)
     skip_above = cfg.train.skip_loss_above
     gate_ok = cfg.train.skip_nonfinite_updates or skip_above is not None
 
     def step(state: TrainState, carry, audio, sample_mask, tokens, tok_lens, row_valid):
-        S = audio.shape[-1]
-        if audio.dtype == torch.int16:
-            audio = audio.to(torch.float32) / 32767.0
-        with torch.no_grad():
-            feats = compute_features(audio, fe)
-        T = feats.shape[1]
-        if sample_mask.ndim == 1:
-            frame_mask, in_lens = frame_mask_from_lens(sample_mask, S, T, stack_order)
-        else:
-            frame_mask, in_lens = compute_frame_mask(sample_mask, T, stack_order)
-        in_lens = torch.clamp(in_lens, min=1)
+        feats, frame_mask, in_lens = segment_features(audio, sample_mask, cfg)
         carry_in = {k: v.detach() for k, v in carry.items()}
 
         for p in state.params.values():
@@ -203,10 +271,10 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
             logits, new_state, proj = state.model(feats, carry_in, frame_mask,
                                                   make_prefix(tokens, blank_id))
             if impl == "pallas" and band > 0:
-                loss, per = rnnt_loss_banded(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
-                                             row_valid=row_valid,
-                                             time_block=cfg.train.rnnt_time_block, band=band,
-                                             return_per=True)
+                loss, per, valid = rnnt_loss_banded(
+                    *proj, tokens, in_lens, tok_lens, blank_id=blank_id, row_valid=row_valid,
+                    time_block=cfg.train.rnnt_time_block, band=band, return_per=True,
+                    return_valid=True)
             elif impl == "pallas":
                 loss, per = rnnt_loss_pallas(*proj, tokens, in_lens, tok_lens, blank_id=blank_id,
                                              row_valid=row_valid, return_per=True)
@@ -215,12 +283,19 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
                                             row_valid=row_valid,
                                             time_chunk=cfg.train.rnnt_time_chunk,
                                             return_per=True)
+            if not (impl == "pallas" and band > 0):
+                valid = row_valid.to(per.dtype)
         else:
             logits, new_state = state.model(feats, carry_in, frame_mask)
             per = ctc_loss_per_example(logits, in_lens, tokens, tok_lens, blank_id=blank_id,
                                        impl=ctc_impl)
             valid = row_valid.to(per.dtype)
             loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        if data is not None:
+            # the global masked mean: this rank's numerator over every rank's rows
+            den = psum_scalar(valid.sum().detach(), data)
+            loss = (per * valid).sum() / torch.clamp(den, min=1.0)
+        if not rnnt:
             # the hallucination filter wants the TOTAL per-utterance NLL (the
             # transducer's per-row NLL already is one)
             per = per * torch.clamp(tok_lens, min=1).to(per.dtype)
@@ -228,9 +303,11 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
         per_loss = per.detach().to(torch.float32)
         grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
                  for k, p in state.params.items()}
-        grad_norm = global_norm(grads)
-
         loss = loss.detach()
+        if data is not None:
+            loss = _sum_bucket(grads, loss, data)
+        grad_norm = norm(grads)
+
         if gate_ok:
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
             if skip_above is not None:
@@ -253,9 +330,9 @@ def _make_step_body(model, cfg: Config, blank_id: int, ctc_impl: str):
 def make_train_step(model, cfg: Config, blank_id: int = 0, mesh_plan=None,
                     ctc_impl: str = "lattice"):
     """``(state, carry, audio, sample_mask, tokens, tok_lens, row_valid) →
-    (state, carry, StepOutput)`` for one segment."""
-    _no_mesh(mesh_plan)
-    return _make_step_body(model, cfg, blank_id, ctc_impl)
+    (state, carry, StepOutput)`` for one segment; with ``mesh_plan`` on this
+    rank's rows (the loss and grad norm are global)."""
+    return _in_mesh(_make_step_body(model, cfg, blank_id, ctc_impl, mesh_plan), cfg, mesh_plan)
 
 
 def make_segment_scan_step(model, cfg: Config, blank_id: int = 0, mesh_plan=None,
@@ -266,9 +343,10 @@ def make_segment_scan_step(model, cfg: Config, blank_id: int = 0, mesh_plan=None
     tokens (K, B, U), tok_lens (K, B), row_valid (K, B); ``seg_valid`` (K,)
     is a host bool array (a tensor is brought to the host): a False segment
     leaves state and carry untouched and outputs zeros.  Returns
-    (state, carry, StepOutput with every field stacked over K)."""
-    _no_mesh(mesh_plan)
-    base_step = _make_step_body(model, cfg, blank_id, ctc_impl)
+    (state, carry, StepOutput with every field stacked over K).  With
+    ``mesh_plan`` every rank calls it on its own rows (B/dp), the carry full
+    width under tensor parallelism."""
+    base_step = _make_step_body(model, cfg, blank_id, ctc_impl, mesh_plan)
 
     def batch_step(state, carry, audio, sample_mask, tokens, tok_lens, row_valid, seg_valid):
         if isinstance(seg_valid, torch.Tensor):
@@ -295,4 +373,4 @@ def make_segment_scan_step(model, cfg: Config, blank_id: int = 0, mesh_plan=None
                                for i in range(len(StepOutput._fields))))
         return state, carry, stacked
 
-    return batch_step
+    return _in_mesh(batch_step, cfg, mesh_plan)

@@ -1839,3 +1839,84 @@ def test_beam_searches_on_card_match_cpu(cuda_device, forced):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
         else:
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_every_kernel_on_the_second_card(cuda_device):
+    """Each kernel wrapper launched on tensors of cuda:1 (the current device
+    left at cuda:0) against its plain version: a multi-GPU rank trains on
+    cuda:LOCAL_RANK.  Each kernel runs its first case of the single-card
+    tests above, on the second card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from statecatcher_tpu_torch.ops import launch_counts
+
+    dev = torch.device("cuda", 1)
+    before = launch_counts()
+    with torch.cuda.device(0):
+        test_kernel_matches_plain_f32(dev, 2, 45, 128)                          # K1
+        test_bwd_kernel_matches_plain_f32(dev, 2, 45, 128, True)                # K2
+        test_ctc_kernels_match_plain(dev, 3, 50, 8, 20)                         # K3, K4
+        test_linear_scan_kernels_match_plain(dev, 2, 45, 128, torch.float32)    # K5a, K5b
+        test_rnnt_joint_kernels_match_plain(dev, 3, 45, 11, 40, 150, 5)         # K6a, K6b
+        test_rnnt_lattice_kernels_match_plain(dev, *RNNT_LATTICE_CASES[0])      # K7a, K7b
+        test_band_kernels_match_plain(dev, 3, 45, 40, 40, 150, 8, 8, 5)         # K8a, K8b
+        test_band_lattice_kernels_match_plain(dev, *BAND_LATTICE_CASES[0])      # banded α, β
+        test_mlstm_fused_kernels_match_plain_f32(dev, *MLSTM_SHAPES[0])         # K9a
+        test_mlstm_bwd_kernel_matches_plain(dev, *K9B_SHAPES[0], torch.float32)  # K9b
+        test_mlstm_pallas_kernel_matches_plain(dev, 2, 45, 2, 16, 16, 16)       # K10
+        test_fused_cell_kernel_matches_plain(dev, 2, 45, 128, torch.float32, True)  # K12
+        test_dual_scan_kernel_matches_plain(dev, 2, 45, 128, torch.float32)     # K11
+    ran = {k for k, n in launch_counts().items() if n > before[k]}
+    assert ran == set(before), f"not launched on cuda:1: {sorted(set(before) - ran)}"
+
+
+@pytest.fixture
+def one_rank_nccl(cuda_device):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield torch.device("cuda", 0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sp_scan_in_a_one_rank_nccl_group_is_k5a(one_rank_nccl):
+    """The sequence-parallel scan (ops/scan_sp.py) in a one-rank NCCL group:
+    its shard is the whole segment, scanned by K5a from the zero state, and
+    the exchange (an all_gather, and an all_reduce in backward) runs through
+    NCCL.  From s0 = 0 it is K5a bit for bit; from any s0 it is K5a to
+    float32 round-off, forward and backward (K5b)."""
+    from statecatcher_tpu_torch.config import MeshConfig
+    from statecatcher_tpu_torch.ops.lucy_pallas import linear_scan_fwd, linear_scan_pallas
+    from statecatcher_tpu_torch.ops.scan import linear_scan
+    from statecatcher_tpu_torch.ops.scan_sp import sequence_parallel_scans
+    from statecatcher_tpu_torch.parallel.mesh import make_mesh_plan
+
+    dev = one_rank_nccl
+    plan = make_mesh_plan(MeshConfig())
+    assert plan.model.pg is not None                      # the collectives run through NCCL
+    gen = torch.Generator().manual_seed(3)
+    B, T, D = 4, 300, 512
+    a = (0.5 + 0.5 * torch.rand(B, T, D, generator=gen)).to(dev)
+    b = torch.randn(B, T, D, generator=gen).to(dev)
+    s0 = torch.randn(B, D, generator=gen).to(dev)
+    zero = torch.zeros_like(s0)
+    n0 = linear_scan_fwd.launches
+    with sequence_parallel_scans(plan):
+        assert torch.equal(linear_scan(a, b, zero, impl="sp"), linear_scan_fwd(a, b, zero))
+        assert linear_scan_fwd.launches == n0 + 2
+        xs = [x.clone().requires_grad_() for x in (a, b, s0)]
+        got = linear_scan(*xs, impl="sp")
+        w = torch.randn(B, T, D, generator=gen).to(dev)
+        (got * w).sum().backward()
+    assert plan.model.stats["all_gather"] > 0 and plan.model.stats["all_reduce"] > 0
+    ys = [x.clone().requires_grad_() for x in (a, b, s0)]
+    want = linear_scan_pallas(*ys)
+    (want * w).sum().backward()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for x, y, name in zip(xs, ys, ("a", "b", "s0")):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4, msg=name)

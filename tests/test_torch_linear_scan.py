@@ -31,13 +31,17 @@ from jax.experimental.pallas import tpu as pltpu
 
 from statecatcher_tpu.ops.lucy_pallas import _linear_scan_pallas_fwd_impl as j_pallas_fwd
 from statecatcher_tpu.ops.lucy_pallas import _linear_scan_pallas_rev_impl as j_pallas_rev
+from statecatcher_tpu.ops.scan import linear_scan as j_linear_scan
 from statecatcher_tpu.ops.scan import linear_scan_seq as j_scan
+from statecatcher_tpu_torch.config import MeshConfig
 from statecatcher_tpu_torch.ops.lucy_pallas import (
     linear_scan_pallas,
     linear_scan_rev,
     linear_scan_rev_ref,
 )
 from statecatcher_tpu_torch.ops.scan import linear_scan, linear_scan_seq
+from statecatcher_tpu_torch.ops.scan_sp import sequence_parallel_scans
+from statecatcher_tpu_torch.parallel.mesh import make_mesh_plan
 from test_torch_cuda import single_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
@@ -109,11 +113,22 @@ def test_bfloat16_carries_float32_and_rounds_its_output():
 
 
 def test_linear_scan_dispatch():
+    """Every scan algorithm is K5; "sp" is the sequence-parallel scan, which
+    outside a ``sequence_parallel_scans`` context raises JAX's RuntimeError
+    and in a one-rank context is K5 to round-off (its shard scanned from
+    zero, then the entry state applied through the decay products)."""
     a, b, s0, _ = _scan_data(7, 2, 11, 3)
     xs = list(map(torch.from_numpy, (a, b, s0)))
     want = linear_scan_pallas(*xs)
-    for impl in ("auto", "assoc", "chunked", "xla-scan", "pallas", "sp"):
+    for impl in ("auto", "assoc", "chunked", "xla-scan", "pallas"):
         assert torch.equal(linear_scan(*xs, impl=impl), want)
+    with pytest.raises(RuntimeError) as got:
+        linear_scan(*xs, impl="sp")
+    with pytest.raises(RuntimeError) as jax_error:
+        j_linear_scan(*(jnp.asarray(x) for x in (a, b, s0)), impl="sp")
+    assert str(got.value) == str(jax_error.value)
+    with sequence_parallel_scans(make_mesh_plan(MeshConfig())):
+        torch.testing.assert_close(linear_scan(*xs, impl="sp"), want, rtol=1e-10, atol=1e-12)
     with pytest.raises(ValueError):
         linear_scan(*xs, impl="bogus")
 

@@ -17,12 +17,15 @@ import torch
 
 import statecatcher_tpu.ops.lucy_fused_lm as jlm
 from statecatcher_tpu.ops.lucy_pallas import lucy_gate_coeffs as j_gate_coeffs
+from statecatcher_tpu_torch.config import MeshConfig
 from statecatcher_tpu_torch.models.lucyrnn import cell_route, lucy_cell_parallel
 from statecatcher_tpu_torch.ops.lucy_fused_lm import (
     lucy_cell_fused_lm,
     lucy_cell_fused_lm_ref,
 )
 from statecatcher_tpu_torch.ops.lucy_gates import lucy_gate_coeffs
+from statecatcher_tpu_torch.ops.scan_sp import sequence_parallel_scans
+from statecatcher_tpu_torch.parallel.mesh import make_mesh_plan
 from test_torch_cuda import assert_cell_close, cell_data
 
 
@@ -102,15 +105,25 @@ def test_cell_route_sends_every_scan_to_the_kernel_on_cuda(impl):
 
 @pytest.mark.parametrize("impl", ["pallas-dual", "pallas-fused", "auto-fused", "sp"])
 def test_cell_route_raises_for_unported_impls_on_cuda(impl):
-    """Only "sp" (multi-GPU) is left unported: it raises on the card.  The
-    fused masked cell K12 ("pallas-fused", "auto-fused") and the dual scan
-    K11 ("pallas-dual") take their own routes, masked or not, on both
-    devices."""
+    """No kernel_impl is left unported, on either device.  "sp" takes the
+    split path with both scans sequence-parallel, as JAX's
+    ``lucy_cell_parallel`` does: outside a ``sequence_parallel_scans``
+    context it raises JAX's RuntimeError, and in a one-rank context it is
+    the plain split path to float64 round-off.  The fused masked cell K12
+    ("pallas-fused", "auto-fused") and the dual scan K11 ("pallas-dual")
+    take their own routes, masked or not, on both devices."""
     if impl == "sp":
-        assert cell_route(impl, on_cuda=False, masked=False) == "fused"
-        assert cell_route(impl, on_cuda=False, masked=True) == "split"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cell_route(impl, on_cuda=True, masked=False)
+        for on_cuda in (False, True):
+            for masked in (False, True):
+                assert cell_route(impl, on_cuda=on_cuda, masked=masked) == "split"
+        gates, bias, h0, s0 = map(torch.from_numpy, cell_data(5, 2, 19, 8, np.float64))
+        with pytest.raises(RuntimeError, match="sequence_parallel_scans"):
+            lucy_cell_parallel(gates, h0, s0, impl="sp", bias=bias)
+        with sequence_parallel_scans(make_mesh_plan(MeshConfig())):
+            got = lucy_cell_parallel(gates, h0, s0, impl="sp", bias=bias)
+        want = lucy_cell_parallel(gates, h0, s0, impl="pallas", bias=bias)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
     else:
         want = "dual" if impl == "pallas-dual" else "k12"
         for on_cuda in (False, True):

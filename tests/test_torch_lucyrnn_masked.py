@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from statecatcher_tpu.models.lucyrnn import lucy_cell_parallel as j_cell
+from statecatcher_tpu_torch.config import MeshConfig
 from statecatcher_tpu_torch.models.lucyrnn import cell_route, lucy_cell_parallel
+from statecatcher_tpu_torch.ops.scan_sp import sequence_parallel_scans
+from statecatcher_tpu_torch.parallel.mesh import make_mesh_plan
 from test_torch_cuda import cell_data, conditioned_cell_data, single_torch_thread  # noqa: F401
 from test_torch_train_step import check_lockstep
 
@@ -79,12 +82,23 @@ def test_masked_ctc_step_matches_jax_in_lockstep(monkeypatch):
 def test_cell_route_on_the_card(impl):
     """On the card a frame mask takes the split path (K5) for every scan
     algorithm, "pallas" always does; "pallas-fused"/"auto-fused" take K12
-    and "pallas-dual" K11, masked or not; "sp", whose kernel is not ported,
-    raises."""
+    and "pallas-dual" K11, masked or not; "sp" takes the split path with its
+    scans sequence-parallel: masked, outside a ``sequence_parallel_scans``
+    context it raises JAX's RuntimeError, and in a one-rank context it is
+    the plain split path (here on the CPU, to float64 round-off)."""
     if impl == "sp":
         for masked in (False, True):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cell_route(impl, on_cuda=True, masked=masked)
+            assert cell_route(impl, on_cuda=True, masked=masked) == "split"
+        B, T, D = 3, 21, 8
+        gates, bias, h0, s0 = map(torch.from_numpy, cell_data(7, B, T, D, np.float64))
+        mask = torch.from_numpy(_mask(B, T))
+        with pytest.raises(RuntimeError, match="sequence_parallel_scans"):
+            lucy_cell_parallel(gates, h0, s0, impl="sp", bias=bias, frame_mask=mask)
+        with sequence_parallel_scans(make_mesh_plan(MeshConfig())):
+            got = lucy_cell_parallel(gates, h0, s0, impl="sp", bias=bias, frame_mask=mask)
+        want = lucy_cell_parallel(gates, h0, s0, impl="pallas", bias=bias, frame_mask=mask)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
         return
     if impl in ("pallas-dual", "pallas-fused", "auto-fused"):
         for masked in (False, True):
