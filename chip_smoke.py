@@ -2606,14 +2606,24 @@ def phase_host_side(dev) -> dict:
 
 
 # phase 33's kernels: its K1/K2 (data parallel, "auto") and K5a/K5b (tensor
-# and sequence parallel, "pallas" and "sp") per segment and layer, K3/K4 per
-# segment, on every rank
+# and sequence parallel, "pallas" and "sp") per segment and layer; the
+# xLSTM's K9a/K9b ("auto") or K10 ("pallas") per segment and block on each
+# rank's head; K3/K4 per segment, on every rank (the LSTM and the RWKV have
+# no kernel but K3/K4)
 MULTI_GPU_KERNELS = {"dp": {"lucy_cell_fused_lm": 1, "lucy_cell_fused_lm_bwd": 1,
                             "ctc_alpha": 0, "ctc_beta": 0},
                      "tp": {"linear_scan_fwd": 2, "linear_scan_rev": 2, "ctc_alpha": 0,
                             "ctc_beta": 0},
                      "sp": {"linear_scan_fwd": 2, "linear_scan_rev": 2, "ctc_alpha": 0,
-                            "ctc_beta": 0}}
+                            "ctc_beta": 0},
+                     "xlstm auto": {"mlstm_fused_fwd": 1, "mlstm_fused_bwd": 1, "ctc_alpha": 0,
+                                    "ctc_beta": 0},
+                     "xlstm pallas": {"mlstm_pallas_fwd": 1, "ctc_alpha": 0, "ctc_beta": 0},
+                     "lstm": {"ctc_alpha": 0, "ctc_beta": 0},
+                     "rwkv": {"ctc_alpha": 0, "ctc_beta": 0}}
+# phase 33's xLSTM: the flagship's widths with d_ff 1364 (the default
+# ffn_proj_factor's 1365 divides over no model_parallel: JAX refuses it too)
+XLSTM_TP = XLSTM + ["--model.xlstm.ffn_proj_factor", "2.666"]
 RANK_TIMEOUT_S = 240.0
 
 
@@ -2679,25 +2689,15 @@ def check_against_one_process(tag, got, ref, p0, lr, K) -> str:
             f"by {rel:.2e} of their norm, {off:.2e} of elements beyond 0.1·lr·K")
 
 
-def phase_multi_gpu(cfg, dev, K=2, B=32, S=16 * 16000, U=128, seconds=48.0, target=16) -> dict:
-    """Phase 33: multi-GPU training.  ``parallel/dryrun.py`` on ``world``
-    ranks (torchrun's environment) runs one group of K carried 16 s segments
-    at B=32 global (U=128, row 31, one rank's row, invalid) from the same
-    random weights (gate projections ×0.1, lr 1e-6) in three modes: (a) data
-    parallel over every rank ("auto": K1/K2), (b) tensor parallel with mp=2
-    ("pallas": K5a/K5b on each rank's columns), (c) sequence parallel over 2
-    ranks ("sp": K5a/K5b on each time shard); each held against one process
-    on the card over the same global batch, at phase 5's tolerances.  Then
-    (d) the CLI on 2 ranks with ``--mesh.data_parallel 2`` on phase 7's
-    fixture: two dispatches and a checkpoint (losses against phase 7's one
-    process), a 2-rank resume from it and a 1-process resume from the
-    2-rank checkpoint (equal losses).  Returns each kernel's launches,
-    summed over the ranks of (a)–(d)."""
-    t_phase = time.perf_counter()
-    world, backend, device = multi_gpu_layout()
-    log(f"[multi-gpu] backend {backend}, world {world} rank(s), --device {device}, "
-        f"{torch.cuda.device_count()} card(s) ({CARD})")
-    cfg = cfg.apply_overrides(["--train.optim.lr", "1e-6"])
+def multi_gpu_job(tag, overrides, modes, refs, K, B=32, S=16 * 16000, U=128,
+                  time_runs=1) -> dict:
+    """One model's modes of phase 33's launch: its random weights (gate
+    projections ×0.1, lr 1e-6) and one group of K carried 16 s segments at B
+    global (U tokens, row B-1, one rank's row, invalid), ``modes`` [(name,
+    overrides)] to run the step under, each later held against one process
+    on the card whose model overrides are ``refs[name]``."""
+    overrides = overrides + ["--train.optim.lr", "1e-6"]
+    cfg = Config().apply_overrides(overrides)
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device="cpu",
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1, gate_weight_scale=0.1)
@@ -2707,49 +2707,103 @@ def phase_multi_gpu(cfg, dev, K=2, B=32, S=16 * 16000, U=128, seconds=48.0, targ
         ("audio", "mask", "tokens", "tok_lens", "row_valid"),
         train_group(np.random.default_rng(SEED + 6), K, B, S, U, cfg.model.vocab_size, "cpu"))}
     group["seg_valid"] = np.ones(K, bool)
-    dp_half = str(world // 2)
-    modes = [("dp", ["--mesh.data_parallel", str(world)]),
-             ("tp", ["--mesh.data_parallel", dp_half, "--mesh.model_parallel", "2",
-                     "--model.lucyrnn.kernel_impl", "pallas"]),
-             ("sp", ["--mesh.data_parallel", dp_half, "--mesh.model_parallel", "2",
-                     "--model.lucyrnn.kernel_impl", "sp"])]
+    return {"tag": tag, "cfg": cfg, "modes": modes, "refs": refs, "K": K, "B": B,
+            "time_runs": time_runs,
+            "inputs": {"overrides": overrides, "params": params, "group": group,
+                       "time_runs": time_runs}}
+
+
+def multi_gpu_launch(jobs, world, backend, device, dev, d, launches) -> list:
+    """``parallel/dryrun.py`` on ``world`` ranks (torchrun's environment),
+    one launch for every mode of ``jobs`` (``multi_gpu_job``); then each mode
+    on every rank against one process over the same batch at phase 5's
+    tolerances, and each rank's launches of each kernel of
+    ``MULTI_GPU_KERNELS[name]`` exactly so often.  Adds the ranks' launches
+    to ``launches``; returns each rank's results."""
+    stem = os.path.join(d, "dryrun")
+    torch.save({"modes": [(name, ov, job["inputs"]) for job in jobs for name, ov in job["modes"]]},
+               stem + ".in.pt")
+    t0 = time.perf_counter()
+    launch(world, ["--inputs", stem + ".in.pt", "--out", stem + ".out", "--backend", backend,
+                   "--device", device], "statecatcher_tpu_torch.parallel.dryrun",
+           "[multi-gpu dryrun]")
+    t_dry = time.perf_counter() - t0
+    ranks = [torch.load(f"{stem}.out.rank{r}.pt", weights_only=False) for r in range(world)]
+    for job in jobs:
+        tag, cfg, K, params = job["tag"], job["cfg"], job["K"], job["inputs"]["params"]
+        ref_of: dict = {}
+        for name, _ in job["modes"]:
+            key = tuple(job["refs"][name])
+            if key not in ref_of:
+                ref_of[key] = multi_gpu_reference(cfg.apply_overrides(job["refs"][name]), dev,
+                                                  params, job["inputs"]["group"], K, job["B"])
+            for r, res in enumerate(ranks):
+                got = res[name]
+                verdict = check_against_one_process(f"{tag} {name} rank {r}", got, ref_of[key],
+                                                    params, 1e-6, K)
+                want = {k: (n_layers(cfg) * per if per else 1) * K
+                        for k, per in MULTI_GPU_KERNELS[name].items()}
+                if {k: got["launches"].get(k, 0) for k in want} != want:
+                    raise AssertionError(f"{tag} {name} rank {r} launches {got['launches']}; "
+                                         f"want {want}")
+                for k, n in got["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+                dp_, mp_, _ = got["plan"]
+                timed = (f"{got['ms_per_segment']:.1f} ms per segment (first run "
+                         f"{got['ms_per_segment_first']:.1f})" if job["time_runs"] else
+                         f"{got['ms_per_segment_first']:.1f} ms per segment (first run)")
+                log(f"{tag} {name}: rank {r} of {dp_}x{mp_} on {res['topology']['device']} "
+                    f"over {res['topology']['backend']}: {timed}, "
+                    f"{got['allreduce_bytes_per_update'] / 2**20:.2f} MiB all-reduced over the "
+                    f"data group per update, {got['model_group_bytes_per_update'] / 2**20:.2f} "
+                    f"MiB over the model group; launches {got['launches']}; vs one process: "
+                    f"{verdict} ({CARD})")
+    n_modes = sum(len(job["modes"]) for job in jobs)
+    log(f"[multi-gpu] dryrun of {n_modes} modes of {len(jobs)} models in one launch on {world} "
+        f"ranks: {t_dry:.1f} s ({CARD})")
+    return ranks
+
+
+def phase_multi_gpu(dev, K=2, B=32, seconds=48.0, target=16) -> dict:
+    """Phase 33: multi-GPU training, one ``multi_gpu_launch`` on max(2,
+    cards) ranks (two on cuda:0 over gloo with one card; NCCL, a card a rank,
+    with more) in seven modes: the flagship LucyRNN (a) data parallel over every
+    rank ("auto": K1/K2), (b) tensor parallel with mp=2 ("pallas": K5a/K5b on
+    each rank's columns), (c) sequence parallel over 2 ranks ("sp": K5a/K5b
+    on each time shard); (e) the xLSTM at the flagship's widths (E=512, 2
+    heads, 3 blocks, d_ff 1364) tensor parallel with mp=2 through "auto"
+    (K9a/K9b on each rank's head) and "pallas" (K10 on it); (f) the LSTM and
+    the RWKV (4 × 512) tensor parallel with mp=2, replicated (one segment
+    each).  Then (d) the CLI on 2 ranks with ``--mesh.data_parallel 2`` on
+    phase 7's fixture: two dispatches and a checkpoint (losses against phase
+    7's one process), a 2-rank resume from it and a 1-process resume from
+    the 2-rank checkpoint (equal losses).  Returns each kernel's launches,
+    summed over the ranks of (a)–(f)."""
+    t_phase = time.perf_counter()
+    world, backend, device = multi_gpu_layout()
+    log(f"[multi-gpu] backend {backend}, world {world} rank(s), --device {device}, "
+        f"{torch.cuda.device_count()} card(s) ({CARD})")
     d = os.path.join(WORK, "multi_gpu")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    torch.save({"overrides": FLAGSHIP + ["--train.optim.lr", "1e-6"], "params": params,
-                "group": group, "modes": modes}, os.path.join(d, "in.pt"))
-    t0 = time.perf_counter()
-    launch(world, ["--inputs", os.path.join(d, "in.pt"), "--out", os.path.join(d, "out"),
-                   "--backend", backend, "--device", device, "--time-runs", "1"],
-           "statecatcher_tpu_torch.parallel.dryrun", "[multi-gpu dryrun]")
-    t_dry = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(d, f"out.rank{r}.pt"), weights_only=False)
-             for r in range(world)]
-    refs = {impl: multi_gpu_reference(cfg.apply_overrides(["--model.lucyrnn.kernel_impl", impl]),
-                                      dev, params, group, K, B)
-            for impl in ("auto", "pallas")}
     launches: dict = {}
-    for name, _ in modes:
-        ref = refs["auto" if name == "dp" else "pallas"]
-        for r, res in enumerate(ranks):
-            got = res[name]
-            verdict = check_against_one_process(f"[multi-gpu {name}] rank {r}", got, ref, params,
-                                                1e-6, K)
-            want = {k: (n_layers(cfg) * per if per else 1) * K
-                    for k, per in MULTI_GPU_KERNELS[name].items()}
-            if {k: got["launches"].get(k, 0) for k in want} != want:
-                raise AssertionError(f"[multi-gpu {name}] rank {r} launches {got['launches']}; "
-                                     f"want {want}")
-            for k, n in got["launches"].items():
-                launches[k] = launches.get(k, 0) + n
-            dp_, mp_, _ = got["plan"]
-            log(f"[multi-gpu {name}] rank {r} of {dp_}x{mp_} on {res['topology']['device']} "
-                f"over {res['topology']['backend']}: {got['ms_per_segment']:.1f} ms per segment "
-                f"(first run {got['ms_per_segment_first']:.1f}), "
-                f"{got['allreduce_bytes_per_update'] / 2**20:.2f} MiB all-reduced over the data "
-                f"group per update, {got['model_group_bytes_per_update'] / 2**20:.2f} MiB over the "
-                f"model group; launches {got['launches']}; vs one process: {verdict} ({CARD})")
-    log(f"[multi-gpu] dryrun of the three modes on {world} ranks: {t_dry:.1f} s")
+    tp = ["--mesh.data_parallel", str(world // 2), "--mesh.model_parallel", "2"]
+    pallas = ["--model.lucyrnn.kernel_impl", "pallas"]
+    xpallas = ["--model.xlstm.kernel_impl", "pallas"]
+    flagship = multi_gpu_job(
+        "[multi-gpu]", FLAGSHIP,
+        [("dp", ["--mesh.data_parallel", str(world)]), ("tp", tp + pallas),
+         ("sp", tp + ["--model.lucyrnn.kernel_impl", "sp"])],
+        {"dp": [], "tp": pallas, "sp": pallas}, K, B=B)
+    jobs = [flagship,
+            multi_gpu_job("[multi-gpu xlstm]", XLSTM_TP,
+                          [("xlstm auto", tp), ("xlstm pallas", tp + xpallas)],
+                          {"xlstm auto": [], "xlstm pallas": xpallas}, K, B=B),
+            multi_gpu_job("[multi-gpu lstm]", ["--model.encoder", "lstm"], [("lstm", tp)],
+                          {"lstm": []}, 1, B=B, time_runs=0),
+            multi_gpu_job("[multi-gpu rwkv]", RWKV, [("rwkv", tp)], {"rwkv": []}, 1, B=B)]
+    ranks = multi_gpu_launch(jobs, world, backend, device, dev, d, launches)
+    params, group = flagship["inputs"]["params"], flagship["inputs"]["group"]
     if torch.cuda.device_count() >= 2:
         # data parallel against one rank at the same per-rank batch
         Bl = B // world
@@ -2813,7 +2867,7 @@ def phase_multi_gpu(cfg, dev, K=2, B=32, S=16 * 16000, U=128, seconds=48.0, targ
         f"{[round(x, 4) for x in one]}, max rel {d_one.max():.2e}), checkpoint cursor "
         f"{meta['cursor']}; resumed on 2 ranks {a[0]:.5f}, on 1 process {b[0]:.5f} "
         f"({time.perf_counter() - t0:.1f} s for the three runs)")
-    log(f"[multi-gpu] launches over the ranks of (a)-(d): {launches}")
+    log(f"[multi-gpu] launches over the ranks of (a)-(f): {launches}")
     log(f"[time] phase 33 (multi-gpu): {time.perf_counter() - t_phase:.1f} s ({CARD})")
     return launches
 
@@ -2992,7 +3046,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_host_side(dev)
     log(f"[time] phase 31 (host side): {time.perf_counter() - t0:.1f} s ({CARD})")
-    n_multi = phase_multi_gpu(cfg, dev)
+    n_multi = phase_multi_gpu(dev)
 
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
@@ -3010,7 +3064,10 @@ def main() -> int:
             + n_ntrain["K4"] + n_ltrain["K4"] + n_wtrain["K4"] + n_multi.get("ctc_beta", 0))
     n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
     n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
-    n_k9a = n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
+    n_k9a = (n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
+             + n_multi.get("mlstm_fused_fwd", 0))
+    n_k9b = n_xtrain["K9b"] + n_multi.get("mlstm_fused_bwd", 0)
+    n_k10 = n_pbatched["K10"] + n_multi.get("mlstm_pallas_fwd", 0)
     log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
         f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}, eval ctc {n_eval}, "
@@ -3025,6 +3082,7 @@ def main() -> int:
         f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); K9a xlstm "
         f"batched {n_xbatched['K9a']}, streaming {n_xstream}, train {n_xtrain['K9a']}; K9b "
         f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched); "
+        f"K9a {n_k9a}, K9b {n_k9b}, K10 {n_k10} with the multi-GPU ranks'; "
         f"the multi-GPU ranks' (phase 33, in the sums above) {n_multi}")
     entries = [
         ("lucy_cell_fused_lm", "lucy_fused_lm_fwd.cu", "lucy_fused_lm.py:156", n_k1,
@@ -3051,10 +3109,8 @@ def main() -> int:
         ("rnnt_band_beta", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band β"],
          k8["band beta"]),
         ("mlstm_fused_fwd", "mlstm_fused.cu", "mlstm_fused.py:158", n_k9a, k9["K9a f32"]),
-        ("mlstm_fused_bwd", "mlstm_fused.cu", "mlstm_fused.py:251", n_xtrain["K9b"],
-         k9["K9b f32"]),
-        ("mlstm_pallas_fwd", "mlstm_pallas.cu", "mlstm_pallas.py:30", n_pbatched["K10"],
-         k9["K10 f32"]),
+        ("mlstm_fused_bwd", "mlstm_fused.cu", "mlstm_fused.py:251", n_k9b, k9["K9b f32"]),
+        ("mlstm_pallas_fwd", "mlstm_pallas.cu", "mlstm_pallas.py:30", n_k10, k9["K10 f32"]),
         ("lucy_fused_cell", "lucy_cell_scan.cu", "lucy_pallas.py:319", n_k12,
          k12["K12 batched f32 masked"]),
         ("lucy_dual_scan", "lucy_cell_scan.cu", "lucy_pallas.py:527", n_k11,

@@ -19,8 +19,12 @@ ranks that share a card) over ``--backend`` (default ``nccl`` on the card,
 
     torchrun --nproc_per_node 2 -m statecatcher_tpu_torch.cli --mesh.data_parallel 2 ...
 
-``--mesh.model_parallel 2`` splits the LucyRNN's gate columns over pairs of
-ranks, and with ``--model.lucyrnn.kernel_impl sp`` the scans' time axis.
+``--mesh.model_parallel 2`` splits the LucyRNN's gate columns, or the
+xLSTM's heads and FFN columns, over pairs of ranks (the LSTM and the RWKV
+run whole on each), and with ``--model.lucyrnn.kernel_impl sp`` the
+LucyRNN's scans' time axis.  The xLSTM's FFN width must divide too: at
+``--model.xlstm.embedding_dim 512`` the default ``ffn_proj_factor`` 2.667
+gives 1365 columns, 2.666 gives 1364.
 """
 
 from __future__ import annotations

@@ -93,6 +93,8 @@ class XLSTMConfig:
     # vs chunkwise 7504 audio-s/s flagship — BASELINE.md round 5), else the
     # XLA chunkwise scan.  Explicit: chunkwise | recurrent | pallas | fused.
     kernel_impl: str = "auto"
+    # d_ff = int(embedding_dim · ffn_proj_factor): 1365 at E=512, odd, so
+    # neither package can shard it at model_parallel 2 (2.666 gives 1364)
     ffn_proj_factor: float = 2.667
     qk_dim_factor: float = 0.5
     v_dim_factor: float = 1.0

@@ -17,6 +17,16 @@ dqk), "m": (B, blocks, H)}.
     autograd of ``mlstm_chunkwise``);
   * "chunkwise", "recurrent": plain torch on either device (no TPU kernel
     stands behind them).
+
+Under tensor parallelism (``parallel/mesh.py:tensor_parallel``, a model
+group of mp ranks) rank m holds the rows of heads [m·H/mp, (m+1)·H/mp) of
+q, k and v and its d_ff/mp columns of the FFN's gate and up projections,
+JAX's contiguous blocks.  The mLSTM runs on the rank's heads by the same
+route ("auto" stays K9a/K9b on the card, where JAX's ``tp_active`` takes
+its XLA chunkwise form: the port's collectives are its own, so the kernel
+is no obstacle); h and the FFN's activation are gathered and everything
+after them runs replicated, as do the input and forget gates, whose
+cotangents the ranks gather before the replicated gate projections.
 """
 
 from __future__ import annotations
@@ -32,6 +42,13 @@ from statecatcher_tpu_torch.config import XLSTMConfig
 from statecatcher_tpu_torch.models.layers import Dense, RMSNorm
 from statecatcher_tpu_torch.ops.mlstm_fused import NEG, mlstm_fused, soft_cap
 from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_chunkwise_pallas
+from statecatcher_tpu_torch.parallel.distributed import (
+    RankGroup,
+    copy_to_group,
+    gather_dim,
+    shard_dim,
+)
+from statecatcher_tpu_torch.parallel.mesh import tp_group
 
 KERNEL_IMPLS = ("auto", "chunkwise", "recurrent", "pallas", "fused")
 
@@ -161,16 +178,29 @@ class MLSTMLayer(nn.Module):
         B, T, E = x.shape
         H, dqk, dv = self.H, self.dqk, self.dv
         impl = resolve_kernel_impl(self.kernel_impl, x.is_cuda)
-        q_lane, k_lane, v_lane = self.q(x), self.k(x), self.v(x)
-        i_lane, f_lane = self.igate(x), self.fgate(x)
+        tp = tp_group()
         sdt = torch.promote_types(self.dtype, torch.float32)
         C0, n0, m0 = (state[key].to(sdt) for key in ("C", "n", "m"))
-        o = torch.sigmoid(self.ogate(x)).reshape(B, T, H, dv)
+        i_lane, f_lane = self.igate(x), self.fgate(x)
+        if tp is None:
+            q_lane, k_lane, v_lane = self.q(x), self.k(x), self.v(x)
+        else:
+            # this model rank's heads: its rows of q, k, v (the all-reduce of
+            # dx in backward), its slices of the replicated gates and carry
+            xs = copy_to_group(x, tp)
+            q_lane, k_lane, v_lane = self.q(xs), self.k(xs), self.v(xs)
+            if q_lane.shape[-1] * tp.size != H * dqk or H % tp.size:
+                raise ValueError(f"q's {q_lane.shape[-1]} lanes on each of {tp.size} model ranks "
+                                 f"are not whole heads of {H} × {dqk}")
+            i_lane, f_lane, C0, n0, m0 = (
+                shard_dim(z, tp, d) for z, d in ((i_lane, -1), (f_lane, -1), (C0, 1), (n0, 1),
+                                                 (m0, 1)))
+            H = H // tp.size
         if impl == "fused":
             # lane-major q/k/v/h: no head transposes
             h, C_T, n_T, m_T = mlstm_fused(q_lane, k_lane, v_lane, i_lane, f_lane, C0, n0, m0,
                                            self.chunk_size, self.gate_soft_cap)
-            h = self.head_norm(h.to(self.dtype).reshape(B, T, H, dv))
+            h = h.to(self.dtype).reshape(B, T, H, dv)
         else:
             heads = lambda z, d: z.reshape(B, T, H, d).transpose(1, 2)
             q, k, v = heads(q_lane, dqk), heads(k_lane, dqk), heads(v_lane, dv)
@@ -187,8 +217,14 @@ class MLSTMLayer(nn.Module):
             else:
                 h, C_T, n_T, m_T = mlstm_chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0,
                                                    self.chunk_size, self.gate_soft_cap)
-            h = self.head_norm(h.to(self.dtype)).transpose(1, 2)
-        y = self.out_proj((h * o).reshape(B, T, H * dv))
+            h = h.to(self.dtype).transpose(1, 2)
+        if tp is not None:
+            # every head's h and carry on every rank: head_norm's scale is
+            # shared by the heads, so it and all after it run replicated
+            h = gather_dim(h, tp, 2)
+            C_T, n_T, m_T = (gather_dim(z, tp, 1) for z in (C_T, n_T, m_T))
+        o = torch.sigmoid(self.ogate(x)).reshape(B, T, self.H, dv)
+        y = self.out_proj((self.head_norm(h) * o).reshape(B, T, self.H * dv))
         new_state = {"C": C_T.to(state["C"].dtype), "n": n_T.to(state["n"].dtype),
                      "m": m_T.to(state["m"].dtype)}
         return y, new_state
@@ -206,8 +242,15 @@ class SwiGLUFFN(nn.Module):
         self.up = Dense(E, d_ff, **kw)
         self.down = Dense(d_ff, E, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+    def forward(self, x: torch.Tensor, tp: Optional[RankGroup] = None) -> torch.Tensor:
+        """``tp``: the tensor-parallel model group, passed in rather than read
+        from ``tp_group()``: under ``ffn_remat`` the recompute runs in the
+        backward, on autograd's device thread outside the context."""
+        if tp is None:
+            return self.down(F.silu(self.gate(x)) * self.up(x))
+        # this model rank's d_ff/mp columns, gathered for the replicated down
+        xs = copy_to_group(x, tp)
+        return self.down(gather_dim(F.silu(self.gate(xs)) * self.up(xs), tp, -1))
 
 
 class XLSTMEncoder(nn.Module):
@@ -238,6 +281,7 @@ class XLSTMEncoder(nn.Module):
         if state is None:
             state = xlstm_init_carry(cfg, x.shape[0], self.dtype, x.device)
         x = self.input_proj(x)
+        tp = tp_group()
         new = {"C": [], "n": [], "m": []}
         for bi in range(cfg.num_blocks):
             block_state = {key: state[key][:, bi] for key in new}
@@ -247,9 +291,9 @@ class XLSTMEncoder(nn.Module):
             f = getattr(self, f"block{bi}_norm_ffn")(x)
             ffn = getattr(self, f"block{bi}_ffn")
             if cfg.ffn_remat and torch.is_grad_enabled():
-                x = x + checkpoint(ffn, f, use_reentrant=False)
+                x = x + checkpoint(ffn, f, tp, use_reentrant=False)
             else:
-                x = x + ffn(f)
+                x = x + ffn(f, tp)
             for key in new:
                 new[key].append(block_state[key])
         logits = self.vocab_proj(self.final_norm(x))

@@ -17,7 +17,10 @@ run under torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``tokens`` (K, B, U), ``tok_lens`` (K, B), ``row_valid`` (K, B),
     ``seg_valid`` (K,); data rank d trains on rows ``d::dp``;
   * ``modes``: ``[(name, overrides), ...]``, each a mesh (and kernel_impl)
-    to run the step under, in turn, from the same parameters;
+    to run the step under, in turn, from the same parameters; a third
+    element, a dict, replaces any of the keys of this list for its mode
+    (its own ``overrides``, ``params`` and ``group``: another model in the
+    same launch) and may set its ``time_runs``;
   * optional ``features`` (K, B, T, F): the frontend's output for
     ``audio``, used in place of the port's frontend (tests give the port and
     the JAX package one frontend, as tests/test_torch_train_step.py does);
@@ -226,8 +229,11 @@ def main(argv=None) -> int:
         if "scan" in inputs:
             result = {"scan": run_scan(inputs, topo.device)}
         else:
-            result = {name: run_mode(inputs, ov, topo.device, args.time_runs)
-                      for name, ov in inputs["modes"]}
+            result = {}
+            for name, ov, *own in inputs["modes"]:
+                mode_inputs = {**inputs, **(own[0] if own else {})}
+                result[name] = run_mode(mode_inputs, ov, topo.device,
+                                        mode_inputs.get("time_runs", args.time_runs))
         result["topology"] = {"rank": topo.process_index, "world": topo.process_count,
                               "device": str(topo.device), "backend": topo.backend}
         torch.save(result, f"{args.out}.rank{topo.process_index}.pt")

@@ -8,14 +8,26 @@ Port of ``statecatcher_tpu/parallel/mesh.py`` over process groups.  A
 summed) and one model group (the ranks of its d: they train on the same
 rows and split the work of each layer).
 
-Tensor parallelism (``model_parallel > 1``): JAX shards the gate
-projections' 7·D output lanes contiguously (``P(None, "model")``) and lets
-GSPMD move the data.  Here a rank owns whole hidden columns: the 7 gates of
-its D/mp columns, rows ``{g·D + d}`` of ``GateProj.weight`` (7D, F) and of
-its bias.  The LucyRNN gate chain and both scans are elementwise in d, so a
-rank runs its cell on its columns with no collective; the cell's input is
-all-reduced in backward and its output gathered along D
-(``models/lucyrnn.py``).  Every other parameter is replicated.
+Tensor parallelism (``model_parallel > 1``): JAX shards the output lanes
+of a few Dense kernels contiguously (``P(None, "model")``) and lets GSPMD
+move the data; here each sharded leaf has a row layout (``tp_rows``) and
+the layers move their data by hand:
+
+  * the LucyRNN's gate projections: a rank owns whole hidden columns, the 7
+    gates of its D/mp columns, rows ``{g·D + d}`` of ``GateProj.weight``
+    (7D, F) and of its bias.  The gate chain and both scans are elementwise
+    in d, so a rank runs its cell on its columns with no collective; the
+    cell's input is all-reduced in backward and its output gathered along D
+    (``models/lucyrnn.py``);
+  * the xLSTM's q, k, v and FFN gate and up projections: JAX's own layout,
+    contiguous blocks of n/mp rows.  With H % mp == 0 a rank holds whole
+    heads of q, k, v and runs the mLSTM on them; h and the FFN's activation
+    are gathered before the replicated layers that follow
+    (``models/xlstm.py``).
+
+Every other parameter is replicated: all of the LSTM's and the RWKV's (as
+in JAX, no leaf of theirs matches), whose model ranks each run the whole
+step on their data group's rows.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from statecatcher_tpu_torch.config import MeshConfig, ModelConfig
+from statecatcher_tpu_torch.config import MeshConfig
 from statecatcher_tpu_torch.parallel.distributed import (
     RankGroup,
     gather_rows,
@@ -151,34 +163,54 @@ def tp_param_spec(name: str, ndim: int) -> tuple:
     return ()
 
 
-def check_tp_supported(cfg: ModelConfig, model_parallel: int) -> None:
-    """Tensor parallelism runs the 7-gate and the native LucyRNN; the other
-    encoders raise (ROADMAP.md, multi-GPU)."""
-    if model_parallel > 1 and cfg.encoder != "lucyrnn":
-        raise NotImplementedError(
-            f"model_parallel > 1 with encoder={cfg.encoder!r} is not ported: see ROADMAP.md, "
-            "multi-GPU (tensor parallelism of the LSTM, xLSTM and RWKV)")
+def check_tp_shapes(model: torch.nn.Module, model_parallel: int) -> None:
+    """JAX's shape rules for tensor parallelism over ``model_parallel``
+    ranks; a ``ValueError`` names the leaf.  Every sharded leaf's rows must
+    divide over the ranks (JAX's ``device_put`` refuses such a sharding
+    too), and the xLSTM's heads must: a rank holds whole heads, where JAX's
+    GSPMD would split one across ranks.  The LSTM and the RWKV shard no
+    leaf and always pass."""
+    if model_parallel <= 1:
+        return
+    for name, p in model.named_parameters():
+        if tp_param_spec(name, p.ndim):
+            _rows_of(name, p.shape[0], model_parallel, 0)
+        H = model.cfg.xlstm.num_heads
+        if name.endswith("_mlstm.q.weight") and H % model_parallel:
+            raise ValueError(f"{name}: its {H} heads do not divide over "
+                             f"model_parallel={model_parallel} (a model rank runs whole heads)")
 
 
 def tp_rows(name: str, n_rows: int, plan: MeshPlan) -> Optional[torch.Tensor]:
     """The rows of parameter ``name`` (``n_rows`` of them in full) that this
-    model rank owns, or None when it is replicated: the 7 gates of its D/mp
-    hidden columns, ``{g·D + d}``."""
+    model rank owns, or None when it is replicated."""
     if not plan.is_sharded(name):
         return None
-    if n_rows % (7 * plan.model_size):
-        raise ValueError(f"{name}: {n_rows} rows are not 7 gates of hidden columns "
-                         f"divisible by model_parallel={plan.model_size}")
-    return _rows_of(n_rows, plan.model_size, plan.model.index)
+    return _rows_of(name, n_rows, plan.model_size, plan.model.index)
 
 
-def _rows_of(n_rows: int, mp: int, m: int) -> torch.Tensor:
-    """Model rank m's rows of a (7·D, ...) gate tensor: ``{g·D + d}`` for its
-    D/mp columns d."""
-    D = n_rows // 7
-    Dl = D // mp
-    cols = torch.arange(m * Dl, (m + 1) * Dl)
-    return (torch.arange(7)[:, None] * D + cols[None, :]).reshape(-1)
+def _rows_of(name: str, n_rows: int, mp: int, m: int) -> torch.Tensor:
+    """Model rank m's rows of sharded parameter ``name`` (``n_rows`` in
+    full): of a LucyRNN gate projection (7·D, ...) the 7 gates of its D/mp
+    hidden columns, ``{g·D + d}``; of the others JAX's contiguous block
+    ``[m·n/mp, (m+1)·n/mp)``."""
+    if "gate_proj" in name:
+        if n_rows % (7 * mp):
+            raise ValueError(f"{name}: {n_rows} rows are not 7 gates of hidden columns "
+                             f"divisible by model_parallel={mp}")
+        D = n_rows // 7
+        Dl = D // mp
+        cols = torch.arange(m * Dl, (m + 1) * Dl)
+        return (torch.arange(7)[:, None] * D + cols[None, :]).reshape(-1)
+    if n_rows % mp:
+        hint = ""
+        if ".gate." in name or ".up." in name:
+            hint = (" (d_ff = int(embedding_dim · ffn_proj_factor): the default 2.667 gives "
+                    "an odd 1365 at embedding_dim 512, which JAX cannot shard either; 2.666 "
+                    "gives 1364)")
+        raise ValueError(f"{name}: {n_rows} rows do not divide over model_parallel={mp}{hint}")
+    n = n_rows // mp
+    return torch.arange(m * n, (m + 1) * n)
 
 
 def _map_params(tree, fn, names: set):
@@ -214,7 +246,7 @@ def gather_params_tp(tree: dict, plan: MeshPlan, names=None) -> dict:
             return t
         out = t.new_empty((full_rows, *t.shape[1:]))
         for m, part in enumerate(plan.model.all_gather(t)):
-            rows = _rows_of(full_rows, plan.model_size, m)
+            rows = _rows_of(name, full_rows, plan.model_size, m)
             out[rows.to(t.device)] = part
         return out
 
@@ -224,8 +256,9 @@ def gather_params_tp(tree: dict, plan: MeshPlan, names=None) -> dict:
 @torch.no_grad()
 def shard_model_tp(model: torch.nn.Module, plan: MeshPlan) -> list[str]:
     """Cut ``model``'s sharded parameters to this model rank's rows, in
-    place; returns their names."""
-    check_tp_supported(model.cfg, plan.model_size)
+    place; returns their names.  Raises ``ValueError`` where JAX's shape
+    rules refuse the model (``check_tp_shapes``)."""
+    check_tp_shapes(model, plan.model_size)
     done = []
     for name, p in model.named_parameters():
         rows = tp_rows(name, p.shape[0], plan)
@@ -240,8 +273,10 @@ _TP = threading.local()
 
 @contextlib.contextmanager
 def tensor_parallel(plan: MeshPlan):
-    """Run the LucyRNN cells on this model rank's columns within the block
-    (read by ``models/lucyrnn.py`` through ``tp_group``)."""
+    """Within the block, run the LucyRNN cells on this model rank's columns
+    and the xLSTM's mLSTM and FFN on its heads and FFN columns (read by
+    ``models/lucyrnn.py`` and ``models/xlstm.py`` through ``tp_group``); the
+    LSTM and the RWKV ignore it."""
     prev = getattr(_TP, "group", None)
     _TP.group = plan.model if plan.tensor_parallel else None
     try:

@@ -237,7 +237,7 @@ def _train(cfg: Config, dataset, max_batches, initial_params, dev, run_dir, plan
         model.load_state_dict(sd)                        # strict: names and shapes match
     n_params = sum(p.numel() for p in model.parameters())
     if plan is not None and plan.tensor_parallel:
-        shard_model_tp(model, plan)                      # this rank's gate columns
+        shard_model_tp(model, plan)                      # this rank's rows of each sharded leaf
 
     sr = cfg.data.batch_samplerate
     target_samples = int(sr * cfg.data.target_duration)

@@ -44,9 +44,11 @@ its own rows, the counterpart of the JAX step's shardings):
     bucket per dtype (a mean of local means would be another function
     whenever the ranks hold different numbers of valid rows);
   * tensor parallelism: the step runs inside ``tensor_parallel`` (the
-    LucyRNN cells on the rank's columns); the global norm, and so the clip
-    and the non-finite skip, sum the squares of the sharded leaves over the
-    model group and count the replicated ones once;
+    LucyRNN cells on the rank's columns, the xLSTM's mLSTM and FFN on its
+    heads and FFN columns; the LSTM and the RWKV whole on every model
+    rank); the global norm, and so the clip and the non-finite skip, sum
+    the squares of the sharded leaves over the model group and count the
+    replicated ones once;
   * sequence parallelism (``kernel_impl="sp"``): the step runs inside
     ``sequence_parallel_scans`` (JAX's ``_maybe_sequence_parallel``).
 

@@ -1309,6 +1309,52 @@ def test_mlstm_pallas_kernel_matches_plain(cuda_device, B, T, H, dqk, dv, chunk)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernels_on_a_ranks_heads_are_slices_of_all_heads(cuda_device, dtype):
+    """Tensor parallelism runs K9a/K9b (and, in float32, K10) on a model
+    rank's heads of the lane-major tensors.  At the flagship's shapes (B=32,
+    T=1598, 2 heads, dqk 128, dv 256, chunk 128) the call on head m alone
+    gives head m's slice of the all-heads call bit for bit: a head's
+    arithmetic does not depend on the heads beside it."""
+    from statecatcher_tpu_torch.ops.mlstm_fused import mlstm_fused_bwd, mlstm_fused_fwd
+    from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_pallas_fwd
+
+    B, T, H, dqk, dv, chunk = 32, 1598, 2, 128, 256, 128
+    ins, L, _ = mlstm_kernel_data(11, B, T, H, dqk, dv, chunk, dtype)
+    ins = [x.to(cuda_device) for x in ins]
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda_device).to(x.dtype)
+            for x in (ins[2], ins[5], ins[6], ins[7])]
+    cots[0][:, T:] = 0                          # rows past T are not outputs
+    fwd = mlstm_fused_fwd(*ins, L, T)
+    bwd = mlstm_fused_bwd(*ins, *cots, L, T)
+    # K10's head-major layout, on the first T rows and the raw gates' stand-ins
+    heads = lambda x, d: x[:, :T].float().reshape(B, T, H, d).transpose(1, 2).contiguous()
+    k10_ins = [heads(ins[0], dqk), heads(ins[1], dqk), heads(ins[2], dv),
+               ins[3][..., :T].contiguous(), ins[4][..., :T].contiguous(), *ins[5:]]
+    k10 = mlstm_pallas_fwd(*k10_ins, chunk) if dtype == torch.float32 else None
+    for m in range(H):
+        lanes = lambda x, d: x[..., m * d:(m + 1) * d].contiguous()
+        head = lambda x: x[:, m:m + 1].contiguous()
+        part = [lanes(ins[0], dqk), lanes(ins[1], dqk), lanes(ins[2], dv),
+                *(head(x) for x in ins[3:])]
+        part_cots = [lanes(cots[0], dv), *(head(x) for x in cots[1:])]
+        got = mlstm_fused_fwd(*part, L, T)
+        assert torch.equal(got[0][:, :T], lanes(fwd[0], dv)[:, :T]), f"K9a h, head {m}"
+        for name, a, c in zip(("C_T", "n_T", "m_T"), got[1:], fwd[1:]):
+            assert torch.equal(a, head(c)), f"K9a {name}, head {m}"
+        got = mlstm_fused_bwd(*part, *part_cots, L, T)
+        for name, a, c, d in zip(K9B_NAMES[:3], got, bwd, (dqk, dqk, dv)):
+            assert torch.equal(a, lanes(c, d)), f"K9b {name}, head {m}"
+        for name, a, c in zip(K9B_NAMES[3:], got[3:], bwd[3:]):
+            assert torch.equal(a, head(c)), f"K9b {name}, head {m}"
+        if k10 is not None:
+            got = mlstm_pallas_fwd(*(head(x) for x in k10_ins), chunk)
+            for name, a, c in zip(("h", "C_T", "n_T", "m_T"), got, k10):
+                assert torch.equal(a, head(c)), f"K10 {name}, head {m}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["auto", "fused", "pallas"])
 def test_xlstm_encoder_on_card_matches_cpu(cuda_device, impl):
     """The xLSTM encoder (2 blocks, E=64) with ``kernel_impl`` on the card

@@ -2,14 +2,17 @@
 (statecatcher_tpu_torch/parallel/): ``tp_param_spec`` against the JAX
 package's for every parameter of each encoder (the JAX spec of the flax
 leaf, in the port's layout: a transposed Dense kernel's spec reversed),
-``make_mesh_plan``'s rules and rank layout, the tensor-parallel rows a
-model rank owns, and ``sync_int``, ``shared_run_dir`` and the row helpers
+JAX's shape rules for tensor parallelism, ``make_mesh_plan``'s rules and
+rank layout, the tensor-parallel rows a model rank owns against the blocks
+of JAX's shardings, and ``sync_int``, ``shared_run_dir`` and the row helpers
 through a one-rank gloo group."""
 
+import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from jax.sharding import Mesh, NamedSharding
 
 from statecatcher_tpu.parallel.mesh import tp_param_spec as j_tp_param_spec
 from statecatcher_tpu_torch.config import Config, MeshConfig
@@ -23,8 +26,9 @@ from statecatcher_tpu_torch.parallel.distributed import (
     world_group,
 )
 from statecatcher_tpu_torch.parallel.mesh import (
-    check_tp_supported,
+    check_tp_shapes,
     make_mesh_plan,
+    shard_model_tp,
     tp_param_spec,
     tp_rows,
 )
@@ -63,17 +67,78 @@ def test_tp_param_spec_matches_jax(encoder, mode):
     assert (sharded > 0) == (encoder in ("lucyrnn", "lucyrnn-2tracks", "xlstm"))
 
 
+SHARDED = ("lucyrnn", "lucyrnn-2tracks", "xlstm")
+# d_ff = int(32 · 2.5) = 80: the default factor's 85 divides over no mp
+FFN = ["--model.xlstm.ffn_proj_factor", "2.5"]
+
+
+def _tiny(encoder, *extra):
+    cfg = Config().apply_overrides(ENCODERS[encoder] + TINY + list(extra))
+    return cfg, build_speech_model(cfg.model, 80, "ctc", device="cpu")
+
+
+def _plan(mp, rank):
+    return make_mesh_plan(MeshConfig(data_parallel=1, model_parallel=mp), world=mp, rank=rank)
+
+
 @pytest.mark.parametrize("encoder", list(ENCODERS))
 def test_tensor_parallel_encoders(encoder):
-    """The 7-gate and native LucyRNN run tensor parallel; the others raise,
-    naming ROADMAP.md's multi-GPU section."""
-    cfg = Config().apply_overrides(ENCODERS[encoder]).model
-    check_tp_supported(cfg, 1)
-    if cfg.encoder == "lucyrnn":
-        check_tp_supported(cfg, 2)
+    """Every encoder shards under mp=2 (the LSTM, the RWKV and the native
+    LucyRNN shard no leaf, as in JAX); what JAX's shape rules refuse raises
+    ValueError naming the leaf: the LucyRNN's 16 columns over mp=3, the
+    xLSTM's default ``ffn_proj_factor`` (d_ff 85) at mp=2 and its 2 heads
+    over mp=4 (a rank runs whole heads)."""
+    extra = FFN if encoder == "xlstm" else []
+    _, model = _tiny(encoder, *extra)
+    check_tp_shapes(model, 1)
+    names = shard_model_tp(model, _plan(2, 1))
+    assert bool(names) == (encoder in SHARDED)
+    _, fresh = _tiny(encoder, *extra)
+    if encoder == "xlstm":
+        with pytest.raises(ValueError, match=r"block0_mlstm\.q\.weight: its 2 heads"):
+            check_tp_shapes(fresh, 4)
+        _, odd = _tiny(encoder)
+        with pytest.raises(ValueError, match=r"block0_ffn\.gate\.weight: 85 rows"):
+            check_tp_shapes(odd, 2)
+    elif encoder in SHARDED:
+        with pytest.raises(ValueError, match=r"gate_proj\.weight: 112 rows are not 7 gates"):
+            check_tp_shapes(fresh, 3)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, multi-GPU"):
-            check_tp_supported(cfg, 2)
+        check_tp_shapes(fresh, 3)
+
+
+@pytest.mark.parametrize("encoder", list(ENCODERS))
+def test_tp_rows_match_jax_shardings(encoder):
+    """The rows model rank m of 2 owns of every sharded leaf, mapped through
+    convert.py, are the block JAX's ``NamedSharding`` puts on model index m
+    (its output lanes: a Dense kernel's axis 1, a bias's axis 0); every
+    other leaf is whole on both.  The LucyRNN's gate projections are the
+    exception that ROADMAP.md §3 records: the port's rank owns the 7 gates of
+    its hidden columns, JAX's a contiguous 7·D/2 lanes."""
+    cfg, model = _tiny(encoder, *(FFN if encoder == "xlstm" else []))
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    devices = jax.devices()[:2]
+    mesh = Mesh(np.array(devices).reshape(1, 2), ("data", "model"))
+    plans = [_plan(2, m) for m in range(2)]
+    for path, key, transposed in _full_mapping(cfg.model, True, False):
+        shape = shapes[key]
+        flax_shape = shape[::-1] if transposed else shape
+        spec = j_tp_param_spec("/".join(("params",) + path), len(shape))
+        blocks = NamedSharding(mesh, spec).devices_indices_map(flax_shape)
+        n = shape[0]
+        for m, plan in enumerate(plans):
+            idx = blocks[devices[m]]
+            jax_rows = list(range(n))[idx[len(shape) - 1 if transposed else 0]]
+            rows = tp_rows(key, n, plan)
+            if rows is None:
+                assert jax_rows == list(range(n)) and all(i == slice(None) for i in idx), key
+            elif "gate_proj" in key:
+                D = n // 7
+                assert jax_rows == list(range(m * n // 2, (m + 1) * n // 2)), key
+                assert rows.tolist() == [g * D + d for g in range(7)
+                                         for d in range(m * D // 2, (m + 1) * D // 2)], key
+            else:
+                assert rows.tolist() == jax_rows, key
 
 
 def test_make_mesh_plan_rules_and_layout():

@@ -94,14 +94,16 @@ def _frames(audio):
     return audio[..., :T * (S // T)].reshape(*audio.shape[:-1], T, S // T)[..., :80]
 
 
-def _run_jax(jcfg, params, group, mesh_cfg, n_dev, monkeypatch, tp=False, forward=False):
+def _run_jax(jcfg, params, group, mesh_cfg, n_dev, monkeypatch, tp=False, forward=False,
+             x64=True):
     """JAX's step (and forward of segment 0) under a (data, model) mesh of
-    ``n_dev`` virtual devices."""
-    monkeypatch.setattr(j_step_module, "jnp", _JnpF64())
-    monkeypatch.setattr(j_rnnt_module, "jnp", _JnpF64())
+    ``n_dev`` virtual devices; in float64 unless ``x64`` is False."""
+    if x64:
+        monkeypatch.setattr(j_step_module, "jnp", _JnpF64())
+        monkeypatch.setattr(j_rnnt_module, "jnp", _JnpF64())
     monkeypatch.setattr(j_step_module, "compute_features", lambda audio, fe: _frames(audio))
     plan = j_make_mesh_plan(mesh_cfg, jax.devices()[:n_dev])
-    with jax.enable_x64(True):
+    with jax.enable_x64(x64):
         model = j_build_speech(jcfg.model, 80, jcfg.train.mode)
         state = jax.jit(lambda r: j_init_state(model, jcfg, r, 80, 8))(jax.random.PRNGKey(0))
         state = state.replace(params=jax.tree.map(

@@ -13,7 +13,8 @@ tests/test_torch_train_step.py).
 The resumes stop at step 3, after the first segment of the second recording
 batch, so they re-enter mid-batch with the checkpointed global-B carry: a
 run saved on 2 ranks resumes on 1, and one saved on 1 resumes on 2, each
-giving the uninterrupted run's last three losses.
+giving the uninterrupted run's last three losses.  The same holds for an
+xLSTM whose 2 ranks are tensor parallel (dp=1 × mp=2).
 """
 
 import ast
@@ -57,17 +58,25 @@ def fixture_dir(tmp_path_factory):
     return str(d)
 
 
-def _one_process(data, model_dir, steps, resume=None):
-    ov = OVERRIDES + ["--data.local_dir", data, "--train.model_dir", str(model_dir),
+# the xLSTM, tensor parallel over 2 ranks: a head and 20 FFN columns a rank
+XLSTM = OVERRIDES + ["--model.encoder", "xlstm", "--model.xlstm.embedding_dim", "16",
+                     "--model.xlstm.num_heads", "2", "--model.xlstm.num_blocks", "2",
+                     "--model.xlstm.chunk_size", "16", "--model.xlstm.ffn_proj_factor", "2.5"]
+XLSTM_TP = ["--mesh.data_parallel", "1", "--mesh.model_parallel", "2"]
+
+
+def _one_process(data, model_dir, steps, resume=None, overrides=OVERRIDES):
+    ov = overrides + ["--data.local_dir", data, "--train.model_dir", str(model_dir),
                       "--train.steps", str(steps)]
     if resume:
         ov += ["--train.resume_from", resume]
     return train(Config().apply_overrides(ov), device="cpu")
 
 
-def _two_ranks(budget, data, model_dir, steps, resume=None):
+def _two_ranks(budget, data, model_dir, steps, resume=None, overrides=OVERRIDES,
+               mesh=("--mesh.data_parallel", "2")):
     """The CLI on 2 ranks; both ranks' summaries, which must agree."""
-    argv = ["--device", "cpu", "--backend", "gloo", *OVERRIDES, "--mesh.data_parallel", "2",
+    argv = ["--device", "cpu", "--backend", "gloo", *overrides, *mesh,
             "--data.local_dir", data, "--train.model_dir", str(model_dir),
             "--train.steps", str(steps)] + (["--train.resume_from", resume] if resume else [])
     outs = run_ranks(2, argv, budget, module="statecatcher_tpu_torch.cli")
@@ -104,4 +113,26 @@ def test_checkpoints_cross_world_sizes(fixture_dir, tmp_path, rank_budget):
     part1 = _one_process(fixture_dir, tmp_path / "part1", 3)
     on_two = _two_ranks(rank_budget, fixture_dir, tmp_path / "res2", 6, resume=part1["run_dir"])
     assert on_two["global_step"] == 6
+    np.testing.assert_allclose(on_two["loss_history"], full[3:], rtol=RTOL)
+
+
+def test_xlstm_checkpoints_cross_tensor_parallel_meshes(fixture_dir, tmp_path, rank_budget):
+    """An xLSTM run saved under dp=1 × mp=2 (the sharded q, k, v, FFN gate and
+    up and their Adam moments gathered whole) resumes in one process, and one
+    saved by one process resumes under mp=2, each with the uninterrupted
+    run's next losses."""
+    full = _one_process(fixture_dir, tmp_path / "full", 4, overrides=XLSTM)["loss_history"]
+    part2 = _two_ranks(rank_budget, fixture_dir, tmp_path / "part2", 3, overrides=XLSTM,
+                       mesh=XLSTM_TP)
+    log = open(os.path.join(part2["run_dir"], "train.log")).read()
+    assert "mesh 1x2 (tensor parallel model axis)" in log
+    on_one = _one_process(fixture_dir, tmp_path / "res1", 4, resume=part2["run_dir"],
+                          overrides=XLSTM)
+    np.testing.assert_allclose(part2["loss_history"], full[:3], rtol=RTOL)
+    np.testing.assert_allclose(on_one["loss_history"], full[3:], rtol=RTOL)
+
+    part1 = _one_process(fixture_dir, tmp_path / "part1", 3, overrides=XLSTM)
+    on_two = _two_ranks(rank_budget, fixture_dir, tmp_path / "res2", 4, resume=part1["run_dir"],
+                        overrides=XLSTM, mesh=XLSTM_TP)
+    assert on_two["global_step"] == 4
     np.testing.assert_allclose(on_two["loss_history"], full[3:], rtol=RTOL)
