@@ -266,6 +266,13 @@ from statecatcher_tpu_torch.ops.rnnt_lattice import (
     rnnt_beta_ref,
 )
 from statecatcher_tpu_torch.rnnt_decode import rnnt_greedy_decode, rnnt_state_to_lists
+from statecatcher_tpu_torch.roofline import (
+    H100_PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
+    H100_PEAK_FLOPS_F32 as F32_OPS_PER_S,
+    H100_PEAK_FLOPS_TF32 as TF32_OPS_PER_S,
+    H100_PEAK_HBM_BPS as HBM_BYTES_PER_S,
+    train_step_roofline,
+)
 from statecatcher_tpu_torch.streaming import StreamingRecognizer
 from statecatcher_tpu_torch.testing import levenshtein, randomize_, synth_audio
 from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
@@ -278,10 +285,6 @@ NATIVE = ["--model.lucyrnn.variant", "native"]
 RWKV = ["--model.encoder", "rwkv"]                # 4 × 512, vocab 1024, f32
 CARD = ""                                        # nvidia-smi's name, power limit (main)
 CLI_LOSSES: dict = {}                            # phase_cli's first runs' losses, by tag
-HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
-F32_OPS_PER_S = 67e12                            # H100 SXM, float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12                          # H100 SXM, bf16 on the tensor cores, dense
-TF32_OPS_PER_S = 495e12                          # H100 SXM, TF32 on the tensor cores, dense
 # Operations per (b, t, d) element of the fused cell, counted from the kernel
 # source: 7 bias adds, rms_rz 6, rms_kv² 5, its sqrt 1, z 5, decay 8,
 # alpha 8, h_pre 4, kv 5, s-step 3, tanh 2, h-step 4 (sqrt, divide, exp,
@@ -1122,8 +1125,14 @@ def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None
     """Phases 6, 15 and 21: bench.py's shapes (16 s, bf16; LucyRNN B=96, CTC
     U=128, RNN-T U=64 and U=128, both under the default band 32; xLSTM B=64,
     chunk 256, CTC U=128) at K segments, one warm and one timed group on the
-    kernel path."""
-    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode])
+    kernel path; beside the rate, the row's roofline (``roofline.py``, the
+    config carrying the row's B and 16 s segments, as bench.py's): its mfu,
+    its share of the speed of light, which must stay below 100 % (at or above
+    it the count leaves out work), and its FLOPs, bytes and bound."""
+    cfg = cfg.apply_overrides(["--model.dtype", "bfloat16", "--train.mode", mode,
+                               "--data.batch_size", str(B),
+                               "--data.target_duration", f"{S / 16000:g}"])
+    rl = train_step_roofline(cfg, cfg.frontend.n_mfcc, U, mode)
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
                                generator=torch.Generator().manual_seed(SEED))
     randomize_(model, SEED + 1)
@@ -1143,9 +1152,16 @@ def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None
     if not torch.isfinite(outs.loss).all():
         raise AssertionError("throughput run: non-finite loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = K * B * S / 16000 / secs[1]
     log(f"[throughput] {cfg.model.encoder} {mode} B={B}, K={K} × {S / 16000:g} s, bf16, U={U}: warm group {secs[0]:.3f} s, timed group "
-        f"{secs[1]:.3f} s = {K * B * S / 16000 / secs[1]:.0f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
-        f"segment); peak memory {peak:.2f} GiB")
+        f"{secs[1]:.3f} s = {rate:.1f} audio-s/s ({secs[1] / K * 1e3:.1f} ms per "
+        f"segment); peak memory {peak:.2f} GiB; mfu {rl.mfu(rate):.6f}, pct_speed_of_light "
+        f"{100 * rl.pct_sol(rate):.2f} (roofline: {rl.flops_per_audio_sec:.6e} FLOPs and "
+        f"{rl.bytes_per_audio_sec:.6e} bytes an audio-second, sol_audio_sec_per_sec "
+        f"{rl.sol_audio_sec_per_sec:.1f})")
+    if rl.pct_sol(rate) >= 1.0:
+        raise AssertionError(f"throughput run at {100 * rl.pct_sol(rate):.2f} % of its speed of "
+                             f"light: the roofline leaves out work")
 
 
 def write_cli_fixture(root: str, n: int = 4, seconds: float = 48.0, cue: float = 4.0) -> str:

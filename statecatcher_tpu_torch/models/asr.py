@@ -1,10 +1,11 @@
 """ASRModel: input projection, frame stacking, masking policy, encoder.
 
 Port of ``statecatcher_tpu/models/asr.py`` for every encoder: the LSTM
-(the config's default), the LucyRNN (the 7-gate ``variant="triton"`` and
-the 6-gate ``variant="native"``), the xLSTM and the RWKV: the optional input
-projection, ``stack_order`` trim-and-fold, the masking policy, and the cast
-of the carried state to ``carry_dtype``.  The LSTM masks inside its
+(the config's default), the LucyRNN (the 6-gate ``variant="native"``, and
+the 7-gate cell for every other variant, the config's "triton" among them),
+the xLSTM and the RWKV: the optional input projection, ``stack_order``
+trim-and-fold, the masking policy, and the cast of the carried state to
+``carry_dtype``.  The LSTM masks inside its
 recurrence (frozen state, zero output) and has its own ``classifier`` Dense
 to the vocabulary; the other encoders get zero-input masking of padded
 frames and project to the vocabulary themselves.  The stateful contract is
@@ -30,13 +31,10 @@ from statecatcher_tpu_torch.models.xlstm import XLSTMEncoder, xlstm_init_carry
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configurations this port lacks."""
+    """Raise ValueError for an unknown encoder.  As in the JAX package, every
+    ``lucyrnn.variant`` but "native" builds the 7-gate cell."""
     if cfg.encoder not in ("lstm", "lucyrnn", "xlstm", "rwkv"):
         raise ValueError(f"Unknown encoder type: {cfg.encoder!r}")
-    if cfg.encoder == "lucyrnn" and cfg.lucyrnn.variant not in ("triton", "native"):
-        raise NotImplementedError(
-            f"lucyrnn.variant={cfg.lucyrnn.variant!r} is not ported; the 7-gate 'triton' "
-            "and the 6-gate 'native' variants are")
 
 
 class ASRModel(nn.Module):

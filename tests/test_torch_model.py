@@ -30,9 +30,9 @@ from statecatcher_tpu_torch.testing import levenshtein, randomize_
 B, T, F, D, L, V = 2, 20, 8, 10, 2, 12
 
 
-def _overrides(tracks, stack, proj):
+def _overrides(tracks, stack, proj, d=D):
     return [
-        "--model.encoder", "lucyrnn", "--model.hidden_size", str(D),
+        "--model.encoder", "lucyrnn", "--model.hidden_size", str(d),
         "--model.num_layers", str(L), "--model.vocab_size", str(V),
         "--model.lucyrnn.num_tracks", str(tracks), "--model.stack_order", str(stack),
         "--model.input_proj_dim", str(proj),
@@ -63,13 +63,13 @@ def _segments(cfg, seed):
     Te = T // cfg.model.stack_order
     mask = np.ones((B, Te), bool)
     mask[1, Te // 2:] = False
-    shape = (B, cfg.model.lucyrnn.num_tracks, L, D)
+    shape = (B, cfg.model.lucyrnn.num_tracks, L, cfg.model.hidden_size)
     carry = {"h": rng.standard_normal(shape) * 0.3, "s": rng.standard_normal(shape) * 0.3}
     return feats, [None, None, mask], carry
 
 
-def _run_both(kind, tracks, stack, proj):
-    ov = _overrides(tracks, stack, proj)
+def _run_both(kind, tracks, stack, proj, extra=(), d=D):
+    ov = _overrides(tracks, stack, proj, d) + list(extra)
     jcfg, cfg = JConfig().apply_overrides(ov), Config().apply_overrides(ov)
     feats, masks, carry0 = _segments(cfg, seed=tracks * 100 + stack * 10 + max(proj, 0))
     with jax.enable_x64(True):
@@ -111,6 +111,20 @@ def test_asr_model_matches_jax_over_carried_segments(tracks, stack, proj):
 def test_speech_model_matches_jax_over_carried_segments():
     jout, tout = _run_both("speech", 2, 2, 24)
     for (jl, jc), (tl, tc) in zip(jout, tout):
+        np.testing.assert_allclose(tl, jl, rtol=1e-9, atol=1e-10)
+        for k in ("h", "s"):
+            np.testing.assert_allclose(tc[k], jc[k], rtol=1e-9, atol=1e-10)
+
+
+def test_any_variant_but_native_is_the_7_gate_cell():
+    # as in the JAX package (models/asr.py builds LucyRNNEncoder for every
+    # variant but "native"), through convert.py's 7-gate mapping
+    extra = ["--model.lucyrnn.variant", "reference"]
+    cfg = Config().apply_overrides(_overrides(1, 1, -1, 16) + extra)
+    assert init_carry(cfg.model, B, device="cpu")["h"].shape == (B, 1, L, 16)
+    jout, tout = _run_both("asr", 1, 1, -1, extra, d=16)
+    for (jl, jc), (tl, tc) in zip(jout, tout):
+        assert tl.shape == jl.shape == (B, T, V)
         np.testing.assert_allclose(tl, jl, rtol=1e-9, atol=1e-10)
         for k in ("h", "s"):
             np.testing.assert_allclose(tc[k], jc[k], rtol=1e-9, atol=1e-10)
