@@ -282,6 +282,9 @@ FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vo
 XLSTM = ["--model.encoder", "xlstm"]             # E=512, 2 heads, 3 blocks, chunk 128, f32
 MASKED = ["--model.lucyrnn.mask_state_updates", "true"]
 NATIVE = ["--model.lucyrnn.variant", "native"]
+# NeMo Conformer-Transducer's pred_hidden and joint_hidden (conformer_transducer_bpe.yaml,
+# model_defaults): above J = 128 the joint's kernels take the tiled products
+WIDE_JOINER = ["--model.rnnt_pred_emb_dim", "640", "--model.rnnt_joiner_dim", "640"]
 RWKV = ["--model.encoder", "rwkv"]                # 4 × 512, vocab 1024, f32
 CARD = ""                                        # nvidia-smi's name, power limit (main)
 CLI_LOSSES: dict = {}                            # phase_cli's first runs' losses, by tag
@@ -899,6 +902,12 @@ TRAIN_KERNELS = {
     "rnnt banded": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
                     "K8a": (rnnt_band_fwd, 0), "K8b": (rnnt_band_bwd, 0),
                     "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
+    "rnnt J=640": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
+                   "K6a": (rnnt_joint_fwd, 0), "K6b": (rnnt_joint_bwd, 0),
+                   "K7a": (rnnt_alpha, 0), "K7b": (rnnt_beta, 0)},
+    "rnnt banded J=640": {"K1": (lucy_cell_fused_lm, 1), "K2": (lucy_cell_fused_lm_bwd, 1),
+                          "K8a": (rnnt_band_fwd, 0), "K8b": (rnnt_band_bwd, 0),
+                          "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
     "xlstm ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
                   "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
     "ctc k12": {"K12": (lucy_fused_cell, 1), "K5b": (linear_scan_rev, 2),
@@ -1258,13 +1267,18 @@ def check_close(got, want, names, rtol, atol) -> float:
 
 def phase_rnnt_kernels(dev) -> dict:
     """Phase 8: K6a/K6b and K7a/K7b (``phase_exact_lattice``) against their
-    plain versions, with times, bounds and plain times."""
+    plain versions, with times, bounds and plain times; K6 also at J = 640
+    (the tiled products; f32 and bf16 at the training shape) and at a
+    ragged J = 200."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     out = {}
     joint_cases = [("training f32", 32, 1598, 48, 64, 1024, 0, torch.float32),
                    ("training bf16", 32, 1598, 48, 64, 1024, 0, torch.bfloat16),
                    ("ragged f32", 3, 45, 11, 40, 150, 5, torch.float32),
-                   ("U=128 f32", 8, 400, 128, 64, 1024, 0, torch.float32)]
+                   ("U=128 f32", 8, 400, 128, 64, 1024, 0, torch.float32),
+                   ("J=640 training f32", 32, 1598, 48, 640, 1024, 0, torch.float32),
+                   ("J=640 training bf16", 32, 1598, 48, 640, 1024, 0, torch.bfloat16),
+                   ("J=200 ragged f32", 3, 45, 11, 200, 150, 5, torch.float32)]
     for label, B, T, U, J, V, blank_id, dtype in joint_cases:
         enc, pred, k, b, labels, g_blank, g_emit = joint_inputs(gen, B, T, U, J, V, dev, dtype,
                                                                 blank_id)
@@ -1307,7 +1321,8 @@ def phase_rnnt_kernels(dev) -> dict:
             f"{err_f:.3e}, bwd max|Δ| {err_b:.3e}; K6a {ms_f:.4f} ms (plain {plain_f:.2f}, bound "
             f"{bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K6b {ms_b:.4f} ms (plain "
             f"{plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, {bound_b / ms_b:.1%}); library_ms: none")
-        joint_fwd_yardsticks(f"[K6] {label}:", R, V, J, dtype, dev)
+        if J <= 128:
+            joint_fwd_yardsticks(f"[K6] {label}:", R, V, J, dtype, dev)
         out["K6a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
                                "bound_ms": bound_f, "bound_by": by_f}
         out["K6b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
@@ -1581,15 +1596,20 @@ def phase_band_kernels(dev) -> dict:
     """Phase 13: K8a/K8b and the banded lattice against their plain versions
     at the banded training shape (B=32, T=1598, U=128, band 32: Wp=48,
     Tp=1600; J=64, V=1024; f32, and bf16 for K8), with times, bounds and
-    plain times; the banded lattice also at bench.py's B=96 (U=64 and 128),
-    with its chain floor beside its byte bound; and the identity: with band
-    ≥ U+1 the banded loss and its gradients equal the exact loss through
-    K6/K7."""
+    plain times; K8 also at J = 640 (the tiled products; f32 and bf16 at
+    the training shape) and at a ragged J = 200; the banded lattice also at
+    bench.py's B=96 (U=64 and 128), with its chain floor beside its byte
+    bound; and the identity: with band ≥ U+1 the banded loss and its
+    gradients equal the exact loss through K6/K7."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     out = {}
-    B, T, U, J, V, band, Tb = 32, 1598, 128, 64, 1024, 32, 8
-    for dtype in (torch.float32, torch.bfloat16):
-        label = "f32" if dtype == torch.float32 else "bf16"
+    Tb = 8
+    cases = [("f32", 32, 1598, 128, 64, 1024, 32, torch.float32),
+             ("bf16", 32, 1598, 128, 64, 1024, 32, torch.bfloat16),
+             ("J=640 f32", 32, 1598, 128, 640, 1024, 32, torch.float32),
+             ("J=640 bf16", 32, 1598, 128, 640, 1024, 32, torch.bfloat16),
+             ("J=200 ragged f32", 3, 45, 40, 200, 150, 8, torch.float32)]
+    for label, B, T, U, J, V, band, dtype in cases:
         enc, pred, k, b, labels, t_lens, u_lens, o, Wp, Tp, g_blank, g_emit = band_problem(
             gen, B, T, U, J, V, band, Tb, dev, dtype)
         with torch.inference_mode():
@@ -1624,12 +1644,13 @@ def phase_band_kernels(dev) -> dict:
             f"{plain_f:.2f}, bound {bound_f:.4f} ms {by_f}, {bound_f / ms_f:.1%} of it); K8b "
             f"{ms_b:.4f} ms (plain {plain_b:.2f}, bound {bound_b:.4f} ms {by_b}, "
             f"{bound_b / ms_b:.1%}); library_ms: none")
-        joint_fwd_yardsticks(f"[K8] {label}:", R, V, J, dtype, dev)
+        if J <= 128:
+            joint_fwd_yardsticks(f"[K8] {label}:", R, V, J, dtype, dev)
         out["K8a " + label] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
                                "bound_ms": bound_f, "bound_by": by_f}
         out["K8b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
                                "bound_ms": bound_b, "bound_by": by_b}
-        if dtype != torch.float32:
+        if label != "f32":
             continue
         # the banded lattice on the forward's own tables
         blank_b, emit_b = fwd[0].contiguous(), fwd[1].contiguous()
@@ -1668,7 +1689,7 @@ def phase_band_kernels(dev) -> dict:
     # 1 ± δ, δ the drift between its α's and β's f32 round-off; the banded
     # ones divide by each frame's own Z_t.  The gradients agree within δ of
     # their scale, plus the K6 tolerances.
-    B, T, U = 8, 400, 64
+    B, T, U, J, V = 8, 400, 64, 64, 1024
     enc, pred, k, b, labels, t_lens, u_lens, *_ = band_problem(gen, B, T, U, J, V, U + 1, Tb, dev,
                                                                torch.float32)
     with torch.inference_mode():
@@ -1849,10 +1870,11 @@ def phase_rnnt_streaming(model, cfg, dev) -> int:
     return launches
 
 
-def phase_cli_rnnt(seconds=48.0, target=16) -> tuple:
+def phase_cli_rnnt(seconds=48.0, target=16, extra=(), tag="[cli rnnt]") -> tuple:
     """Phase 16: the CLI trains RNN-T for two dispatches on a generated
-    fixture (~100 characters per 16 s segment: the default band).  Returns
-    (the run's directory, the CLI's model and data overrides)."""
+    fixture (~100 characters per 16 s segment: the default band), with
+    ``extra`` overrides.  Returns (the run's directory, the CLI's model and
+    data overrides)."""
     shutil.rmtree(WORK, ignore_errors=True)
     data = write_cli_fixture(WORK, seconds=seconds, cue=target / 4)
     t0 = time.perf_counter()
@@ -1860,13 +1882,13 @@ def phase_cli_rnnt(seconds=48.0, target=16) -> tuple:
               "--data.local_dir", data, "--data.target_duration", str(target),
               "--data.batch_size", "4", "--data.num_workers", "4",
               "--train.segments_per_dispatch", "1", "--train.log_every_n", "2",
-              "--train.mode", "rnnt"]
+              "--train.mode", "rnnt", *extra]
     summary = run_cli(common + ["--train.steps", "2",
                                 "--train.model_dir", os.path.join(WORK, "rnnt")])
     if summary["global_step"] != 2 or len(summary["loss_history"]) != 2:
         raise AssertionError(f"RNN-T CLI run: step {summary['global_step']}, "
                              f"losses {summary['loss_history']}")
-    log(f"[cli rnnt] 4 recordings × {seconds:g} s, {target} s segments: losses "
+    log(f"{tag} 4 recordings × {seconds:g} s, {target} s segments: losses "
         f"{[round(x, 4) for x in summary['loss_history']]} ({time.perf_counter() - t0:.1f} s)")
     return summary["run_dir"], common
 
@@ -2254,8 +2276,9 @@ def phase_lstm(dev) -> dict:
     × 512, vocab 1024, 80 MFCC, f32; the recurrence is torch, with no TPU
     kernel): phase 2's batched encode (the row whose mask ends early carries
     its last valid frame's state; the output past it is zero), a CTC
-    training group of K=2 at B=32 (K3/K4 against their plain versions), and
-    the CLI with no ``--model.encoder``, resumed."""
+    training group of K=1 at B=32 (K3/K4 against their plain versions; one
+    segment, ~7 s a path, to make room for the joiner-640 groups), and the
+    CLI with no ``--model.encoder``, resumed."""
     cfg = Config()
     m = cfg.model
     if m.encoder != "lstm":
@@ -2270,7 +2293,7 @@ def phase_lstm(dev) -> dict:
     del model
     log(f"[lstm batched] the LSTM's 16 s segment at B=32: {per_seg[0]:.1f}, {per_seg[1]:.1f} "
         f"ms unmasked, {per_seg[2]:.1f} ms masked ({m.num_layers} × 1598 steps in torch)")
-    n_train = phase_train_step(cfg, dev, K=2, path="lstm ctc")
+    n_train = phase_train_step(cfg, dev, K=1, path="lstm ctc")
     phase_cli(encoder=None, tag="[cli lstm default]")
     return n_train
 
@@ -2937,6 +2960,9 @@ def main() -> int:
         bwd = {k: v for k, v in hmma.items() if "bwd_rows_mma" in k or "bwd_dk_mma" in k}
         if len(bwd) != 8 or min(bwd.values()) == 0:
             raise AssertionError(f"{lib}: the backward's kernels hold no HMMA: {hmma}")
+        wide = {k: v for k, v in hmma.items() if "wide_gemm" in k}   # J > 128: 4 products × 2
+        if len(wide) != 8 or min(wide.values()) == 0:
+            raise AssertionError(f"{lib}: the tiled products (J > 128) hold no HMMA: {hmma}")
     # so do the mLSTM's product kernels (the chunk and state products): K9a's
     # and K10's forward passes in both libraries, K9b's in mlstm_fused
     fwd_products = ("state_kernel", "fwd_exit_kernel", "fwd_out_kernel")
@@ -2990,10 +3016,16 @@ def main() -> int:
     k8 = phase_band_kernels(dev)
     n_btrain = phase_train_step(cfg, dev, K=2, U=128, mode="rnnt", path="rnnt banded",
                                 degenerate=True)
+    # the joiner 640 wide: K6 and K8 through the tiled products
+    wcfg = cfg.apply_overrides(WIDE_JOINER)
+    n_jtrain = phase_train_step(wcfg, dev, K=2, U=48, mode="rnnt", path="rnnt J=640")
+    n_jbtrain = phase_train_step(wcfg, dev, K=2, U=128, mode="rnnt", path="rnnt banded J=640")
     for U in (64, 128):
         phase_throughput(cfg, dev, K=4, U=U, mode="rnnt")
     run_dir, overrides = phase_cli_rnnt()
     n_reval = phase_eval(run_dir, overrides, ("rnnt-greedy", "rnnt-beam"), dev, "[eval rnnt]")
+    phase_cli_rnnt(extra=WIDE_JOINER + ["--train.rnnt_band", "0"], tag="[cli rnnt J=640 exact]")
+    phase_cli_rnnt(extra=WIDE_JOINER, tag="[cli rnnt J=640 banded]")
 
     k9 = phase_mlstm_kernels(dev)
     xcfg = Config().apply_overrides(XLSTM)
@@ -3066,10 +3098,13 @@ def main() -> int:
 
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
-            + n_mbatched["K1"] + n_btrain["K1"] + n_eval + n_reval + n_bstream
-            + n_multi.get("lucy_cell_fused_lm", 0))
-    n_k2 = (n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"]
+            + n_mbatched["K1"] + n_btrain["K1"] + n_jtrain["K1"] + n_jbtrain["K1"] + n_eval
+            + n_reval + n_bstream + n_multi.get("lucy_cell_fused_lm", 0))
+    n_k2 = (n_train["K2"] + n_rtrain["K2"] + n_btrain["K2"] + n_jtrain["K2"] + n_jbtrain["K2"]
             + n_multi.get("lucy_cell_fused_lm_bwd", 0))
+    n_rnnt = {name: n_rtrain[name] + n_jtrain[name] for name in ("K6a", "K6b", "K7a", "K7b")}
+    n_rnnt.update({name: n_btrain[name] + n_jbtrain[name]
+                   for name in ("K8a", "K8b", "band α", "band β")})
     n_k5a = (n_mbatched["K5a"] + n_mtrain["K5a"] + n_nbatched["K5a"] + n_nstream
              + n_ntrain["K5a"] + n_multi.get("linear_scan_fwd", 0))
     n_k5b = (n_mtrain["K5b"] + n_ktrain["K5b"] + n_dtrain["K5b"] + n_ntrain["K5b"]
@@ -3095,7 +3130,10 @@ def main() -> int:
         f"{n_ktrain['K12']}; K11 batched {n_dbatched['K11']}, train {n_dtrain['K11']}; "
         f"K6a {n_rtrain['K6a']}, K6b {n_rtrain['K6b']}, K7a {n_rtrain['K7a']}, K7b "
         f"{n_rtrain['K7b']} (rnnt train); K8a {n_btrain['K8a']}, K8b {n_btrain['K8b']}, band α "
-        f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); K9a xlstm "
+        f"{n_btrain['band α']}, band β {n_btrain['band β']} (banded rnnt train); at J=640 "
+        f"K6a {n_jtrain['K6a']}, K6b {n_jtrain['K6b']}, K7a {n_jtrain['K7a']}, K7b "
+        f"{n_jtrain['K7b']}, K8a {n_jbtrain['K8a']}, K8b {n_jbtrain['K8b']}, band α "
+        f"{n_jbtrain['band α']}, band β {n_jbtrain['band β']}; K9a xlstm "
         f"batched {n_xbatched['K9a']}, streaming {n_xstream}, train {n_xtrain['K9a']}; K9b "
         f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched); "
         f"K9a {n_k9a}, K9b {n_k9b}, K10 {n_k10} with the multi-GPU ranks'; "
@@ -3109,20 +3147,20 @@ def main() -> int:
         ("ctc_beta", "ctc_lattice.cu", "ctc_pallas.py:92", n_k4, lattice["training"]["beta"]),
         ("linear_scan_fwd", "linear_scan.cu", "lucy_pallas.py:35", n_k5a, k5["K5a f32"]),
         ("linear_scan_rev", "linear_scan.cu", "lucy_pallas.py:118", n_k5b, k5["K5b f32"]),
-        ("rnnt_joint_fwd", "rnnt_joint.cu", "rnnt_pallas.py:72", n_rtrain["K6a"],
+        ("rnnt_joint_fwd", "rnnt_joint.cu", "rnnt_pallas.py:72", n_rnnt["K6a"],
          rk["K6a training f32"]),
-        ("rnnt_joint_bwd", "rnnt_joint.cu", "rnnt_pallas.py:92", n_rtrain["K6b"],
+        ("rnnt_joint_bwd", "rnnt_joint.cu", "rnnt_pallas.py:92", n_rnnt["K6b"],
          rk["K6b training f32"]),
-        ("rnnt_alpha", "rnnt_lattice.cu", "rnnt_dp_pallas.py:69", n_rtrain["K7a"],
+        ("rnnt_alpha", "rnnt_lattice.cu", "rnnt_dp_pallas.py:69", n_rnnt["K7a"],
          rk["K7a training"]),
-        ("rnnt_beta", "rnnt_lattice.cu", "rnnt_dp_pallas.py:93", n_rtrain["K7b"],
+        ("rnnt_beta", "rnnt_lattice.cu", "rnnt_dp_pallas.py:93", n_rnnt["K7b"],
          rk["K7b training"]),
-        ("rnnt_band_fwd", "rnnt_band.cu", "rnnt_band.py:80", n_btrain["K8a"], k8["K8a f32"]),
-        ("rnnt_band_bwd", "rnnt_band.cu", "rnnt_band.py:100", n_btrain["K8b"], k8["K8b f32"]),
+        ("rnnt_band_fwd", "rnnt_band.cu", "rnnt_band.py:80", n_rnnt["K8a"], k8["K8a f32"]),
+        ("rnnt_band_bwd", "rnnt_band.cu", "rnnt_band.py:100", n_rnnt["K8b"], k8["K8b f32"]),
         # the banded lattice is an XLA scan in the JAX package, no TPU kernel
-        ("rnnt_band_alpha", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band α"],
+        ("rnnt_band_alpha", "rnnt_lattice.cu", "rnnt_band.py:319", n_rnnt["band α"],
          k8["band alpha"]),
-        ("rnnt_band_beta", "rnnt_lattice.cu", "rnnt_band.py:319", n_btrain["band β"],
+        ("rnnt_band_beta", "rnnt_lattice.cu", "rnnt_band.py:319", n_rnnt["band β"],
          k8["band beta"]),
         ("mlstm_fused_fwd", "mlstm_fused.cu", "mlstm_fused.py:158", n_k9a, k9["K9a f32"]),
         ("mlstm_fused_bwd", "mlstm_fused.cu", "mlstm_fused.py:251", n_k9b, k9["K9b f32"]),

@@ -10,6 +10,7 @@
 //   K8b  joint_kprep_kernel, joint_bwd_rows_mma_kernel, joint_bwd_rowrec_kernel,
 //        joint_bwd_dk_mma_kernel, band_dpred_kernel
 //        <- _bwd_kernel (:100), launched by _banded_core_bwd (:206)
+//   (J > 128: K6's tiled products over the band's rows, then band_dpred_kernel)
 //
 //   o      (B, nblk) int32 band starts, nblk = Tp/Tb: 8-aligned, >= 0,
 //          non-decreasing along the blocks, o + Wp <= round_up(max(U1, Wp), 8)
@@ -67,9 +68,10 @@ __global__ void band_dpred_kernel(const float* __restrict__ part, const int* __r
 
 }  // namespace
 
-// Each returns the first cudaError_t of its launches (0 on success).  J must
-// be at most 128, blank_id in [0, V), Tb a multiple of 8 dividing Tp, Wp a
-// multiple of 8 (the wrapper checks).
+// Each returns the first cudaError_t of its launches (0 on success).
+// blank_id lies in [0, V), Tb is a multiple of 8 dividing Tp, Wp a multiple
+// of 8 (the wrapper checks).  Above J = 128 kop is the tiled products'
+// scratch (rnnt_joint_core.cuh's WideScratch) and rec unused.
 extern "C" int rnnt_band_fwd(const float* enc, const float* pred, const float* K,
                              const float* bias, const float* ke, const float* be, void* kop,
                              const int* o, float* blank, float* emit, float* lse, int B, int T,

@@ -10,6 +10,10 @@
 //        joint_bwd_rowrec_kernel, joint_bwd_dk_mma_kernel (d_K, d_bias)
 //        <- _bwd_kernel (:92), launched by _core_bwd (:196)
 //
+//   (J > 128, the tiled products: joint_wide_prep_kernel, joint_wide_joint_kernel,
+//   joint_wide_gemm_kernel, then joint_wide_lse_kernel in K6a, joint_wide_denc_kernel
+//   and joint_wide_dpred_kernel in K6b)
+//
 // Rows r = (b*T + t)*U1 + u; blank and lse (B, T, U1), emit (B, T, U).  The
 // backward's rows kernel owns patches of 16 frames x 8 label positions:
 // d_enc_part (B, T, ceil(U1/8), J), d_pred_part (B, ceil(T/16), U1, J).
@@ -26,8 +30,9 @@ Geo exact_geo(int B, int T, int U1, int J, int V) {
 
 }  // namespace
 
-// Each returns the first cudaError_t of its launches (0 on success).  J must
-// be at most 128 and blank_id in [0, V) (the wrapper checks).
+// Each returns the first cudaError_t of its launches (0 on success).
+// blank_id lies in [0, V) (the wrapper checks).  Above J = 128 kop is the
+// tiled products' scratch (rnnt_joint_core.cuh's WideScratch) and rec unused.
 extern "C" int rnnt_joint_fwd(const float* enc, const float* pred, const float* K,
                               const float* bias, const float* ke, const float* be, void* kop,
                               float* blank, float* emit, float* lse, int B, int T, int U1, int J,

@@ -104,12 +104,29 @@
 // Both recompute the logits, a fourth contraction: a block cannot hold d_K for
 // the whole vocabulary (J x V f32 is 256 KB at J=64, V=1024).  Only the
 // per-row lse is saved by the forward; nothing joint-sized is kept.
+//
+// J > 128 (any J; the offsets into enc and pred are int32): the kernels above
+// keep a warp's A fragments in registers (about J/2 of them a thread under
+// 3xTF32) and 128 rows' f32 joint in shared memory (330 KB at J=640), so they
+// stop at 128.  Above, the same function runs as tiled products over chunks
+// of whole patch rows (at most 65,536 rows), joint_wide_gemm_kernel and its
+// helpers below: the logits, d_logits, d_joint and [joint | 1]^T d_logits
+// each a product of 64 x 128 output tiles whose contraction goes in slices of
+// 64 through a two-stage cp.async ring, every slice's product alone on the
+// tensor cores and added in f32; K (once a call) and each chunk's joint (tanh
+// once an element) in the operand type, its logits (forward) or d_logits and
+// d_joint (backward) pass through the wrapper's scratch.  The f32 joint is
+// formed once more for tanh' and for the emit logit; the logits are
+// recomputed once in the backward, in the forward's order from the same
+// operands, so d_logits rests on the saved lse bit for bit; every partial is
+// added in a fixed order.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -1108,6 +1125,486 @@ bool offsets_fit(const Geo& g) {
          static_cast<long long>(g.B) * g.U1 * g.J <= INT32_MAX;
 }
 
+// ---------------------------------------------------------------------------
+// J > 128: the joint as tiled products over chunks of rows
+// ---------------------------------------------------------------------------
+// Rows go in chunks of whole patch rows (PT frames of one batch row, every
+// position), at most kWideRows rows unless one patch row is more.  The
+// wrapper's scratch (WideScratch) holds K in the operand type (J x Vp, Vp =
+// V rounded up to 8; written once a call), then per chunk its joint in the
+// operand type (rows x JW, JW = J + 1 rounded up to 8: column J holds 1,
+// the columns past it 0), its logits (f32) or d_logits (operand type; rows
+// x Vp, 0 past V) and, backward, its d_joint (f32, rows x J).  One kernel,
+// joint_wide_gemm_kernel, takes every product: a block owns a kWM x kWN tile
+// of the output and walks the contraction in slices of kWK, the operands'
+// tiles plain 16-byte copies through a two-stage cp.async ring, each slice's
+// product summed alone on the tensor cores (f32 split to 3xTF32 at the
+// fragment load; bf16 as stored) and added to the total in f32 (no long
+// accumulator chain):
+//   kLogits   logits (rows x V) = joint . K + bias;
+//   kDLogits  the same products in the same order, so the same bits, turned
+//             into d_logits from the row's saved lse in the epilogue;
+//   kDJoint   d_joint (rows x J) = d_logits . K^T, times (1 - joint^2) (the
+//             f32 joint, formed again in the epilogue);
+//   kDK       [joint | 1]^T . d_logits ((J+1) x V), row tiles of 64 split
+//             over blockIdx.z and added, chunk after chunk, into the split's
+//             partial: d_K, and in row J (the joint's column of ones) d_bias.
+// joint_wide_prep_kernel writes K's operand form, joint_wide_joint_kernel a
+// chunk's joint (tanh once an element); joint_wide_lse_kernel (a warp a row)
+// takes lse, blank and emit from the chunk's logits; joint_wide_denc_kernel
+// and joint_wide_dpred_kernel sum a chunk's d_joint into the rows kernel's
+// partial layout, in a fixed order.
+constexpr int kWideRows = 65536;     // rows of a chunk (rnnt_joint.py's _WIDE_ROWS)
+constexpr int kWM = 64, kWN = 128, kWK = 64;
+
+enum WideMode { kLogits, kDLogits, kDJoint, kDK };
+
+struct WideArgs {
+  const float *enc, *pred, *bias;
+  const int* labels;
+  const float *lse, *g_blank, *g_emit;
+  const void* KO;                    // K in the operand type, J x Vp
+  void* JS;                          // the chunk's joint in the operand type, rows x JW
+  void* S;                           // its logits (f32) or d_logits (operand type), rows x Vp
+  float* DJ;                         // its d_joint, rows x J
+  float *dk_part, *db_part;          // (nsplit, J, V), (nsplit, V)
+  long long c0, c1;                  // the chunk's rows
+  int JW, Vp, blank_id, accumulate;  // accumulate: add to the partials (not the first chunk)
+};
+
+int round8(int x) { return (x + 7) / 8 * 8; }
+
+// Word offsets of the scratch's regions, each sized as f32 (the bf16 ones
+// half used); rnnt_joint.py's wide_scratch_words.  The forward uses all but
+// d_joint, the last.
+struct WideScratch {
+  long long ko, js, s, dj, words;
+};
+
+WideScratch wide_scratch(const Geo& g, long long rows) {
+  const long long JW = round8(g.J + 1), Vp = round8(g.V);
+  WideScratch w;
+  w.ko = 0;
+  w.js = g.J * Vp;
+  w.s = w.js + rows * JW;
+  w.dj = w.s + rows * Vp;
+  w.words = w.dj + rows * g.J;
+  return w;
+}
+
+// Shared tiles: A (m, k) row-major [m][k], or k-major [k][m] (kDK: the joint
+// transposed); B (k, n) k-major [k][n], or n-major [n][k] (kDJoint: K^T);
+// two stages of both
+template <int MODE, bool BF>
+struct WideLayout {
+  static constexpr bool AK = MODE == kDK, BK = MODE != kDJoint;
+  static constexpr int PAD = BF ? 8 : 4;          // rows stay 16-byte aligned
+  static constexpr int SA = kWM + PAD;            // kWM == kWK: either layout
+  static constexpr int SB = (BK ? kWN : kWK) + PAD;
+  static constexpr int A_ELEMS = kWK * SA, B_ELEMS = (BK ? kWK : kWN) * SB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr size_t bytes() { return sizeof(Op<BF>) * 2 * STAGE; }
+};
+
+// Row r's offsets into enc and pred (-1: reads 0; rows past c1 read none)
+__device__ __forceinline__ void wide_offsets(const Geo& g, long long r, long long c1, int& eo,
+                                             int& po) {
+  eo = po = -1;
+  if (r >= c1) return;
+  const RowPos p = row_pos(g, r);
+  if (p.t < g.T) eo = (p.b * g.T + p.t) * g.J;
+  if (p.u < g.U1) po = (p.b * g.U1 + p.u) * g.J;
+}
+
+__device__ __forceinline__ float wide_joint(const WideArgs& a, int eo, int po, int j) {
+  return tanhf((eo >= 0 ? a.enc[eo + j] : 0.0f) + (po >= 0 ? a.pred[po + j] : 0.0f));
+}
+
+// 16-byte cp.async, zero-filled (nothing read) unless ok
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+// The ROWS x COLS tile whose (r, c) is base[(r0 + r)*ss + c0 + c] into dst
+// (row stride ds) by 16-byte copies; a copy at a row at or past row_lim, or
+// whose first column is at or past col_lim (both from the tile's corner;
+// col_lim a multiple of a copy's elements), is zero-filled
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void copy_tile(T* dst, int ds, const T* base, long long r0, int c0,
+                                          int ss, int row_lim, int col_lim) {
+  constexpr int CH = 16 / static_cast<int>(sizeof(T)), NC = COLS / CH;
+  for (int e = threadIdx.x; e < ROWS * NC; e += kThreads) {
+    const int r = e / NC, c = (e % NC) * CH;
+    const bool ok = r < row_lim && c < col_lim;
+    cp_async16_zfill(dst + r * ds + c, ok ? base + (r0 + r) * ss + c0 + c : base, ok);
+  }
+}
+
+// grid: kLogits/kDLogits (ceil(V/kWN), ceil(rows/kWM)); kDJoint (ceil(J/kWN),
+// ceil(rows/kWM)); kDK (ceil(V/kWN), ceil((J+1)/kWM), nsplit).  Warp w owns
+// the output's rows 16*(w%4) .. +16 and columns 64*(w/4) .. +64.
+template <int MODE, bool BF>
+__global__ void __launch_bounds__(kThreads, 2)
+joint_wide_gemm_kernel(WideArgs a, Geo g) {
+  using L = WideLayout<MODE, BF>;
+  using T = Op<BF>;
+  constexpr int NT = kWN / 2 / 8;                 // n-tiles of a warp
+  extern __shared__ float4 smem4[];
+  T* smem = reinterpret_cast<T*>(smem4);          // [2][STAGE]: A, then B
+  __shared__ int s_eo[kWM], s_po[kWM], s_lab[kWM];
+  __shared__ float s_gb[kWM], s_ge[kWM], s_ls[kWM];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n0 = blockIdx.x * kWN;                // output columns: v, or j under kDJoint
+  const int m0 = blockIdx.y * kWM;                // output rows: chunk rows, or j under kDK
+  const int nrows = static_cast<int>(a.c1 - a.c0);
+  const T* JS = static_cast<const T*>(a.JS);
+  const T* KO = static_cast<const T*>(a.KO);
+  const T* D = static_cast<const T*>(a.S);
+
+  if (MODE != kDK && tid < kWM) {                 // the block's rows, for the epilogue
+    const long long r = a.c0 + m0 + tid;
+    wide_offsets(g, r, a.c1, s_eo[tid], s_po[tid]);
+    if (MODE == kDLogits) {
+      const RowRec x = row_record(g, r < a.c1 ? r : -1, a.labels, a.lse, a.g_blank, a.g_emit);
+      s_lab[tid] = x.lab;
+      s_gb[tid] = x.gb;
+      s_ge[tid] = x.ge;
+      s_ls[tid] = x.ls;
+    }
+  }
+  const int nk = MODE == kDJoint ? (g.V + kWK - 1) / kWK
+               : MODE == kDK     ? (nrows + kWK - 1) / kWK
+                                 : (g.J + kWK - 1) / kWK;
+  const int first = MODE == kDK ? static_cast<int>(blockIdx.z) : 0;
+  const int step = MODE == kDK ? static_cast<int>(gridDim.z) : 1;
+
+  auto issue = [&](int ks, int stage) {           // slice ks's tiles into a stage
+    T* As = smem + stage * L::STAGE;
+    T* Bs = As + L::A_ELEMS;
+    const int k0 = ks * kWK;
+    if (MODE == kDJoint) {                        // d_logits [row][v]; K [j][v] as B's [n][k]
+      copy_tile<T, kWM, kWK>(As, L::SA, D, m0, k0, a.Vp, nrows - m0, a.Vp - k0);
+      copy_tile<T, kWN, kWK>(Bs, L::SB, KO, n0, k0, a.Vp, g.J - n0, a.Vp - k0);
+    } else if (MODE == kDK) {                     // joint [row][j] as A's [k][m]; d_logits
+      copy_tile<T, kWK, kWM>(As, L::SA, JS, k0, m0, a.JW, nrows - k0, a.JW - m0);
+      copy_tile<T, kWK, kWN>(Bs, L::SB, D, k0, n0, a.Vp, nrows - k0, a.Vp - n0);
+    } else {                                      // joint [row][j]; K [j][v]
+      copy_tile<T, kWM, kWK>(As, L::SA, JS, m0, k0, a.JW, nrows - m0, a.JW - k0);
+      copy_tile<T, kWK, kWN>(Bs, L::SB, KO, k0, n0, a.Vp, g.J - k0, a.Vp - n0);
+    }
+    cp_async_commit();
+  };
+
+  float tot[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[n][e] = 0.0f;
+
+  if (first < nk) issue(first, 0);
+  for (int ks = first, it = 0; ks < nk; ks += step, ++it) {
+    const int cur = it & 1;
+    if (ks + step < nk) {                         // into the stage slice it-1 used
+      issue(ks + step, cur ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                              // slice ks has landed
+    const T* As = smem + cur * L::STAGE;
+    const T* Bs = As + L::A_ELEMS;
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    const T* Aw = As + (L::AK ? 16 * wm : 16 * wm * L::SA);
+    const T* Bw = Bs + (L::BK ? 64 * wn : 64 * wn * L::SB);
+    if constexpr (BF)
+      warp_mma_ldsm<kWK, NT, L::AK, L::BK>(Aw, L::SA, Bw, L::SB, lane, acc);
+    else
+      warp_mma_3xtf32<kWK, NT>(Aw, L::AK ? 1 : L::SA, L::AK ? L::SA : 1, Bw, L::BK ? L::SB : 1,
+                               L::BK ? 1 : L::SB, gq, tq, acc);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[n][e] += acc[n][e];
+    __syncthreads();                              // the next issue overwrites this stage
+  }
+
+  // the thread's outputs: rows 16wm + gq + 8(e/2), columns 64wn + 8n + 2tq + e%2
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * wm + gq + 8 * (e >> 1), c = n0 + 64 * wn + 8 * n + 2 * tq + (e & 1);
+      const float x = tot[n][e];
+      if (MODE == kDK) {                          // i + m0 = j, c = v
+        const int j = m0 + i;
+        if (c >= g.V || j > g.J) continue;
+        float* dst = j < g.J ? a.dk_part + (static_cast<size_t>(blockIdx.z) * g.J + j) * g.V + c
+                             : a.db_part + static_cast<size_t>(blockIdx.z) * g.V + c;
+        *dst = a.accumulate ? *dst + x : x;
+        continue;
+      }
+      if (m0 + i >= nrows) continue;
+      const size_t row = static_cast<size_t>(m0 + i);
+      if (MODE == kDJoint) {                      // c = j: times tanh' of the f32 joint
+        if (c >= g.J) continue;
+        const float y = wide_joint(a, s_eo[i], s_po[i], c);
+        a.DJ[row * g.J + c] = x * (1.0f - y * y);
+        continue;
+      }
+      if (c >= a.Vp) continue;                    // c = v
+      if (MODE == kLogits) {
+        if (c < g.V) static_cast<float*>(a.S)[row * a.Vp + c] = x + logit_bias(a.bias, g, c, BF);
+      } else {                                    // d_logits, 0 past V, in the operand type
+        const float gb = s_gb[i], ge = s_ge[i];
+        const float d = c < g.V ? dlogit(x + logit_bias(a.bias, g, c, BF), -(gb + ge),
+                                         s_ls[i] * kLog2e, gb, ge, c, a.blank_id, s_lab[i])
+                                : 0.0f;
+        static_cast<T*>(a.S)[row * a.Vp + c] = to_op<T>(d);
+      }
+    }
+}
+
+// K in the operand type, J x Vp, 0 past V
+template <bool BF>
+__global__ void joint_wide_prep_kernel(const float* __restrict__ K, Geo g, int Vp, void* KO) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(g.J) * Vp) return;
+  const int j = static_cast<int>(e / Vp), v = static_cast<int>(e % Vp);
+  static_cast<Op<BF>*>(KO)[e] = to_op<Op<BF>>(v < g.V ? K[static_cast<size_t>(j) * g.V + v] : 0.0f);
+}
+
+// The chunk's joint in the operand type, a warp a row: tanh(enc + pred) for
+// j < J, 1 at j = J (d_bias's row of the d_K product), 0 past it
+template <bool BF>
+__global__ void joint_wide_joint_kernel(WideArgs a, Geo g) {
+  using T = Op<BF>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = a.c0 + static_cast<long long>(blockIdx.x) * (kThreads / 32) + warp;
+  if (r >= a.c1) return;
+  int eo, po;
+  wide_offsets(g, r, a.c1, eo, po);
+  T* dst = static_cast<T*>(a.JS) + static_cast<size_t>(r - a.c0) * a.JW;
+  for (int j = lane; j < a.JW; j += 32)
+    dst[j] = to_op<T>(j < g.J ? wide_joint(a, eo, po, j) : (j == g.J ? 1.0f : 0.0f));
+}
+
+// lse, blank and emit of the chunk's rows from their logits (a warp a row):
+// lse = m + log(sum 2^((l - m) log2(e))); the emit logit is the f32 joint .
+// ke + be, as the J <= 128 forward takes it.
+__global__ void joint_wide_lse_kernel(WideArgs a, Geo g, const float* __restrict__ ke,
+                                      const float* __restrict__ be, float* __restrict__ blank_out,
+                                      float* __restrict__ emit_out, float* __restrict__ lse_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = a.c0 + static_cast<long long>(blockIdx.x) * (kThreads / 32) + warp;
+  if (r >= a.c1) return;
+  const float* lr = static_cast<const float*>(a.S) + static_cast<size_t>(r - a.c0) * a.Vp;
+  float m = kNoLogit;
+  for (int v = lane; v < g.V; v += 32) m = fmaxf(m, lr[v]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float m2 = m * kLog2e;
+  float s = 0.0f;
+  for (int v = lane; v < g.V; v += 32) s += ex2(fmaf(lr[v], kLog2e, -m2));
+  int eo, po;
+  wide_offsets(g, r, a.c1, eo, po);
+  const RowPos p = row_pos(g, r);
+  const int ko = p.u < g.U ? p.b * g.U + p.u : -1;
+  float e = 0.0f;
+  if (ko >= 0)
+    for (int j = lane; j < g.J; j += 32)
+      e = fmaf(wide_joint(a, eo, po, j), ke[static_cast<size_t>(ko) * g.J + j], e);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    e += __shfl_xor_sync(0xffffffffu, e, off);
+  }
+  if (lane != 0) return;
+  const float ls = m + logf(s);
+  lse_out[r] = ls;
+  blank_out[r] = lr[a.blank_id] - ls;
+  const float em = (ko >= 0 ? e + be[ko] : 0.0f) - ls;
+  if (g.o != nullptr)
+    emit_out[r] = em;                             // K8: every row
+  else if (p.u < g.U)
+    emit_out[p.bt * g.U + p.u] = em;
+}
+
+// d_enc_part[bt, grp, j] = sum over the group's 8 positions w of d_joint[(bt, w), j],
+// for the chunk's frames bt (the rows kernel's layout: n_grp groups a frame)
+__global__ void joint_wide_denc_kernel(WideArgs a, Geo g, int n_grp,
+                                       float* __restrict__ d_enc_part) {
+  const long long f0 = a.c0 / g.W;
+  const long long n = (a.c1 - a.c0) / g.W * n_grp * g.J;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int j = static_cast<int>(e % g.J);
+  const long long q = e / g.J;
+  const int grp = static_cast<int>(q % n_grp);
+  const long long f = q / n_grp;                  // the frame within the chunk
+  float s = 0.0f;
+  for (int w = 8 * grp; w < min(8 * grp + 8, g.W); ++w)
+    s += a.DJ[static_cast<size_t>(f * g.W + w) * g.J + j];
+  d_enc_part[((f0 + f) * n_grp + grp) * g.J + j] = s;
+}
+
+// d_pred_part[b, pt, w, j] = sum over the patch's frames t of d_joint[(b, t, w), j],
+// for the chunk's patch rows P0 .. P1 (P = b*n_t + pt)
+__global__ void joint_wide_dpred_kernel(WideArgs a, Geo g, int n_t, long long P0, long long P1,
+                                        float* __restrict__ d_pred_part) {
+  const long long n = (P1 - P0) * g.W * g.J;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int j = static_cast<int>(e % g.J);
+  const int w = static_cast<int>((e / g.J) % g.W);
+  const long long P = P0 + e / (static_cast<long long>(g.J) * g.W);
+  const int b = static_cast<int>(P / n_t), pt = static_cast<int>(P % n_t);
+  float s = 0.0f;
+  for (int t = pt * g.PT; t < min(pt * g.PT + g.PT, g.TT); ++t) {
+    const long long row = (static_cast<long long>(b) * g.TT + t) * g.W + w - a.c0;
+    s += a.DJ[static_cast<size_t>(row) * g.J + j];
+  }
+  d_pred_part[(static_cast<size_t>(P) * g.W + w) * g.J + j] = s;
+}
+
+// The chunks: patch rows P (b*n_t + pt, n_t = ceil(TT/PT)) start at row
+// (b*TT + min(pt*PT, TT))*W; a chunk holds `per` of them
+struct WideChunks {
+  int n_t;
+  long long npr, per;
+  long long rows_of(const Geo& g, long long P) const {
+    const long long b = P / n_t, pt = P % n_t;
+    return (b * g.TT + std::min<long long>(pt * g.PT, g.TT)) * g.W;
+  }
+  long long scratch_rows(const Geo& g) const { return std::min<long long>(g.R, per * g.PT * g.W); }
+};
+
+WideChunks wide_chunks(const Geo& g) {
+  WideChunks c;
+  c.n_t = (g.TT + g.PT - 1) / g.PT;
+  c.npr = static_cast<long long>(g.B) * c.n_t;
+  c.per = std::max<long long>(1, kWideRows / (static_cast<long long>(g.PT) * g.W));
+  return c;
+}
+
+template <int MODE, bool BF>
+cudaError_t set_wide_smem() {
+  return cudaFuncSetAttribute(joint_wide_gemm_kernel<MODE, BF>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(WideLayout<MODE, BF>::bytes()));
+}
+
+template <int MODE, bool BF>
+cudaError_t launch_wide_gemm(const WideArgs& a, const Geo& g, dim3 grid, cudaStream_t stream) {
+  const cudaError_t e = set_wide_smem<MODE, BF>();
+  if (e != cudaSuccess) return e;
+  joint_wide_gemm_kernel<MODE, BF><<<grid, kThreads, WideLayout<MODE, BF>::bytes(), stream>>>(a, g);
+  return cudaGetLastError();
+}
+
+unsigned wide_tiles(long long n, int tile) { return static_cast<unsigned>((n + tile - 1) / tile); }
+
+// The scratch's regions and K's operand form, once a call
+template <bool BF>
+WideArgs wide_args(const float* enc, const float* pred, const float* K, const float* bias,
+                   const Geo& g, int blank_id, float* scratch, cudaStream_t stream) {
+  const WideChunks ch = wide_chunks(g);
+  const WideScratch w = wide_scratch(g, ch.scratch_rows(g));
+  WideArgs a{enc, pred, bias, nullptr, nullptr, nullptr, nullptr, scratch + w.ko, scratch + w.js,
+             scratch + w.s, scratch + w.dj, nullptr, nullptr, 0, 0, round8(g.J + 1),
+             round8(g.V), blank_id, 0};
+  joint_wide_prep_kernel<BF><<<wide_tiles(static_cast<long long>(g.J) * a.Vp, 256), 256, 0,
+                               stream>>>(K, g, a.Vp, scratch + w.ko);
+  return a;
+}
+
+// The forward at J > 128: per chunk, the joint, the logits, then lse, blank
+// and emit.  scratch: WideScratch's words but d_joint's.
+template <bool BF>
+int launch_fwd_wide(const float* enc, const float* pred, const float* K, const float* bias,
+                    const float* ke, const float* be, const Geo& g, int blank_id, float* scratch,
+                    float* blank, float* emit, float* lse, cudaStream_t stream) {
+  const WideChunks ch = wide_chunks(g);
+  WideArgs a = wide_args<BF>(enc, pred, K, bias, g, blank_id, scratch, stream);
+  cudaError_t e = cudaGetLastError();
+  for (long long P0 = 0; P0 < ch.npr && e == cudaSuccess; P0 += ch.per) {
+    a.c0 = ch.rows_of(g, P0);
+    a.c1 = ch.rows_of(g, std::min(ch.npr, P0 + ch.per));
+    const unsigned rt = wide_tiles(a.c1 - a.c0, kThreads / 32);
+    joint_wide_joint_kernel<BF><<<rt, kThreads, 0, stream>>>(a, g);
+    e = launch_wide_gemm<kLogits, BF>(
+        a, g, dim3(wide_tiles(g.V, kWN), wide_tiles(a.c1 - a.c0, kWM)), stream);
+    if (e != cudaSuccess) break;
+    joint_wide_lse_kernel<<<rt, kThreads, 0, stream>>>(a, g, ke, be, blank, emit, lse);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
+}
+
+// The backward at J > 128: per chunk, the joint, d_logits, d_joint, its sums
+// into the rows kernel's partials, and d_K and d_bias added into the split's
+// partials.  scratch: WideScratch's words.
+template <bool BF>
+int launch_bwd_wide(const float* enc, const float* pred, const float* K, const float* bias,
+                    const int* labels, const float* lse, const float* g_blank,
+                    const float* g_emit, const Geo& g, int blank_id, int nsplit, float* scratch,
+                    float* d_enc_part, float* d_pred_part, float* dk_part, float* db_part,
+                    cudaStream_t stream) {
+  const WideChunks ch = wide_chunks(g);
+  const int n_grp = (g.W + g.PU - 1) / g.PU * (g.PU / 8);
+  WideArgs a = wide_args<BF>(enc, pred, K, bias, g, blank_id, scratch, stream);
+  a.labels = labels;
+  a.lse = lse;
+  a.g_blank = g_blank;
+  a.g_emit = g_emit;
+  a.dk_part = dk_part;
+  a.db_part = db_part;
+  cudaError_t e = cudaGetLastError();
+  for (long long P0 = 0; P0 < ch.npr && e == cudaSuccess; P0 += ch.per) {
+    const long long P1 = std::min(ch.npr, P0 + ch.per);
+    a.c0 = ch.rows_of(g, P0);
+    a.c1 = ch.rows_of(g, P1);
+    a.accumulate = P0 > 0;
+    const unsigned mt = wide_tiles(a.c1 - a.c0, kWM);   // a patch row holds a frame at least
+    joint_wide_joint_kernel<BF><<<wide_tiles(a.c1 - a.c0, kThreads / 32), kThreads, 0, stream>>>(
+        a, g);
+    e = launch_wide_gemm<kDLogits, BF>(a, g, dim3(wide_tiles(g.V, kWN), mt), stream);
+    if (e == cudaSuccess)
+      e = launch_wide_gemm<kDJoint, BF>(a, g, dim3(wide_tiles(g.J, kWN), mt), stream);
+    if (e == cudaSuccess) {
+      const long long ne = (a.c1 - a.c0) / g.W * n_grp * g.J;
+      joint_wide_denc_kernel<<<wide_tiles(ne, 256), 256, 0, stream>>>(a, g, n_grp, d_enc_part);
+      const long long np = (P1 - P0) * g.W * g.J;
+      joint_wide_dpred_kernel<<<wide_tiles(np, 256), 256, 0, stream>>>(a, g, ch.n_t, P0, P1,
+                                                                       d_pred_part);
+      e = cudaGetLastError();
+    }
+    // every chunk writes (the first) or adds to every split's d_K and d_bias
+    if (e == cudaSuccess)
+      e = launch_wide_gemm<kDK, BF>(a, g, dim3(wide_tiles(g.V, kWN), wide_tiles(g.J + 1, kWM),
+                                               nsplit),
+                                    stream);
+  }
+  return static_cast<int>(e);
+}
+
+// The d_K product's blocks resident on one SM (the wrapper sizes nsplit by it)
+template <bool BF>
+int joint_sizes_wide(int* out) {
+  cudaError_t e = set_wide_smem<kDK, BF>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], joint_wide_gemm_kernel<kDK, BF>,
+                                                    kThreads, WideLayout<kDK, BF>::bytes());
+  out[1] = 0;
+  return static_cast<int>(e);
+}
+
 template <int JP, bool BF>
 int launch_fwd_mma(const float* enc, const float* pred, const float* K, const float* bias,
                    const float* ke, const float* be, const Geo& g, int blank_id, uint32_t* kop,
@@ -1126,10 +1623,11 @@ int launch_fwd_mma(const float* enc, const float* pred, const float* K, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward's kernels at J <= 64 or J <= 128, f32 (bf = 0) or bf16.  ke
-// (B, U, J) and be (B, U) from the wrapper: K's f32 column and the bias at
-// each label (0 where it selects no column); kop, joint_sizes' out[1] words
-// of scratch (K's operand form).
+// The forward's kernels at J <= 64, J <= 128 or (the tiled products) any
+// wider J, f32 (bf = 0) or bf16.  ke (B, U, J) and be (B, U) from the
+// wrapper: K's f32 column and the bias at each label (0 where it selects no
+// column); kop, scratch: joint_sizes' out[1] words (K's operand form) at J <=
+// 128, WideChunks::scratch_rows x V floats (a chunk's logits) above.
 int launch_fwd(const float* enc, const float* pred, const float* K, const float* bias,
                const float* ke, const float* be, const Geo& g, int blank_id, int bf, void* kop,
                float* blank, float* emit, float* lse, cudaStream_t stream) {
@@ -1140,7 +1638,11 @@ int launch_fwd(const float* enc, const float* pred, const float* K, const float*
   if (g.J <= 64) return bf ? SC_FWD(64, true) : SC_FWD(64, false);
   if (g.J <= 128) return bf ? SC_FWD(128, true) : SC_FWD(128, false);
 #undef SC_FWD
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* sc = static_cast<float*>(kop);
+  return bf ? launch_fwd_wide<true>(enc, pred, K, bias, ke, be, g, blank_id, sc, blank, emit, lse,
+                                    stream)
+            : launch_fwd_wide<false>(enc, pred, K, bias, ke, be, g, blank_id, sc, blank, emit, lse,
+                                     stream);
 }
 
 // The patch grid of the rows kernel: (ceil(W/PU), ceil(TT/PT), B)
@@ -1161,8 +1663,9 @@ int set_bwd_smem() {
 
 // The sizes the wrappers allocate and launch by: out[0] = blocks of the d_K
 // kernel resident on one SM (its grid is sized from it), out[1] = 32-bit
-// words of K's operand form (KTile), for both directions.  Returns a
-// cudaError_t.
+// words of K's operand form (KTile), for both directions; above J = 128 the
+// d_K product's blocks and 0 (the wrapper sizes the chunks' scratch).
+// Returns a cudaError_t.
 template <int JP, bool BF>
 int joint_sizes(int V, int* out) {
   const int err = set_bwd_smem<JP, BF>();
@@ -1176,7 +1679,7 @@ int joint_sizes(int V, int* out) {
 int joint_sizes(int J, int V, int bf, int* out) {
   if (J <= 64) return bf ? joint_sizes<64, true>(V, out) : joint_sizes<64, false>(V, out);
   if (J <= 128) return bf ? joint_sizes<128, true>(V, out) : joint_sizes<128, false>(V, out);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bf ? joint_sizes_wide<true>(out) : joint_sizes_wide<false>(out);
 }
 
 template <int JP, bool BF>
@@ -1205,10 +1708,12 @@ int launch_bwd_mma(const float* enc, const float* pred, const float* K, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's kernels at J <= 64 or J <= 128, f32 (bf = 0) or bf16.
-// Scratch from the wrapper: rec, 6 * ceil(R/64)*64 ints (the row records),
-// and kop, joint_sizes' out[1] words (K's operand form).  The offsets into enc
-// and pred are int32.
+// The backward's kernels at J <= 64, J <= 128 or (the tiled products) any
+// wider J, f32 (bf = 0) or bf16.  Scratch from the wrapper at J <= 128: rec,
+// 6 * ceil(R/64)*64 ints (the row records), and kop, joint_sizes' out[1]
+// words (K's operand form); above, kop alone, WideChunks::scratch_rows x
+// (V + J) floats (a chunk's d_logits and d_joint).  The offsets into enc and
+// pred are int32.
 int launch_bwd(const float* enc, const float* pred, const float* K, const float* bias,
                const int* labels, const float* lse, const float* g_blank, const float* g_emit,
                const Geo& g, int blank_id, int bf, int nsplit, int* rec, void* kop,
@@ -1222,7 +1727,11 @@ int launch_bwd(const float* enc, const float* pred, const float* K, const float*
   if (g.J <= 64) return bf ? SC_BWD(64, true) : SC_BWD(64, false);
   if (g.J <= 128) return bf ? SC_BWD(128, true) : SC_BWD(128, false);
 #undef SC_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+#define SC_WIDE(BF)                                                                        \
+  launch_bwd_wide<BF>(enc, pred, K, bias, labels, lse, g_blank, g_emit, g, blank_id, nsplit, \
+                      static_cast<float*>(kop), d_enc_part, d_pred_part, dk_part, db_part, stream)
+  return bf ? SC_WIDE(true) : SC_WIDE(false);
+#undef SC_WIDE
 }
 
 Geo make_geo(int B, int T, int TT, int W, int U1, int J, int V, const int* o, int Tb, int PT) {

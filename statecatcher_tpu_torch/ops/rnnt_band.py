@@ -229,7 +229,7 @@ def rnnt_band_fwd(enc_p, pred_p, join_kernel, join_bias, labels, o, Wp: int,
     o32, Tp = _band_args(o, B, T, Wp, time_block, dev)
     from statecatcher_tpu_torch.ops._kernels import library
 
-    ops = fwd_operands("rnnt_band", args, J, V, bf)
+    ops = fwd_operands("rnnt_band", args, J, V, bf, Tp, Wp, 8)  # rnnt_band.cu: 8 × 16 patches
     blank, emit, lse = (torch.empty((B, Tp, Wp), dtype=torch.float32, device=dev)
                         for _ in range(3))
     with torch.cuda.device(dev):

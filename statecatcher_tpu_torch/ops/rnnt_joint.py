@@ -29,6 +29,10 @@ Bounds on the card (operations; see the source): at B=32, T=1598, U=48,
 J=64, V=1024 the forward is 3.3e11 flops of contraction, the backward three
 times that (the logits once more, d_joint, d_K); the kernels of both take
 them on the tensor cores (3xTF32 for f32 inputs, bf16 for bf16 inputs).
+Above J = 128 the kernels take the same function as tiled products over
+chunks of rows (``wide_chunk_rows``), K's operand form and the chunk's
+joint, logits or d_logits and d_joint in a scratch this wrapper allocates
+(``wide_scratch_words``); J has no other limit.
 
 ``joint_blank_emit_ref`` and ``joint_blank_emit_bwd_ref`` are the plain
 versions: per time chunk, tanh, matmul, logsumexp and gathers (backward:
@@ -44,7 +48,8 @@ import torch
 
 from statecatcher_tpu_torch.ops.rnnt_lattice import rnnt_nll_dp_pallas
 
-_MAX_J = 128            # rnnt_joint.cu instantiates J ≤ 64 and J ≤ 128
+_NARROW_J = 128         # rnnt_joint_core.cuh's J ≤ 64 and J ≤ 128 instances; above, tiled products
+_WIDE_ROWS = 65536      # its kWideRows: rows of a chunk of the tiled products
 _PLAIN_CHUNK = 16       # frames per chunk of the plain versions
 _PATCH_ROWS = 128       # rnnt_joint_core.cuh's kRT: rows of a backward patch
 _DK_ROWS = 64           # its kDR: rows per tile of the d_K kernel
@@ -158,9 +163,8 @@ def _kernel_args(enc_p, pred_p, join_kernel, join_bias, labels, blank_id):
     if join_bias.shape != (V,) or labels.shape != (B, U1 - 1):
         raise ValueError(f"join_bias {tuple(join_bias.shape)} or labels {tuple(labels.shape)} "
                          f"do not fit V={V}, B={B}, U={U1 - 1}")
-    if min(B, T, U1, J, V) == 0 or J > _MAX_J:
-        raise ValueError(f"unsupported joint shape B={B}, T={T}, U+1={U1}, J={J}, V={V} "
-                         f"(J at most {_MAX_J})")
+    if min(B, T, U1, J, V) == 0:
+        raise ValueError(f"unsupported joint shape B={B}, T={T}, U+1={U1}, J={J}, V={V}")
     if not 0 <= blank_id < V:
         raise ValueError(f"blank_id {blank_id} outside the vocab of {V}")
     if enc_p.dtype not in (torch.float32, torch.bfloat16) or pred_p.dtype != enc_p.dtype:
@@ -178,8 +182,27 @@ def _kernel_args(enc_p, pred_p, join_kernel, join_bias, labels, blank_id):
              labels.to(torch.int32).contiguous()), (B, T, U1, J, V, bf))
 
 
+def wide_chunk_rows(B: int, TT: int, W: int, patch_frames: int) -> int:
+    """Rows of the largest chunk of the tiled products (J > 128; the
+    source's ``WideChunks``): whole patch rows of ``patch_frames`` frames of
+    one batch row, as many as fit in ``_WIDE_ROWS`` rows, one at least."""
+    rows = patch_frames * W
+    return min(B * TT * W, max(1, _WIDE_ROWS // rows) * rows)
+
+
+def wide_scratch_words(B: int, TT: int, W: int, patch_frames: int, J: int, V: int,
+                       backward: bool) -> int:
+    """32-bit words of the tiled products' scratch (the source's
+    ``WideScratch``, each region sized as f32): K's operand form (J × Vp),
+    then a chunk's joint (rows × JW), logits or d_logits (rows × Vp) and,
+    backward, d_joint (rows × J); JW = J + 1 and Vp = V rounded up to 8."""
+    rows = wide_chunk_rows(B, TT, W, patch_frames)
+    JW, Vp = -(-(J + 1) // 8) * 8, -(-V // 8) * 8
+    return J * Vp + rows * (JW + Vp + (J if backward else 0))
+
+
 def bwd_layout(B: int, TT: int, W: int, V: int, patch_frames: int, n_sm: int,
-               blocks_per_sm: int) -> dict:
+               blocks_per_sm: int, J: int = _NARROW_J) -> dict:
     """Grids and scratch sizes of the backward's rows and d_K kernels over
     B·TT·W rows.  The rows kernel: patches of ``patch_frames`` (PT) frames × 128/PT
     positions (PU), grid (ceil(W/PU), ceil(TT/PT), B), d_enc partials per
@@ -189,14 +212,27 @@ def bwd_layout(B: int, TT: int, W: int, V: int, patch_frames: int, n_sm: int,
     ``blocks_per_sm`` resident blocks on each of ``n_sm`` SMs, and never
     more splits than 64-row tiles; it reads the rows' records (offsets,
     label, cotangents, lse) from a (6, ``rec_rows``) int32 scratch, the rows
-    padded to whole tiles."""
+    padded to whole tiles.
+
+    Above J = 128 the tiled products write the same partials.  Their d_K
+    product: per chunk of ``chunk_rows`` rows (``wide_chunk_rows``) a grid
+    (ceil(V/128), ceil((J+1)/64), ``nsplit``), the splits sized as above
+    against the chunk's 64-row tiles; no row records (``rec_rows`` 0); a
+    scratch of ``kop_words`` (``wide_scratch_words``)."""
     PU = _PATCH_ROWS // patch_frames
     n_w, n_t = -(-W // PU), -(-TT // patch_frames)
     n_vs = -(-V // _DK_COLS)
+    lay = {"rows_grid": (n_w, n_t, B), "n_grp": n_w * PU // 8, "n_t": n_t}
+    if J > _NARROW_J:
+        chunk = wide_chunk_rows(B, TT, W, patch_frames)
+        n_jt = -(-(J + 1) // _DK_ROWS)
+        nsplit = max(1, min(-(-chunk // _DK_ROWS), blocks_per_sm * n_sm // (n_vs * n_jt)))
+        return {**lay, "dk_grid": (n_vs, n_jt, nsplit), "nsplit": nsplit, "rec_rows": 0,
+                "chunk_rows": chunk,
+                "kop_words": wide_scratch_words(B, TT, W, patch_frames, J, V, True)}
     n_tiles = -(-(B * TT * W) // _DK_ROWS)
     nsplit = max(1, min(n_tiles, blocks_per_sm * n_sm // n_vs))
-    return {"rows_grid": (n_w, n_t, B), "n_grp": n_w * PU // 8, "n_t": n_t,
-            "dk_grid": (n_vs, nsplit), "nsplit": nsplit, "rec_rows": n_tiles * _DK_ROWS}
+    return {**lay, "dk_grid": (n_vs, nsplit), "nsplit": nsplit, "rec_rows": n_tiles * _DK_ROWS}
 
 
 def emit_columns(join_kernel: torch.Tensor, join_bias: torch.Tensor, labels: torch.Tensor):
@@ -217,7 +253,8 @@ def emit_columns(join_kernel: torch.Tensor, join_bias: torch.Tensor, labels: tor
 def _joint_sizes(lib_name: str, device_index: int, J: int, V: int, bf: bool) -> tuple[int, int]:
     """(blocks of the d_K kernel resident on one SM, 32-bit words of K's
     operand form, which the forward and the backward both take as scratch)
-    at this J, V and dtype, from the library."""
+    at this J, V and dtype, from the library; above J = 128, (the d_K
+    product's blocks, 0)."""
     import ctypes
 
     from statecatcher_tpu_torch.ops._kernels import library
@@ -235,14 +272,14 @@ def bwd_plan(lib_name: str, dev: torch.device, B: int, TT: int, W: int, J: int, 
              patch_frames: int, bf: bool) -> dict:
     """``bwd_layout`` on this card (its SM count and the d_K kernel's
     occupancy at this J and dtype), with ``kop_words``, the size of K's
-    operand form."""
+    operand form (above J = 128: the tiled products' scratch)."""
     per_sm, kop_words = _joint_sizes(lib_name, dev.index, J, V, bf)
     lay = bwd_layout(B, TT, W, V, patch_frames,
-                     torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
+                     torch.cuda.get_device_properties(dev).multi_processor_count, per_sm, J)
     if max(lay["rows_grid"][1:]) > _MAX_GRID_YZ:
         raise ValueError(f"B={B} or {TT} frames too large for the patch grid "
                          f"{lay['rows_grid']} (y and z at most {_MAX_GRID_YZ})")
-    return {**lay, "kop_words": kop_words}
+    return {"kop_words": kop_words, **lay}             # above J = 128 the layout's own
 
 
 def _check_err(name, err):
@@ -250,13 +287,16 @@ def _check_err(name, err):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def fwd_operands(lib_name: str, args, J: int, V: int, bf: bool) -> list[torch.Tensor]:
-    """The forward kernel's operands from ``_kernel_args``' tensors: enc,
-    pred, K, bias, the gathered emit columns (``emit_columns``) and the
-    scratch of K's operand form."""
+def fwd_operands(lib_name: str, args, J: int, V: int, bf: bool, TT: int, W: int,
+                 patch_frames: int) -> list[torch.Tensor]:
+    """The forward kernel's operands from ``_kernel_args``' tensors over B·TT·W
+    rows: enc, pred, K, bias, the gathered emit columns (``emit_columns``)
+    and the scratch of K's operand form (above J = 128: the tiled products'
+    scratch)."""
     enc, pred, K, bias, labels = args
-    kop = torch.empty(_joint_sizes(lib_name, enc.device.index, J, V, bf)[1], dtype=torch.int32,
-                      device=enc.device)
+    words = (_joint_sizes(lib_name, enc.device.index, J, V, bf)[1] if J <= _NARROW_J
+             else wide_scratch_words(enc.shape[0], TT, W, patch_frames, J, V, False))
+    kop = torch.empty(words, dtype=torch.int32, device=enc.device)
     return [enc, pred, K, bias, *emit_columns(K, bias, labels), kop]
 
 
@@ -272,7 +312,7 @@ def rnnt_joint_fwd(enc_p, pred_p, join_kernel, join_bias, labels, blank_id: int 
     from statecatcher_tpu_torch.ops._kernels import library
 
     dev = enc_p.device
-    ops = fwd_operands("rnnt_joint", args, J, V, bf)
+    ops = fwd_operands("rnnt_joint", args, J, V, bf, T, U1, 16)  # rnnt_joint.cu: 16 × 8 patches
     blank = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     emit = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=dev)
     lse = torch.empty((B, T, U1), dtype=torch.float32, device=dev)

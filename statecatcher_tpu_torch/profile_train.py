@@ -62,6 +62,17 @@ GROUPS = (("K12 cell_fwd_kernel<MaskedCellChain>", ("cell_fwd_kernel", "maskedce
           ("K6/K8 joint_kprep_kernel (forward and backward), joint_bwd_rowrec_kernel",
            ("joint_bwd_rowrec_kernel",)),
           ("K8b band_dpred_kernel", ("band_dpred_kernel",)),
+          # above J = 128: the tiled products (logits, d_logits, d_joint, d_K)
+          ("K6/K8 J > 128 joint_wide_gemm_kernel", ("joint_wide_gemm_kernel",)),
+          ("K6/K8 J > 128 joint_wide_prep_kernel, joint_wide_joint_kernel (operands)",
+           ("joint_wide_prep_kernel",)),
+          ("K6/K8 J > 128 joint_wide_prep_kernel, joint_wide_joint_kernel (operands)",
+           ("joint_wide_joint_kernel",)),
+          ("K6a/K8a J > 128 joint_wide_lse_kernel", ("joint_wide_lse_kernel",)),
+          ("K6b/K8b J > 128 joint_wide_denc_kernel, joint_wide_dpred_kernel",
+           ("joint_wide_denc_kernel",)),
+          ("K6b/K8b J > 128 joint_wide_denc_kernel, joint_wide_dpred_kernel",
+           ("joint_wide_dpred_kernel",)),
           ("band lattice band_wavefront_kernel (α, β)", ("band_wavefront_kernel",)),
           # K7's wavefront route, then its frame-scan route (U+1 > 1024)
           ("K7a rnnt_alpha", ("exact_wavefront_kernel<false",)),

@@ -48,6 +48,9 @@ class CharTokenizer:
     def blank_id(self) -> int:
         return self.BLANK
 
+    def id_to_piece(self, i: int) -> str:
+        return self._pieces[i]
+
     # ------------------------------------------------------------------ #
     def to_dict(self) -> dict:
         return {"type": "char", "chars": self._chars}

@@ -905,6 +905,135 @@ def test_joint_fwd_is_deterministic(cuda_device, kind, dtype):
         assert torch.equal(x, y), name
 
 
+# Joiner widths of the tiled products (J > 128): one past the 128-wide
+# instance, ragged in the 64-wide contraction slices (200), NeMo's
+# Conformer-Transducer joint_hidden (640), and 1024
+WIDE_J = [129, 200, 640, 1024]
+# The backward's tolerances per input dtype, as the J ≤ 128 tests hold them:
+# (relative, share of each output's largest value)
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J", WIDE_J)
+def test_wide_joint_kernels_match_plain(cuda_device, kind, dtype, J):
+    """K6a/K6b and K8a/K8b above J = 128 (the tiled products) against their
+    plain versions at the J ≤ 128 tests' tolerances (``FWD_TOL``,
+    ``BWD_TOL``), blank_id 7: a J-term f32 contraction's round-off grows
+    like √J ulps of its terms, ~3e-7 of a logit near 1 at J = 1024, well
+    inside 1e-5."""
+    args, kernel, plain = _fwd_args(kind, J, 256, 7, cuda_device, dtype, 170 + J)
+    n = (rnnt_joint_fwd.launches, rnnt_band_fwd.launches)
+    _assert_fwd_close(kernel(*args), plain(*args), dtype)
+    assert rnnt_joint_fwd.launches + rnnt_band_fwd.launches == sum(n) + 1
+    args, kernel, plain = _bwd_args(kind, J, cuda_device, dtype, 170 + J)
+    rtol, scale_tol = BWD_TOL[dtype]
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), kernel(*args),
+                          plain(*args)):
+        assert x.shape == y.shape, name
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=rtol, scale_tol=scale_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J", WIDE_J)
+def test_wide_joint_is_deterministic(cuda_device, kind, dtype, J):
+    """Two calls of the tiled products give bit-equal outputs, forward and
+    backward: every partial sum (the chunks' d_K and d_bias added into each
+    split's, the d_enc and d_pred sums) is added in a fixed order, with no
+    atomics."""
+    args, kernel, _ = _fwd_args(kind, J, 1024, 0, cuda_device, dtype, 180)
+    first = [x.clone() for x in kernel(*args)]
+    for name, x, y in zip(("blank", "emit", "lse"), first, kernel(*args)):
+        assert torch.equal(x, y), name
+    args, kernel, _ = _bwd_args(kind, J, cuda_device, dtype, 190)
+    first = [x.clone() for x in kernel(*args)]
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), first, kernel(*args)):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+@pytest.mark.parametrize("V,blank_id", [(70, 69), (150, 64), (1024, 517)])
+def test_wide_joint_fwd_blank_in_any_vocab_tile(cuda_device, kind, V, blank_id):
+    """The tiled products at J = 200 over one partial vocabulary tile (70),
+    the blank the first column of the second (64 of 150) and in a middle
+    tile (517 of 1024), f32."""
+    args, kernel, plain = _fwd_args(kind, 200, V, blank_id, cuda_device, torch.float32, 200)
+    _assert_fwd_close(kernel(*args), plain(*args), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint", "band"])
+def test_wide_joint_over_several_chunks(cuda_device, kind):
+    """More rows than one chunk of the tiled products (65,536): K6 at B=4,
+    T=400, U=48 (78,400 rows in two chunks of whole 16-frame patch rows),
+    K8 at U=128, band 32 (76,800 rows), J = 200, f32, against the plain
+    versions, with a degenerate band row and, in the band, labels outside
+    [0, V) (K6's plain version has no such labels: it indexes -1 as V - 1)."""
+    J, V = 200, 256
+    if kind == "joint":
+        enc, pred, k, b, labels, g_blank, g_emit = joint_data(210, 4, 400, 48, J, V, cuda_device)
+        fwd_args, kernel, plain = (enc, pred, k, b, labels, 3), rnnt_joint_fwd, joint_blank_emit_ref
+    else:
+        enc, pred, k, b, labels, o, Wp, Tb, g_blank, g_emit, _, _ = band_data(
+            220, 4, 400, 128, J, V, 32, 8, cuda_device)
+        labels[1, ::5] = V + 2
+        fwd_args = (enc, pred, k, b, labels, o, Wp, Tb, 3)
+        kernel, plain = rnnt_band_fwd, joint_blank_emit_banded_ref
+    assert enc.shape[0] * enc.shape[1] * (fwd_args[6] if kind == "band" else 49) > 65536
+    want = plain(*fwd_args)
+    _assert_fwd_close(kernel(*fwd_args), want, torch.float32)
+    if kind == "joint":
+        args = (enc, pred, k, b, labels, want[2], g_blank, g_emit, 3)
+        got, want = rnnt_joint_bwd(*args), joint_blank_emit_bwd_ref(*args)
+    else:
+        args = (enc, pred, k, b, labels, o, want[2], g_blank, g_emit, Tb, 3)
+        got, want = rnnt_band_bwd(*args), joint_blank_emit_banded_bwd_ref(*args)
+    for name, x, y in zip(("d_enc", "d_pred", "d_kernel", "d_bias"), got, want):
+        assert x.shape == y.shape, name
+        assert_grad_close(x.cpu().numpy(), y.cpu().numpy(), name, rtol=1e-4, scale_tol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [0, -1])
+def test_rnnt_wide_joiner_trains_on_card(cuda_device, band):
+    """A joiner 640 wide (NeMo Conformer-Transducer's ``joint_hidden``) in
+    the training step on the card: the exact loss through K6a/K6b
+    (``train.rnnt_band`` 0, U = 24) and the default band above a padded U
+    of 48 through K8a/K8b (U = 64), one launch of each, finite loss and
+    grad norm."""
+    from statecatcher_tpu_torch.config import Config
+    from statecatcher_tpu_torch.models.asr import init_carry
+    from statecatcher_tpu_torch.models.speech import build_speech_model
+    from statecatcher_tpu_torch.train.step import init_train_state, make_segment_scan_step
+
+    cfg = Config().apply_overrides(["--model.encoder", "lucyrnn", "--model.hidden_size", "16",
+                                    "--model.num_layers", "1", "--model.vocab_size", "40",
+                                    "--model.rnnt_pred_emb_dim", "640",
+                                    "--model.rnnt_joiner_dim", "640", "--train.mode", "rnnt",
+                                    "--train.rnnt_band", str(band)])
+    model = build_speech_model(cfg.model, 80, "rnnt", device=cuda_device)
+    step = make_segment_scan_step(model, cfg)
+    state = init_train_state(model, cfg)
+    K, B, S, U = 1, 2, 8000, (24 if band == 0 else 64)
+    batch = [torch.zeros((K, B, S), device=cuda_device),
+             torch.full((K, B), S, dtype=torch.int32, device=cuda_device),
+             torch.ones((K, B, U), dtype=torch.int32, device=cuda_device),
+             torch.full((K, B), 20, dtype=torch.int32, device=cuda_device),
+             torch.ones((K, B), dtype=torch.bool, device=cuda_device)]
+    counters = (rnnt_joint_fwd, rnnt_joint_bwd) if band == 0 else (rnnt_band_fwd, rnnt_band_bwd)
+    before = [c.launches for c in counters]
+    _, _, outs = step(state, init_carry(cfg.model, B, device=cuda_device), *batch,
+                      np.ones(K, bool))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+    assert torch.isfinite(outs.loss).all() and torch.isfinite(outs.grad_norm).all()
+
+
 def band_lattice_data(seed, B, T, U, band, Tb, dev):
     """``band_data``'s band and lengths with log-prob tables (B, Tp, Wp)
     made from its cotangents; where B ≥ 5, row B − 2 runs one frame."""

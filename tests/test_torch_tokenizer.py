@@ -7,6 +7,7 @@ unigram.py, spm.py, base.py's ``load_tokenizer``) and its tokenizer trainer
   * ``python -m statecatcher_tpu_torch.train_tokenizer`` writes the same
     JSON as JAX's trainer, from a corpus file, a VTT directory and stdin,
     with the unigram and char backends.
+  * ``CharTokenizer`` gives JAX's ids, pieces (``id_to_piece``) and text.
   * ``load_tokenizer`` loads "unigram" JSON, and ``.model`` files through
     the sentencepiece adapter (tested with a stub module: the package is not
     installed; without it a ``.model`` raises ImportError, as in JAX).
@@ -20,10 +21,11 @@ import types
 import pytest
 
 from statecatcher_tpu import train_tokenizer as j_train_tokenizer
+from statecatcher_tpu.tokenizer import CharTokenizer as JChar
 from statecatcher_tpu.tokenizer import UnigramTokenizer as JUnigram
 from statecatcher_tpu.tokenizer import load_tokenizer as j_load_tokenizer
 from statecatcher_tpu_torch import train_tokenizer
-from statecatcher_tpu_torch.tokenizer import UnigramTokenizer, load_tokenizer
+from statecatcher_tpu_torch.tokenizer import CharTokenizer, UnigramTokenizer, load_tokenizer
 from statecatcher_tpu_torch.tokenizer.spm import SentencePieceTokenizer
 
 CORPUS = [
@@ -47,6 +49,17 @@ def test_unigram_training_matches_jax(vocab, max_len):
         assert ids == jtok.encode(text) and tok.blank_id not in ids
         assert tok.decode_ids(ids) == jtok.decode_ids(ids)
     assert tok.decode_ids(tok.encode("the quick brown fox")) == "the quick brown fox"
+
+
+def test_char_tokenizer_matches_jax():
+    tok, jtok = CharTokenizer.train(CORPUS), JChar.train(CORPUS)
+    assert tok.to_dict() == jtok.to_dict() and tok.vocab_size == jtok.vocab_size
+    assert [tok.id_to_piece(i) for i in range(tok.vocab_size)] == \
+        [jtok.id_to_piece(i) for i in range(jtok.vocab_size)]
+    assert tok.id_to_piece(0) == "<blk>" and tok.id_to_piece(1) == "<unk>"
+    for text in ("the quick brown fox", "café ¤ über", ""):
+        ids = tok.encode(text)
+        assert ids == jtok.encode(text) and tok.decode_ids(ids) == jtok.decode_ids(ids)
 
 
 def test_unigram_save_and_load(tmp_path):
