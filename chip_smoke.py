@@ -36,14 +36,15 @@ data plane:
      segments at B=32 (U=128, a partial sample mask, a row_valid=False row),
      the kernel path held against the plain path;
   6. throughput at bench.py's shape (B=96, 16 s, bf16, U=128) but K=8 of
-     its 24 segments: one warm and one timed group (printed only, not a
+     its 24 segments: one group run warm, then timed (printed only, not a
      benchmark);
   7. CLI: ``python -m statecatcher_tpu_torch.cli`` trains a few dispatches on
      a generated WAV+VTT fixture and writes a checkpoint; a second run
      resumes from its cursor; then ``python -m statecatcher_tpu_torch.eval``
      on the resumed run (its WER line), and ``evaluate`` with the run's
-     tokenizer and data on random weights, greedy and beam, kernel path
-     (K1) against plain path (hypotheses within 2 % edit distance);
+     tokenizer on random weights over the fixture's recordings cut to 24 s,
+     greedy and beam, kernel path (K1) against plain path (hypotheses
+     within 2 % edit distance);
   8. kernels K6a, K6b, K7a, K7b: the fused RNN-T joint (forward, backward)
      and the transducer α/β lattice against their plain versions at the
      RNN-T training shape (B=32, T=1598, U=48, J=64, V=1024; f32, and bf16
@@ -93,9 +94,10 @@ data plane:
      head-major chunkwise forward against their plain versions at the
      xLSTM's shape (B=32, T=1598, 2 heads, dqk=128, dv=256, chunk 128; f32,
      and bf16 q/k/v for K9), K9 at bench.py's xLSTM shape (B=64, chunk
-     256, bf16) and K9a at the streaming shape (B=1, one chunk of 32 steps),
-     with times, bounds, plain times and the forward's device time by CUDA
-     kernel;
+     256, bf16), K9 and K10 at E=2048's heads (dqk=512, dv=1024; f32 and
+     bf16) and at chunk 512, and K9a at the streaming shape (B=1, one chunk
+     of 32 steps), with times, bounds, plain times and the forward's device
+     time by CUDA kernel;
  18. the xLSTM (config defaults: E=512, 2 heads, 3 blocks, chunk 128, FFN
      factor 2.667, vocab 1024, 80 MFCC, float32): phase 2's batched encode,
      kernel path (``kernel_impl="auto"``: K9a) against plain path, and again
@@ -105,7 +107,13 @@ data plane:
      path against plain path, as phase 5;
  21. xLSTM throughput at bench.py's xLSTM shape (B=64, bf16, chunk 256,
      U=128) at K=4 of its 24 segments (printed only);
- 22. CLI with ``--model.encoder xlstm``: two dispatches and a resume;
+ 22. CLI with ``--model.encoder xlstm``: two dispatches and a resume; then
+     the xLSTM with a chunk and heads wider than 256
+     (``phase_xlstm_wide``): at ``--model.xlstm.embedding_dim 2048`` (dqk
+     512, dv 1024) the batched encode through K9a and K10, streams and a
+     CTC training group, each against its plain path, at
+     ``--model.xlstm.chunk_size 512`` the batched encode and a training
+     group, and the CLI at E=2048 with a resume;
  23. kernels K12 and K11: the fused masked cell and the dual scan against
      their plain versions at the batched shape (B=32, T=1598, D=512; f32 and
      bf16, unmasked and with one partial row; bit for bit in f32, also at
@@ -123,11 +131,12 @@ data plane:
  26. the native LucyRNN (``variant="native"``, 4 × 512, vocab 1024, masked;
      its scans through K5): the batched encode, three streams, a CTC
      training group of K=2 and the CLI with a resume;
- 27. the LSTM of the config's defaults (no ``--model.encoder``: 4 × 512,
-     vocab 1024, 80 MFCC, f32; a torch recurrence, no TPU kernel): phase 2's
-     batched encode with the segment's time (the row whose mask ends early
-     carries its last valid frame's state), a CTC training group of K=2 at
-     B=32 (K3/K4 against their plain versions) and the CLI with a resume;
+ 27. the LSTM of the config's defaults (no ``--model.encoder``: 512 wide,
+     vocab 1024, 80 MFCC, f32; a torch recurrence, no TPU kernel), its depth
+     cut to 2 layers: phase 2's batched encode with the segment's time (the
+     row whose mask ends early carries its last valid frame's state), a CTC
+     training group of K=1 at B=32 (K3/K4 against their plain versions) and
+     the CLI with a resume;
  28. ``ctc_beam_search`` (beam 8, top 16, as eval runs it) at B=32, T=1598,
      V=1024 on the flagship's log-probs: the card's live hypotheses against
      the same function's on the CPU, with both times;
@@ -154,9 +163,10 @@ data plane:
      Python ones on the fixture; ``python -m statecatcher_tpu_torch.simulate``
      over the same server;
  32. the ``kernels`` JSON line: each kernel's launches on the main path
-     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 24–27, 29, 30 and
-     33's ranks; each counter is set to 0 just before a phase and read just
-     after it, so comparison launches are not counted);
+     (phases 2, 3, 5, 7, 9, 10, 12, 14, 16, 18, 19, 20, 22's E=2048 and
+     chunk-512 runs, 24–27, 29, 30 and 33's ranks; each counter is set to 0
+     just before a phase and read just after it, so comparison launches are
+     not counted);
  33. multi-GPU training (``parallel/*``, ``ops/scan_sp.py``): world =
      max(2, cards) rank processes of ``python -m
      statecatcher_tpu_torch.parallel.dryrun`` with torchrun's environment
@@ -181,7 +191,9 @@ standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ast
+import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import re
@@ -280,12 +292,20 @@ from statecatcher_tpu_torch.train.step import init_train_state, make_segment_sca
 SEED = 0
 FLAGSHIP = ["--model.encoder", "lucyrnn"]        # config defaults: 4 × 512, vocab 1024, mfcc 80, f32
 XLSTM = ["--model.encoder", "xlstm"]             # E=512, 2 heads, 3 blocks, chunk 128, f32
+# the xLSTM with a chunk and heads wider than 256 (the gate passes take several
+# rows a thread, K9b's dq and dk two slabs): E=2048's heads
+# (dqk 512, dv 1024) and chunk 512
+XLSTM_2048 = XLSTM + ["--model.xlstm.embedding_dim", "2048"]
+XLSTM_CHUNK_512 = XLSTM + ["--model.xlstm.chunk_size", "512"]
 MASKED = ["--model.lucyrnn.mask_state_updates", "true"]
 NATIVE = ["--model.lucyrnn.variant", "native"]
 # NeMo Conformer-Transducer's pred_hidden and joint_hidden (conformer_transducer_bpe.yaml,
 # model_defaults): above J = 128 the joint's kernels take the tiled products
 WIDE_JOINER = ["--model.rnnt_pred_emb_dim", "640", "--model.rnnt_joiner_dim", "640"]
 RWKV = ["--model.encoder", "rwkv"]                # 4 × 512, vocab 1024, f32
+# the config's default encoder (the LSTM, 4 × 512) cut to 2 layers: its recurrence
+# is a torch step a frame and layer, host-bound, so its time goes with depth
+LSTM = ["--model.num_layers", "2"]
 CARD = ""                                        # nvidia-smi's name, power limit (main)
 CLI_LOSSES: dict = {}                            # phase_cli's first runs' losses, by tag
 # Operations per (b, t, d) element of the fused cell, counted from the kernel
@@ -368,15 +388,20 @@ def joint_fwd_yardsticks(tag: str, R: int, V: int, J: int, dtype: torch.dtype, d
         f"logits in {dtype}, {ms:.4f} ms")
 
 
-def sass_hmma(lib: str, family: str) -> dict[str, int]:
-    """HMMA (tensor-core) instructions per kernel of the built library
-    ``lib`` whose name starts with ``family``, from ``cuobjdump -sass``; each
-    kernel named with its template arguments as its mangled name gives them
-    (f32 or bf16 for a type, 0 or 1 for a bool, an int's value)."""
-    nvcc = _kernels._nvcc()
-    out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-                          str(_kernels._target(lib))], capture_output=True, text=True,
-                         check=True).stdout
+def sass_dumps(libs) -> dict[str, str]:
+    """``cuobjdump -sass`` of each built library of ``libs``, all at once."""
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    run = lambda lib: subprocess.run([tool, "-sass", str(_kernels._target(lib))],
+                                     capture_output=True, text=True, check=True).stdout
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+        return dict(zip(libs, ex.map(run, libs)))
+
+
+def sass_hmma(out: str, family: str) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per kernel of a library's SASS ``out``
+    whose name starts with ``family``; each kernel named with its template
+    arguments as its mangled name gives them (f32 or bf16 for a type, 0 or 1
+    for a bool, an int's value)."""
     words = {"f": "f32", "13__nv_bfloat16": "bf16"}
     counts, name = {}, None
     for line in out.splitlines():
@@ -514,6 +539,17 @@ def run_segments(model, cfg, audio, masks):
     return out
 
 
+@functools.cache
+def batched_audio(B, S) -> tuple:
+    """``phase_batched``'s three segments and the last one's row lengths,
+    made once a run (every phase that encodes takes the same)."""
+    rng = np.random.default_rng(SEED + 2)
+    audio = [synth_audio(rng, B, S) for _ in range(3)]
+    lens = rng.integers(S // 4, S, B)
+    lens[0] = S
+    return audio, lens
+
+
 def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     """Phases 2, 12, 18 and 27: 3 carried 16 s segments at B=32, the last
     with a partial sample mask, kernel path vs plain path.  Under
@@ -528,10 +564,8 @@ def phase_batched(model, cfg, dev, counters=None, tag=None) -> dict:
     B, S = 32, 16 * 16000
     masked = cfg.model.encoder == "lucyrnn" and cfg.model.lucyrnn.mask_state_updates
     tag = tag or ("[batched masked]" if masked else "[batched]")
-    rng = np.random.default_rng(SEED + 2)
-    audio = [torch.from_numpy(synth_audio(rng, B, S)).to(dev) for _ in range(3)]
-    lens = rng.integers(S // 4, S, B)
-    lens[0] = S
+    audio, lens = batched_audio(B, S)
+    audio = [torch.from_numpy(x).to(dev) for x in audio]
     last_mask = torch.arange(S, device=dev)[None, :] < torch.from_numpy(lens).to(dev)[:, None]
     masks = [None, None, last_mask]
     T = num_frames(S, cfg.frontend)
@@ -865,15 +899,14 @@ PLAIN = debug.kernel_slots()
 plain_kernels = debug.kernel_interpret_mode
 
 
-def train_group(rng, K, B, S, U, V, dev, int16=True, degenerate=False):
-    """One segment group as the training loop ships it: int16 audio, prefix
-    lengths (one partial), U random tokens per row, the last row invalid.
-    With ``degenerate``, row 1 holds 50 ms of audio (5 frames) for its U
-    tokens: a banded loss whose band is narrower than U prunes all its
-    paths."""
+@functools.cache
+def group_arrays(seed, K, B, S, U, V, degenerate=False) -> tuple:
+    """``train_group``'s host arrays from ``seed``, made once a run: the
+    phases ask for the same groups again, and making 16 s of audio a row
+    takes the host ~0.5 s for 32 rows."""
+    rng = np.random.default_rng(seed)
     audio = np.stack([synth_audio(rng, B, S) for _ in range(K)])
-    if int16:
-        audio = np.clip(np.rint(audio * 32767.0), -32768, 32767).astype(np.int16)
+    audio = np.clip(np.rint(audio * 32767.0), -32768, 32767).astype(np.int16)
     lens = np.full((K, B), S, np.int32)
     lens[-1, 0] = S // 2                                      # one partial sample mask
     if degenerate:
@@ -882,7 +915,17 @@ def train_group(rng, K, B, S, U, V, dev, int16=True, degenerate=False):
     tok_lens = np.full((K, B), U, np.int32)
     row_valid = np.ones((K, B), bool)
     row_valid[:, B - 1] = False
-    return [torch.from_numpy(x).to(dev) for x in (audio, lens, tokens, tok_lens, row_valid)]
+    return audio, lens, tokens, tok_lens, row_valid
+
+
+def train_group(seed, K, B, S, U, V, dev, degenerate=False):
+    """One segment group as the training loop ships it: int16 audio, prefix
+    lengths (one partial), U random tokens per row, the last row invalid.
+    With ``degenerate``, row 1 holds 50 ms of audio (5 frames) for its U
+    tokens: a banded loss whose band is narrower than U prunes all its
+    paths."""
+    return [torch.tensor(x, device=dev)
+            for x in group_arrays(seed, K, B, S, U, V, degenerate)]
 
 
 def snapshot(state) -> dict:
@@ -910,6 +953,10 @@ TRAIN_KERNELS = {
                           "band α": (rnnt_band_alpha, 0), "band β": (rnnt_band_beta, 0)},
     "xlstm ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
                   "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "xlstm E=2048 ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
+                         "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
+    "xlstm chunk 512 ctc": {"K9a": (mlstm_fused_fwd, 1), "K9b": (mlstm_fused_bwd, 1),
+                            "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
     "ctc k12": {"K12": (lucy_fused_cell, 1), "K5b": (linear_scan_rev, 2),
                 "K3": (ctc_alpha, 0), "K4": (ctc_beta, 0)},
     "ctc dual": {"K11": (lucy_dual_scan, 1), "K5b": (linear_scan_rev, 2),
@@ -937,8 +984,7 @@ def train_setup(cfg, dev, K, B=32, S=16 * 16000, U=128, mode="ctc", degenerate=F
     randomize_(model, SEED + 1, gate_weight_scale=0.1)        # gate inputs near their biases
     state = init_train_state(model, cfg)
     step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
-    group = train_group(np.random.default_rng(SEED + 6), K, B, S, U, cfg.model.vocab_size, dev,
-                        degenerate=degenerate)
+    group = train_group(SEED + 6, K, B, S, U, cfg.model.vocab_size, dev, degenerate=degenerate)
     return cfg, state, step, group
 
 
@@ -1059,6 +1105,79 @@ def gradients_of(state, step, cfg, B, group, K) -> list[torch.Tensor]:
     return got
 
 
+def with_weights(cfg, params, mode, dev) -> tuple:
+    """A train state carrying ``params`` (cast to ``cfg``'s parameter dtype)
+    and the segment-scan step of ``cfg``'s model in ``mode``."""
+    model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, mode, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    state = init_train_state(model, cfg)
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(params[k])
+    return state, make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
+
+
+# A witness's reference for each dtype a training group runs in: the
+# overrides of the plain path it is held to, its name, and the distance
+# (of the reference gradient's norm) below which the kernel path passes
+WITNESS = {"bfloat16": (["--model.dtype", "float32"], "f32", 1e-3),
+           "float32": (["--model.dtype", "float64", "--model.param_dtype", "float64"],
+                       "float64", 1e-4)}
+
+
+def phase_train_witness(cfg, dev, path, dtype, K=1, B=32) -> dict:
+    """``phase_train_step``'s group in ``dtype`` on the kernel path and on
+    the plain path, each segment's gradient held against the plain path's
+    in a wider dtype with the same weights (``WITNESS``), as phase 9's
+    witness.  In bf16 the two paths differ by bf16 steps, not by f32
+    round-off; in f32 at chunk 512 their sums over 512 rows differ enough
+    that Adam's sign-like first step (±lr whatever a gradient's size) puts
+    their updates near phase 20's 1 % of each other (1.01e-2 and 8.6e-3
+    in two runs), so the wider reference decides.  Fails if a gradient
+    is not finite, if the kernel path's gradient is further from the
+    reference than twice the plain path's distance or the floor, or if a
+    kernel of ``path`` (``TRAIN_KERNELS``) was not launched as often as
+    phase_train_step wants.  Returns the launches."""
+    over, ref, floor = WITNESS[dtype]
+    tag = f"[{path} train {dtype}]"
+    cfg, state, step, group = train_setup(cfg.apply_overrides(["--model.dtype", dtype]),
+                                          dev, K, B)
+    opt0 = state.state_dict()
+    counters = [c for c, _ in TRAIN_KERNELS[path].values()]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = gradients_of(state, step, cfg, B, group, K)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    state.load_state_dict(opt0)
+    with plain_kernels():
+        plain = gradients_of(state, step, cfg, B, group, K)
+    del state, step
+    cfg_ref = cfg.apply_overrides(over)
+    with plain_kernels():
+        want = gradients_of(*with_weights(cfg_ref, opt0["params"], "ctc", dev), cfg_ref, B,
+                            group, K)
+    dist = lambda gs: [((g - w).norm() / w.norm()).item() for g, w in zip(gs, want)]
+    d_k, d_p = dist(got), dist(plain)
+    log(f"{tag} K={K} × 16 s at B={B}: kernel path {sec:.3f} s; gradients against the plain "
+        f"path in {ref}, by segment: kernel path {', '.join(f'{x:.3e}' for x in d_k)}, plain "
+        f"path {', '.join(f'{x:.3e}' for x in d_p)} of its norm apart ({CARD})")
+    if not all(torch.isfinite(g).all() for g in got) or any(
+            a > max(2 * b, floor) for a, b in zip(d_k, d_p)):
+        raise AssertionError(f"{tag} the kernel path's gradient is {d_k} of the {ref} "
+                             f"gradient's norm from it, the plain path's {d_p}")
+    names = list(TRAIN_KERNELS[path])
+    log(f"{tag} launches on the group: " + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
+    want_n = [(n_layers(cfg) * per_layer if per_layer else 1) * K
+              for _, per_layer in TRAIN_KERNELS[path].values()]
+    if launches != want_n:
+        raise AssertionError(f"{tag} launches {names} = {launches}; want {want_n}")
+    return dict(zip(names, launches))
+
+
 @contextlib.contextmanager
 def frame_order():
     """K7's plain versions in the frame order (the TPU kernel's log-step
@@ -1097,17 +1216,11 @@ def phase_rnnt_witness(cfg, dev, K=2, B=32, S=16 * 16000, U=48) -> dict:
                 stack.enter_context(frame_order())
             runs[name] = gradients_of(state, step, cfg, B, group, K)
     cfg64 = cfg.apply_overrides(["--model.dtype", "float64", "--model.param_dtype", "float64"])
-    model64 = build_speech_model(cfg64.model, cfg64.frontend.n_mfcc, "rnnt", device=dev,
-                                 generator=torch.Generator().manual_seed(SEED))
-    step64 = make_segment_scan_step(model64, cfg64, blank_id=0, ctc_impl=cfg64.train.ctc_impl)
     want = {}
     for frames in (False, True):
-        state64 = init_train_state(model64, cfg64)
-        with torch.no_grad():
-            for k, p in state64.params.items():
-                p.copy_(opt0["params"][k])                # the same weights, cast
         with plain_kernels(), (frame_order() if frames else contextlib.nullcontext()):
-            want[frames] = gradients_of(state64, step64, cfg64, B, group, K)
+            want[frames] = gradients_of(*with_weights(cfg64, opt0["params"], "rnnt", dev), cfg64,
+                                        B, group, K)
     # in float64 the two orders agree: the witness ran in float64
     gap = max(((a - b).norm() / b.norm()).item() for a, b in zip(want[False], want[True]))
     if gap > 1e-6:
@@ -1133,8 +1246,8 @@ def phase_rnnt_witness(cfg, dev, K=2, B=32, S=16 * 16000, U=48) -> dict:
 def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None:
     """Phases 6, 15 and 21: bench.py's shapes (16 s, bf16; LucyRNN B=96, CTC
     U=128, RNN-T U=64 and U=128, both under the default band 32; xLSTM B=64,
-    chunk 256, CTC U=128) at K segments, one warm and one timed group on the
-    kernel path; beside the rate, the row's roofline (``roofline.py``, the
+    chunk 256, CTC U=128) at K segments, one group run warm and then timed on
+    the kernel path; beside the rate, the row's roofline (``roofline.py``, the
     config carrying the row's B and 16 s segments, as bench.py's): its mfu,
     its share of the speed of light, which must stay below 100 % (at or above
     it the count leaves out work), and its FLOPs, bytes and bound."""
@@ -1147,8 +1260,7 @@ def phase_throughput(cfg, dev, K, B=96, S=16 * 16000, U=128, mode="ctc") -> None
     randomize_(model, SEED + 1)
     state = init_train_state(model, cfg)
     step = make_segment_scan_step(model, cfg, blank_id=0, ctc_impl=cfg.train.ctc_impl)
-    rng = np.random.default_rng(SEED + 7)
-    groups = [train_group(rng, K, B, S, U, cfg.model.vocab_size, dev) for _ in range(2)]
+    groups = [train_group(SEED + 7, K, B, S, U, cfg.model.vocab_size, dev)] * 2
     carry = init_carry(cfg.model, B, device=dev)
     torch.cuda.reset_peak_memory_stats()
     secs = []
@@ -1989,7 +2101,9 @@ def log_by_kernel(tag: str, fn) -> None:
 
 def phase_mlstm_kernels(dev) -> dict:
     """Phase 17: K9a/K9b and K10 against their plain versions, with times,
-    bounds and plain times, and the forward's device time by CUDA kernel;
+    bounds and plain times, and the forward's device time by CUDA kernel, at
+    E=512's heads (dqk 128, dv 256; chunk 128 and bench.py's 256), at
+    E=2048's (dqk 512, dv 1024, chunk 128) and at chunk 512;
     K9a also at the streaming shape (B=1, one chunk of 32 steps).  The
     forward within 1e-4 of each output's scale in f32 (f32 sums in other
     orders); the gradients within 1e-3 relative plus 1e-4 of each output's
@@ -2019,8 +2133,12 @@ def phase_mlstm_kernels(dev) -> dict:
         f"library_ms: none")
     out["K9a streaming f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                 "bound_ms": bound, "bound_by": by}
-    for label, B, L, dtype in (("f32", 32, 128, torch.float32), ("bf16", 32, 128, torch.bfloat16),
-                               ("bench bf16", 64, 256, torch.bfloat16)):
+    for label, B, L, dtype, dqk, dv in (
+            ("f32", 32, 128, torch.float32, 128, 256), ("bf16", 32, 128, torch.bfloat16, 128, 256),
+            ("bench bf16", 64, 256, torch.bfloat16, 128, 256),
+            ("E=2048 f32", 32, 128, torch.float32, 512, 1024),
+            ("E=2048 bf16", 32, 128, torch.bfloat16, 512, 1024),
+            ("chunk 512 f32", 32, 512, torch.float32, 128, 256)):
         ins, Tp = mlstm_inputs(gen, B, T, H, dqk, dv, L, dtype, dev)
         f32 = dtype == torch.float32
         with torch.inference_mode():
@@ -2057,29 +2175,82 @@ def phase_mlstm_kernels(dev) -> dict:
                                "bound_ms": bound_f, "bound_by": by_f}
         out["K9b " + label] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
                                "bound_ms": bound_b, "bound_by": by_b}
+        del ins, cots, bwd, bwd_ref, got, want
 
     # K10: head-major f32 with the raw gates (the wrapper pads, scales q and
     # soft-caps); its plain version is mlstm_chunkwise
-    B, L = 32, 128
+    B = 32
     r = lambda *shape: 0.5 * torch.randn(shape, generator=gen, device=dev)
-    ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
-           2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(),
-           0.1 * r(B, H)]
-    with torch.inference_mode():
-        got = mlstm_pallas_fwd(*ins, L)
-        torch.cuda.synchronize()
-        err = check_scaled(got, mlstm_chunkwise(*ins, L), fwd_names, 1e-4)
-        ms = cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), 5)
-        plain_ms = cuda_ms(lambda: mlstm_chunkwise(*ins, L), 2, warmup=1)
-        log_by_kernel("[K10] f32", lambda: mlstm_pallas_fwd(*ins, L))
-    Tp = -(-T // L) * L
-    bound, by = mlstm_bound_ms(B, H, Tp, L, dqk, dv, torch.float32, False)
-    log(f"[K10] f32 (B={B}, T={T}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): max|Δ| {err:.3e}; "
-        f"{ms:.4f} ms (plain {plain_ms:.2f}, bound {bound:.4f} ms {by}, {bound / ms:.1%} of it); "
-        f"library_ms: none")
-    out["K10 f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by}
+    for label, L, dqk, dv in (("f32", 128, 128, 256), ("E=2048 f32", 128, 512, 1024),
+                              ("chunk 512 f32", 512, 128, 256)):
+        ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
+               2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(),
+               0.1 * r(B, H)]
+        with torch.inference_mode():
+            got = mlstm_pallas_fwd(*ins, L)
+            torch.cuda.synchronize()
+            err = check_scaled(got, mlstm_chunkwise(*ins, L), fwd_names, 1e-4)
+            ms = cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), 5)
+            plain_ms = cuda_ms(lambda: mlstm_chunkwise(*ins, L), 2, warmup=1)
+            log_by_kernel(f"[K10] {label}", lambda: mlstm_pallas_fwd(*ins, L))
+        Tp = -(-T // L) * L
+        bound, by = mlstm_bound_ms(B, H, Tp, L, dqk, dv, torch.float32, False)
+        log(f"[K10] {label} (B={B}, T={T}, H={H}, dqk={dqk}, dv={dv}, chunk {L}): max|Δ| "
+            f"{err:.3e}; {ms:.4f} ms (plain {plain_ms:.2f}, bound {bound:.4f} ms {by}, "
+            f"{bound / ms:.1%} of it); library_ms: none")
+        out["K10 " + label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "bound_by": by}
     return out
+
+
+def phase_xlstm_wide(dev) -> dict:
+    """The xLSTM with a chunk and heads wider than 256, through the
+    entry points: at E=2048 (2 heads of dqk 512, dv 1024, chunk 128) batched
+    encodes through K9a ("auto") and K10 ("pallas") and greedy streams, each
+    against its plain path (phases 18 and 19's checks), a CTC training
+    group in lockstep with the plain path (phase 20's) and one in bf16 held
+    to the plain path in f32 (``phase_train_witness``); at chunk 512 (E=512)
+    a batched encode and a training group held to the plain path in
+    float64.  Returns the launches of K9a, K9b
+    and K10."""
+    t0 = time.perf_counter()
+    n = {"K9a": 0, "K9b": 0, "K10": 0}
+    for over, wide in ((XLSTM_2048, True), (XLSTM_CHUNK_512, False)):
+        xcfg = Config().apply_overrides(over)
+        x = xcfg.model.xlstm
+        name = f"E={x.embedding_dim}" if wide else f"chunk {x.chunk_size}"
+        cfgs = [xcfg] + ([xcfg.apply_overrides(["--model.xlstm.kernel_impl", "pallas"])]
+                         if wide else [])
+        for c in cfgs:
+            model = build_speech_model(c.model, c.frontend.n_mfcc, "ctc", device=dev,
+                                       generator=torch.Generator().manual_seed(SEED))
+            randomize_(model, SEED + 1)
+            model.eval()
+            if c.model.xlstm.kernel_impl == "pallas":
+                n["K10"] += phase_batched(model, c, dev, {"K10": mlstm_pallas_fwd},
+                                          f"[xlstm {name} pallas batched]")[0]["K10"]
+                continue
+            log(f"[model] SpeechModel xlstm E={x.embedding_dim}, {x.num_heads} heads (dqk "
+                f"{int(x.embedding_dim * x.qk_dim_factor) // x.num_heads}, dv "
+                f"{int(x.embedding_dim * x.v_dim_factor) // x.num_heads}), {x.num_blocks} "
+                f"blocks, chunk {x.chunk_size}, {sum(p.numel() for p in model.parameters())} "
+                f"parameters")
+            n["K9a"] += phase_batched(model, c, dev, {"K9a": mlstm_fused_fwd},
+                                      f"[xlstm {name} batched]")[0]["K9a"]
+            if wide:
+                n["K9a"] += phase_streaming(model, c, dev, mlstm_fused_fwd,
+                                            f"[xlstm {name} streaming]")
+            del model
+        if wide:
+            runs = [phase_train_step(xcfg, dev, K=2, path=f"xlstm {name} ctc"),
+                    phase_train_witness(xcfg, dev, f"xlstm {name} ctc", "bfloat16")]
+        else:
+            runs = [phase_train_witness(xcfg, dev, f"xlstm {name} ctc", "float32")]
+        for got in runs:
+            n["K9a"] += got["K9a"]
+            n["K9b"] += got["K9b"]
+    log(f"[time] the xLSTM at E=2048 and chunk 512: {time.perf_counter() - t0:.1f} s ({CARD})")
+    return n
 
 
 def masked_rows(B, T, dev):
@@ -2212,8 +2383,10 @@ def phase_eval(run_dir, overrides, decoders, dev, tag) -> int:
     recordings × 3 segments; its WER line is printed).  Then, since two or
     three updates leave a LucyRNN's logits within round-off of each other
     (its output projection is zero at init), ``evaluate`` with the run's
-    tokenizer and data on the flagship's ``randomize_`` weights (the RNN-T
-    joiner's widened as phase 10's), kernel path (K1) against plain path,
+    tokenizer on the flagship's ``randomize_`` weights (the RNN-T joiner's
+    widened as phase 10's) over the fixture's 4 recordings cut to 24 s (2
+    segments each, the decoders' host-bound rounds halved), kernel path
+    (K1) against plain path,
     for each of ``decoders``: the same references, and hypotheses whose
     edit distance to the plain path's is at most 2 % of its characters
     (phase 2 holds 99.9 % of greedy frames equal; a beam's choice among
@@ -2231,6 +2404,9 @@ def phase_eval(run_dir, overrides, decoders, dev, tag) -> int:
     log(f"{tag} python -m statecatcher_tpu_torch.eval --decoder {decoders[0]} on the CLI's "
         f"run: {line}")
     cfg, tok, params = port_eval.load_run(run_dir, Config().apply_overrides(overrides), dev)
+    short = write_cli_fixture(os.path.join(WORK, "eval"), seconds=24.0,
+                              cue=cfg.data.target_duration / 4)
+    cfg = cfg.apply_overrides(["--data.local_dir", short])
     mode = cfg.train.mode
     model = rnnt_model(cfg, dev) if mode == "rnnt" else build_speech_model(
         cfg.model, cfg.frontend.n_mfcc, mode, device=dev)
@@ -2272,14 +2448,15 @@ def phase_eval(run_dir, overrides, decoders, dev, tag) -> int:
 
 
 def phase_lstm(dev) -> dict:
-    """Phase 27: the LSTM at the config's defaults (no ``--model.encoder``: 4
-    × 512, vocab 1024, 80 MFCC, f32; the recurrence is torch, with no TPU
-    kernel): phase 2's batched encode (the row whose mask ends early carries
+    """Phase 27: the LSTM at the config's defaults (no ``--model.encoder``:
+    512 wide, vocab 1024, 80 MFCC, f32; the recurrence is torch, with no TPU
+    kernel) with its depth cut from 4 layers to 2 (``LSTM``): phase 2's
+    batched encode (the row whose mask ends early carries
     its last valid frame's state; the output past it is zero), a CTC
     training group of K=1 at B=32 (K3/K4 against their plain versions; one
     segment, ~7 s a path, to make room for the joiner-640 groups), and the
     CLI with no ``--model.encoder``, resumed."""
-    cfg = Config()
+    cfg = Config().apply_overrides(LSTM)
     m = cfg.model
     if m.encoder != "lstm":
         raise AssertionError(f"the config's default encoder is {m.encoder!r}")
@@ -2294,7 +2471,7 @@ def phase_lstm(dev) -> dict:
     log(f"[lstm batched] the LSTM's 16 s segment at B=32: {per_seg[0]:.1f}, {per_seg[1]:.1f} "
         f"ms unmasked, {per_seg[2]:.1f} ms masked ({m.num_layers} × 1598 steps in torch)")
     n_train = phase_train_step(cfg, dev, K=1, path="lstm ctc")
-    phase_cli(encoder=None, tag="[cli lstm default]")
+    phase_cli(encoder=None, extra=LSTM, tag="[cli lstm default]")
     return n_train
 
 
@@ -2744,7 +2921,7 @@ def multi_gpu_job(tag, overrides, modes, refs, K, B=32, S=16 * 16000, U=128,
     del model
     group = {k: v.cpu().numpy() for k, v in zip(
         ("audio", "mask", "tokens", "tok_lens", "row_valid"),
-        train_group(np.random.default_rng(SEED + 6), K, B, S, U, cfg.model.vocab_size, "cpu"))}
+        train_group(SEED + 6, K, B, S, U, cfg.model.vocab_size, "cpu"))}
     group["seg_valid"] = np.ones(K, bool)
     return {"tag": tag, "cfg": cfg, "modes": modes, "refs": refs, "K": K, "B": B,
             "time_runs": time_runs,
@@ -2811,9 +2988,9 @@ def phase_multi_gpu(dev, K=2, B=32, seconds=48.0, target=16) -> dict:
     each rank's columns), (c) sequence parallel over 2 ranks ("sp": K5a/K5b
     on each time shard); (e) the xLSTM at the flagship's widths (E=512, 2
     heads, 3 blocks, d_ff 1364) tensor parallel with mp=2 through "auto"
-    (K9a/K9b on each rank's head) and "pallas" (K10 on it); (f) the LSTM and
-    the RWKV (4 × 512) tensor parallel with mp=2, replicated (one segment
-    each).  Then (d) the CLI on 2 ranks with ``--mesh.data_parallel 2`` on
+    (K9a/K9b on each rank's head) and "pallas" (K10 on it); (f) the LSTM (2 ×
+    512, phase 27's cut) and the RWKV (4 × 512) tensor parallel with mp=2,
+    replicated (one segment each).  Then (d) the CLI on 2 ranks with ``--mesh.data_parallel 2`` on
     phase 7's fixture: two dispatches and a checkpoint (losses against phase
     7's one process), a 2-rank resume from it and a 1-process resume from
     the 2-rank checkpoint (equal losses).  Returns each kernel's launches,
@@ -2838,7 +3015,7 @@ def phase_multi_gpu(dev, K=2, B=32, seconds=48.0, target=16) -> dict:
             multi_gpu_job("[multi-gpu xlstm]", XLSTM_TP,
                           [("xlstm auto", tp), ("xlstm pallas", tp + xpallas)],
                           {"xlstm auto": [], "xlstm pallas": xpallas}, K, B=B),
-            multi_gpu_job("[multi-gpu lstm]", ["--model.encoder", "lstm"], [("lstm", tp)],
+            multi_gpu_job("[multi-gpu lstm]", ["--model.encoder", "lstm", *LSTM], [("lstm", tp)],
                           {"lstm": []}, 1, B=B, time_runs=0),
             multi_gpu_job("[multi-gpu rwkv]", RWKV, [("rwkv", tp)], {"rwkv": []}, 1, B=B)]
     ranks = multi_gpu_launch(jobs, world, backend, device, dev, d, launches)
@@ -2911,6 +3088,16 @@ def phase_multi_gpu(dev, K=2, B=32, seconds=48.0, target=16) -> dict:
     return launches
 
 
+LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Log the seconds since the previous lap: each phase's share of the run."""
+    now = time.perf_counter()
+    log(f"[time] {name}: {now - LAP[0]:.1f} s")
+    LAP[0] = now
+
+
 def kernel_entry(name, source, replaces, launches, m) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -2940,7 +3127,7 @@ def main() -> int:
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    t_run = t0 = time.perf_counter()
+    t_run = t0 = LAP[0] = time.perf_counter()
     builds = _kernels.build_all()
     log(f"[build] {len(_kernels.SIGNATURES)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     for lib, info in builds.items():
@@ -2948,10 +3135,11 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {lib}: nvcc {info['seconds']:.1f} s; " + " | ".join(usage))
 
+    sass = sass_dumps(("rnnt_joint", "rnnt_band", "mlstm_fused", "mlstm_pallas"))
     # the joint's forward and backward kernels run on the tensor cores: every
     # J and dtype instance of each
     for lib in ("rnnt_joint", "rnnt_band"):
-        hmma = sass_hmma(lib, "joint_")
+        hmma = sass_hmma(sass[lib], "joint_")
         log(f"[build] {lib} SASS, HMMA instructions per kernel: "
             + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
         fwd = {k: v for k, v in hmma.items() if "fwd_mma" in k}
@@ -2969,13 +3157,14 @@ def main() -> int:
     bwd_products = ("state_kernel", "bwd_rows_kernel", "bwd_dk_kernel", "bwd_dv_kernel")
     for lib, products in (("mlstm_fused", fwd_products + bwd_products[1:]),
                           ("mlstm_pallas", fwd_products)):
-        hmma = sass_hmma(lib, "")
+        hmma = sass_hmma(sass[lib], "")
         log(f"[build] {lib} SASS, HMMA instructions per kernel: "
             + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
         mma = {k: v for k, v in hmma.items() if k.split("<")[0] in products}
         if {k.split("<")[0] for k in mma} != set(products) or min(mma.values()) == 0:
             raise AssertionError(f"{lib}: a product kernel of the mLSTM holds no HMMA: {hmma}")
 
+    lap("builds")
     k1 = phase_kernel(dev)
 
     cfg = Config().apply_overrides(FLAGSHIP)
@@ -2990,13 +3179,16 @@ def main() -> int:
 
     n_batched, _ = phase_batched(model, cfg, dev)
     n_stream = phase_streaming(model, cfg, dev)
+    lap("phases 1-3")
     k2 = phase_cell_bwd(dev)
     lattice = phase_lattice(dev)
     del model
     n_train = phase_train_step(cfg, dev)
+    lap("phases 4-5")
     phase_throughput(cfg, dev, K=8)
     run_dir, overrides = phase_cli()
     n_eval = phase_eval(run_dir, overrides, ("greedy", "beam"), dev, "[eval ctc]")
+    lap("phases 6-7")
 
     rk = phase_rnnt_kernels(dev)
     n_rtrain = phase_train_step(cfg, dev, K=2, U=48, mode="rnnt")
@@ -3004,6 +3196,7 @@ def main() -> int:
     model = rnnt_model(cfg, dev)
     n_rstream = phase_rnnt_streaming(model, cfg, dev)
     del model
+    lap("phases 8-10")
 
     k5 = phase_scan_kernels(dev)
     masked = cfg.apply_overrides(MASKED)
@@ -3013,6 +3206,7 @@ def main() -> int:
     n_mbatched, split_ms = phase_batched(model.eval(), masked, dev)
     del model
     n_mtrain = phase_train_step(masked, dev, K=2, path="ctc masked")
+    lap("phases 11-12")
     k8 = phase_band_kernels(dev)
     n_btrain = phase_train_step(cfg, dev, K=2, U=128, mode="rnnt", path="rnnt banded",
                                 degenerate=True)
@@ -3020,14 +3214,18 @@ def main() -> int:
     wcfg = cfg.apply_overrides(WIDE_JOINER)
     n_jtrain = phase_train_step(wcfg, dev, K=2, U=48, mode="rnnt", path="rnnt J=640")
     n_jbtrain = phase_train_step(wcfg, dev, K=2, U=128, mode="rnnt", path="rnnt banded J=640")
+    lap("phases 13-14 (joiner 640 groups included)")
     for U in (64, 128):
         phase_throughput(cfg, dev, K=4, U=U, mode="rnnt")
     run_dir, overrides = phase_cli_rnnt()
     n_reval = phase_eval(run_dir, overrides, ("rnnt-greedy", "rnnt-beam"), dev, "[eval rnnt]")
+    lap("phases 15-16")
     phase_cli_rnnt(extra=WIDE_JOINER + ["--train.rnnt_band", "0"], tag="[cli rnnt J=640 exact]")
     phase_cli_rnnt(extra=WIDE_JOINER, tag="[cli rnnt J=640 banded]")
+    lap("the joiner-640 CLI runs")
 
     k9 = phase_mlstm_kernels(dev)
+    lap("phase 17")
     xcfg = Config().apply_overrides(XLSTM)
     pcfg = xcfg.apply_overrides(["--model.xlstm.kernel_impl", "pallas"])
     models = {}
@@ -3046,9 +3244,14 @@ def main() -> int:
                                   "[xlstm pallas batched]")
     n_xstream = phase_streaming(models["auto"], xcfg, dev, mlstm_fused_fwd, "[xlstm streaming]")
     del models
+    lap("phases 18-19")
     n_xtrain = phase_train_step(xcfg, dev, K=2, path="xlstm ctc")
     phase_throughput(xcfg.apply_overrides(["--model.xlstm.chunk_size", "256"]), dev, K=4, B=64)
     phase_cli(encoder="xlstm")
+    lap("phases 20-22")
+    n_xwide = phase_xlstm_wide(dev)
+    phase_cli(encoder="xlstm", extra=XLSTM_2048[2:], tag="[cli xlstm E=2048]")
+    lap("the xLSTM at E=2048 and chunk 512, its CLI runs included")
 
     k12 = phase_cell_scan_kernels(dev)
     kcfg = masked.apply_overrides(["--model.lucyrnn.kernel_impl", "auto-fused"])
@@ -3078,6 +3281,7 @@ def main() -> int:
     del kmodel, dmodel, nmodel
     n_ntrain = phase_train_step(ncfg, dev, K=2, path="native ctc")
     phase_cli(extra=NATIVE, tag="[cli native]")
+    lap("phases 23-26")
 
     n_ltrain = phase_lstm(dev)
     model = build_speech_model(cfg.model, cfg.frontend.n_mfcc, "ctc", device=dev,
@@ -3087,6 +3291,7 @@ def main() -> int:
     phase_ctc_beam(model, cfg, dev)
     n_bstream = phase_beam_streaming(model, cfg, dev)
     del model
+    lap("phases 27-29")
 
     t0 = time.perf_counter()
     n_wtrain, _ = phase_rwkv(dev)
@@ -3095,6 +3300,7 @@ def main() -> int:
     phase_host_side(dev)
     log(f"[time] phase 31 (host side): {time.perf_counter() - t0:.1f} s ({CARD})")
     n_multi = phase_multi_gpu(dev)
+    lap("phases 30-33")
 
     csrc = "statecatcher_tpu_torch/ops/csrc/"
     n_k1 = (n_batched["K1"] + n_stream + n_train["K1"] + n_rtrain["K1"] + n_rstream
@@ -3115,10 +3321,10 @@ def main() -> int:
             + n_ntrain["K4"] + n_ltrain["K4"] + n_wtrain["K4"] + n_multi.get("ctc_beta", 0))
     n_k12 = n_kbatched["K12"] + n_kstream + n_ktrain["K12"]
     n_k11 = n_dbatched["K11"] + n_dtrain["K11"]
-    n_k9a = (n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"]
+    n_k9a = (n_xbatched["K9a"] + n_xstream + n_xtrain["K9a"] + n_xwide["K9a"]
              + n_multi.get("mlstm_fused_fwd", 0))
-    n_k9b = n_xtrain["K9b"] + n_multi.get("mlstm_fused_bwd", 0)
-    n_k10 = n_pbatched["K10"] + n_multi.get("mlstm_pallas_fwd", 0)
+    n_k9b = n_xtrain["K9b"] + n_xwide["K9b"] + n_multi.get("mlstm_fused_bwd", 0)
+    n_k10 = n_pbatched["K10"] + n_xwide["K10"] + n_multi.get("mlstm_pallas_fwd", 0)
     log(f"[kernels] launches: K1 batched {n_batched['K1']}, streaming {n_stream}, train "
         f"{n_train['K1']}, rnnt train {n_rtrain['K1']}, rnnt streaming {n_rstream}, masked "
         f"batched {n_mbatched['K1']}, banded rnnt train {n_btrain['K1']}, eval ctc {n_eval}, "
@@ -3136,6 +3342,7 @@ def main() -> int:
         f"{n_jbtrain['band α']}, band β {n_jbtrain['band β']}; K9a xlstm "
         f"batched {n_xbatched['K9a']}, streaming {n_xstream}, train {n_xtrain['K9a']}; K9b "
         f"{n_xtrain['K9b']} (xlstm train); K10 {n_pbatched['K10']} (xlstm pallas batched); "
+        f"at E=2048 and chunk 512 (batched, streaming, train) {n_xwide}; "
         f"K9a {n_k9a}, K9b {n_k9b}, K10 {n_k10} with the multi-GPU ranks'; "
         f"the multi-GPU ranks' (phase 33, in the sums above) {n_multi}")
     entries = [

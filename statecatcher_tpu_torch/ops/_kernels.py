@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 
 # C signatures of each library's entry points: name → (restype, argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -22,6 +22,13 @@
 // at L = 128, dqk = 128, dv = 256, against ~80 KB of inputs, at 3xTF32's rate
 // (bf16's for q k^T of bf16 inputs): 0.12 ms at B=32, T=1598 in f32.
 //
+// Any chunk L and width dqk, dv: the gate passes take ceil(L/256) rows a
+// thread and keep the chunk's rows in dynamic shared memory sized by L
+// (rows_scan, rows_floats); every product contracts over dqk, dv or L in
+// 32-deep slabs and tiles its outputs 64 wide, so neither width has a limit
+// of its own.  At L <= 256 every pass takes the same operations in the same
+// order as with one row a thread.
+//
 // Design of the forward (K9a and K10: one launcher, launch_fwd, over a Layout
 // of row strides: lane-major for K9a; head-major with H = 1 and inv = 1 for
 // K10).  The chunk step is split along its data dependencies, as K9b splits
@@ -460,6 +467,33 @@ __device__ float block_sum(float x, float* sh) {
   return s;
 }
 
+// Floats of shared memory for one field of a chunk's rows: L, and at least
+// 256 so that at L <= 256 every layout holds 256 rows a field
+__host__ __device__ constexpr int rows_floats(int L) { return L > kThreads ? L : kThreads; }
+
+// The inclusive scan of a chunk's rows v[0, L) by op, in place and in a fixed
+// order (id: op's identity).  Thread t takes the P = ceil(L/256) consecutive
+// rows from t P and forms their prefix, the block scans the 256 partials, each
+// row but a thread's last adds the partial of the threads before its own, and
+// the last takes the block's scan (at L <= 256 each row is a last row:
+// block_scan over one row a thread).  Syncs before (v may come from other
+// threads) and after.
+template <class Op>
+__device__ void rows_scan(float* v, int L, float id, float* sh, Op op) {
+  __shared__ float pre[kThreads];
+  const int t = threadIdx.x, P = (L + kThreads - 1) / kThreads;
+  const int r0 = min(L, t * P), r1 = min(L, r0 + P);
+  __syncthreads();
+  float x = id;
+  for (int r = r0; r < r1; ++r) v[r] = x = r == r0 ? v[r] : op(x, v[r]);
+  pre[t] = block_scan(x, sh, op);
+  __syncthreads();
+  if (t > 0)
+    for (int r = r0; r < r1 - 1; ++r) v[r] = op(pre[t - 1], v[r]);
+  if (r0 < r1) v[r1 - 1] = pre[t];
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // Parameters and the workspace
 // ---------------------------------------------------------------------------
@@ -566,26 +600,32 @@ struct Head {
 // ---------------------------------------------------------------------------
 // 1. Each chunk's own gate rows (one block per chunk): b (the cumulative log
 // forget from the chunk's start), a = ic - b, R (the running max of a), and
-// bL = b_{L-1}, A = R_{L-1}
+// bL = b_{L-1}, A = R_{L-1}; the scans run over buf (2 L floats of dynamic
+// shared memory)
 // ---------------------------------------------------------------------------
-__device__ void gate_rows(const Params& p, int c, int bh) {
+__device__ void gate_rows(const Params& p, int c, int bh, float* buf) {
   __shared__ float sh[kThreads / 32];
   const int L = p.L, t = threadIdx.x;
   const Head<float> hd(p, bh, c);
-  const int g = c * L + t;
-  const bool in = t < L, valid = in && g < p.Tg;
   const size_t o = static_cast<size_t>(hd.bh) * p.Tp;
-  const float b = block_scan(valid ? p.lf[o + g] : 0.f, sh, Add());
-  const float a = (valid ? p.ic[o + g] : kNeg) - b;
-  const float R = block_scan(in ? a : -INFINITY, sh, Max());
-  if (in) {
-    hd.field(RB)[g] = b;
-    hd.field(RA)[g] = a;
-    hd.field(RR)[g] = R;
+  float *b = buf, *R = buf + L;
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
+    b[r] = g < p.Tg ? p.lf[o + g] : 0.f;
   }
-  if (t == L - 1) {
-    hd.cfield(CBL)[c] = b;
-    hd.cfield(CA)[c] = R;
+  rows_scan(b, L, 0.f, sh, Add());
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
+    const float a = (g < p.Tg ? p.ic[o + g] : kNeg) - b[r];
+    R[r] = a;
+    hd.field(RB)[g] = b[r];
+    hd.field(RA)[g] = a;
+  }
+  rows_scan(R, L, -INFINITY, sh, Max());
+  for (int r = t; r < L; r += kThreads) hd.field(RR)[c * L + r] = R[r];
+  if (t == 0) {
+    hd.cfield(CBL)[c] = b[L - 1];
+    hd.cfield(CA)[c] = R[L - 1];
   }
 }
 
@@ -599,8 +639,8 @@ __device__ void gate_m(const Params& p, int c, int bh) {
   float m = p.m0[hd.bh];
   for (int cc = 0; cc < c; ++cc) m = fmaxf(m + cbl[cc], cbl[cc] + ca[cc]);
   const float bL = cbl[c], mn = fmaxf(m + bL, bL + ca[c]);
-  if (t < L) {
-    const int g = c * L + t;
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
     const float b = hd.field(RB)[g], mu = b + fmaxf(m, hd.field(RR)[g]);
     hd.field(RMU)[g] = mu;
     hd.field(RSP)[g] = expf(b + m - mu);
@@ -614,14 +654,16 @@ __device__ void gate_m(const Params& p, int c, int bh) {
 }
 
 __global__ void __launch_bounds__(kThreads) gates_kernel(Params p) {
-  gate_rows(p, blockIdx.x, blockIdx.y);
+  extern __shared__ float sm[];
+  gate_rows(p, blockIdx.x, blockIdx.y, sm);
 }
 __global__ void __launch_bounds__(kThreads) gates_m_kernel(Params p) {
   gate_m(p, blockIdx.x, blockIdx.y);
 }
 // Both in one block where there is one chunk (the block reads back its own rows)
 __global__ void __launch_bounds__(kThreads) gates_one_kernel(Params p) {
-  gate_rows(p, 0, blockIdx.y);
+  extern __shared__ float sm[];
+  gate_rows(p, 0, blockIdx.y, sm);
   __syncthreads();
   gate_m(p, 0, blockIdx.y);
 }
@@ -679,7 +721,8 @@ __device__ float n_sum(const Rows<Tin>& rw, const float* sn, int d0, int dqk, fl
 // slot) or dn_c = inv sum_t sp_t dqn_t q_t (backward), 64 of dqk per block
 template <typename Tin, bool kBwd>
 __global__ void __launch_bounds__(kThreads) nterm_kernel(Params p) {
-  __shared__ float sn[256], red[kThreads];
+  extern __shared__ float sn[];                // the rows' scales (rows_floats(L))
+  __shared__ float red[kThreads];
   const int c = blockIdx.x, L = p.L, dqk = p.dqk, tid = threadIdx.x;
   const int d0 = blockIdx.z * kTile, d = d0 + tid;
   const Head<Tin> hd(p, blockIdx.y, c);
@@ -690,8 +733,9 @@ __global__ void __launch_bounds__(kThreads) nterm_kernel(Params p) {
   __syncthreads();
   const float s = n_sum<kBwd>(hd.rows, sn, d0, dqk, red);
   if (tid < kTile && d < dqk) {
-    float* on = kBwd ? (c == 0 ? p.dn0 + hd.bh * dqk : hd.lamn + (c - 1) * dqk)
-                     : hd.n + (c + 1) * dqk;
+    float* on = kBwd ? (c == 0 ? p.dn0 + static_cast<size_t>(hd.bh) * dqk
+                               : hd.lamn + static_cast<size_t>(c - 1) * dqk)
+                     : hd.n + static_cast<size_t>(c + 1) * dqk;
     on[d] = s;
   }
 }
@@ -737,7 +781,7 @@ __global__ void __launch_bounds__(kThreads, 3) fwd_exit_kernel(Params p) {
   extern __shared__ float sm[];
   float* stage = sm;
   float* sc = stage + stage_floats(kTile);        // w of the last chunk's rows (L)
-  float* red = sc + 256;
+  float* red = sc + rows_floats(p.L);
   const int L = p.L, dqk = p.dqk, dv = p.dv_, tid = threadIdx.x, c = p.Tp / L - 1;
   const Head<Tin> hd(p, blockIdx.y, c);
   const int ntv = (dv + kTile - 1) / kTile;
@@ -771,8 +815,8 @@ __global__ void __launch_bounds__(kThreads, 3) fwd_exit_kernel(Params p) {
 // 5. The forward's outputs of a 64-row tile t0 of chunk c and NV columns of h
 // from v0 (the design above)
 // ---------------------------------------------------------------------------
-inline size_t out_smem_bytes(int NV) {
-  return sizeof(float) * (stage_floats(NV) + kTile * kQP + 2 * 256 + 9 * kTile);
+inline size_t out_smem_bytes(int NV, int L) {
+  return sizeof(float) * (stage_floats(NV) + kTile * kQP + 2 * rows_floats(L) + 9 * kTile);
 }
 
 template <typename Tin, int NV>
@@ -782,8 +826,8 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_out_kernel(Params p) {
   float* stage = sm;
   float* Ws = stage + stage_floats(NV);        // W of one s-tile (64 x 64)
   float* gb = Ws + kTile * kQP;                // the chunk's b and a (L each)
-  float* ga = gb + 256;
-  float* mu = ga + 256;                        // 64 each: the tile's mu, sp inv, sw, q.n_c, den
+  float* ga = gb + rows_floats(p.L);
+  float* mu = ga + rows_floats(p.L);           // 64 each: the tile's mu, sp inv, sw, q.n_c, den
   float* spi = mu + kTile;
   float* sw = spi + kTile;
   float* qn = sw + kTile;
@@ -852,21 +896,22 @@ int launch_fwd(const Params& p, int B, cudaStream_t s) {
   const int BH = B * p.H, NC = p.Tp / p.L, nrt = (p.L + kTile - 1) / kTile;
   const int ndt = (p.dqk + kTile - 1) / kTile;
   const int nst = ndt * ((p.dv_ + kTile - 1) / kTile);
-  const size_t state_smem = sizeof(float) * (stage_floats(kTile) + 2 * 256);
+  const size_t rows_smem = sizeof(float) * rows_floats(p.L), gate_smem = sizeof(float) * 2 * p.L;
+  const size_t state_smem = sizeof(float) * (stage_floats(kTile) + kThreads) + rows_smem;
   int err = 0;
   if (NC == 1) {
-    err = launch(gates_one_kernel, dim3(1, BH), 0, p, s);
+    err = launch(gates_one_kernel, dim3(1, BH), gate_smem, p, s);
   } else {
-    err = launch(gates_kernel, dim3(NC, BH), 0, p, s);
+    err = launch(gates_kernel, dim3(NC, BH), gate_smem, p, s);
     if (err == 0) err = launch(gates_m_kernel, dim3(NC, BH), 0, p, s);
     if (err == 0) err = launch(state_kernel<Tin, false>, dim3(nst, NC - 1, BH), state_smem, p, s);
-    if (err == 0) err = launch(nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), 0, p, s);
+    if (err == 0) err = launch(nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), rows_smem, p, s);
     if (err == 0) err = launch(scan_fwd_kernel, dim3(p.wk.nscan, BH), 0, p, s);
   }
   if (err == 0) err = launch(fwd_exit_kernel<Tin>, dim3(nst, BH), state_smem, p, s);
   if (err == 0)
     err = launch(fwd_out_kernel<Tin, NV>, dim3(nrt * ((p.dv_ + NV - 1) / NV), NC, BH),
-                 out_smem_bytes(NV), p, s);
+                 out_smem_bytes(NV, p.L), p, s);
   return err;
 }
 

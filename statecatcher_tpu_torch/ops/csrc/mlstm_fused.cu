@@ -43,15 +43,20 @@
 //               sums sw, swg over S and G tiles (64 x 64, never in global
 //               memory; G of the first two s-tiles kept in shared memory for
 //               the second sweep), U, den, dqn, dmu, dsp, rowD; then Q tile by
-//               tile into dq;
+//               tile into dq.  Above dqk = 256, U and dq take slabs of 256
+//               columns: q.U summed over the slabs in order before den, then
+//               U formed again and Q walked again for each slab's dq;
 //   5. state, nterm (as 2., NC chunks): dC_c and dn_c;
 //   6. scan_bwd (E/256, B*H): dC' and dn' of every chunk, dC0, dn0 and dg's
 //               partial sums per block, elementwise in reverse;
 //   7. dk       (L/64, NC, B*H): per 64-row tile s: w Y, dw, then S^T and G^T
-//               tiles over t >= s: Q^T tile by tile into dk, colD;
+//               tiles over t >= s: Q^T tile by tile into dk, colD (above dqk
+//               = 256 slab by slab as the rows' dq: dw over the slabs in
+//               order, S^T and colD with the first);
 //   8. dv       (L/64 * dv/128, NC, B*H): w Z, then S^T tiles into dv;
 //   9. chain    (NC, B*H): the gate chain with dm' = 0 (block sums, tie counts
-//               over each run of equal R), dic and dlf; dmc and to1 per chunk;
+//               over each run of equal R, which may cross threads' rows), dic
+//               and dlf; dmc and to1 per chunk;
 //  10. fixup    (NC, B*H): dm' of each chunk from the later chunks' (dmc, to1)
 //               (a scalar walk), its terms added to dic and dlf; dm0.
 // Every product runs on the tensor cores (mma.sync, mma_frag.cuh): q k^T and
@@ -88,16 +93,24 @@ struct ChunkGates {
 // 4. Rows of a chunk: den, dqn, dmu, dsp, rowD and dq, per 64-row tile
 // ---------------------------------------------------------------------------
 // floats of shared memory of the rows, dk and dv kernels: the staging area,
-// one 64 x 64 tile per tile of the chunk, the chunk's gate rows (5 x 256) and
-// the tile's row terms (12 x 64)
+// `tiles` 64 x 64 tiles, the chunk's gate rows (5 x rows_floats(L)) and the
+// tile's row terms (12 x 64)
 // The rows kernel keeps sweep 1's G of its first two s-tiles (all of them at
 // L <= 128) and forms G again for the others: four kept tiles (L = 256)
-// would leave room for one block per SM.
+// would leave room for one block per SM.  With more than one slab of dq the
+// kept tiles hold Q for the later slabs, and the others are formed in a
+// third tile.
 constexpr int kKeptG = 2;
 
-inline size_t tiles_smem_bytes(int N, int L) {
-  return sizeof(float) * (stage_floats(N) + static_cast<size_t>((L + kTile - 1) / kTile) *
-                                                kTile * kQP + 5 * 256 + 12 * kTile);
+inline size_t tiles_smem_bytes(int N, int tiles, int L) {
+  return sizeof(float) * (stage_floats(N) + static_cast<size_t>(tiles) * kTile * kQP +
+                          5 * rows_floats(L) + 12 * kTile);
+}
+
+// Slabs of DQ columns of dq or dk: DQ <= 128 covers dqk, DQ = 256 any dqk
+template <int DQ>
+__host__ __device__ __forceinline__ int dq_slabs(int dqk) {
+  return DQ < 256 ? 1 : (dqk + DQ - 1) / DQ;
 }
 
 template <typename Tin, int DQ>
@@ -105,11 +118,12 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(Params p) {
   extern __shared__ float sm[];
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
-  const int t0 = blockIdx.x * kTile, L = p.L;
-  float* Gs = stage + stage_floats(DQ);        // kKeptG tiles: G, then inv Q
-  float* gr = Gs + kKeptG * kTile * kQP;
-  const ChunkGates G{gr, gr + 256, gr + 512, gr + 768, gr + 1024};   // aux0 = sp
-  float* sw = G.aux1 + 256;                    // 64 each: sw, swg, qU, qn, den, dqn, ...
+  const int t0 = blockIdx.x * kTile, L = p.L, R_ = rows_floats(L);
+  const int nslab = dq_slabs<DQ>(p.dqk);
+  float* Gs = stage + stage_floats(DQ);        // kKeptG tiles: G, then inv Q (+ 1, nslab > 1)
+  float* gr = Gs + (kKeptG + (nslab > 1)) * kTile * kQP;
+  const ChunkGates G{gr, gr + R_, gr + 2 * R_, gr + 3 * R_, gr + 4 * R_};   // aux0 = sp
+  float* sw = G.aux1 + R_;                     // 64 each: sw, swg, qU, qn, den, dqn, ...
   float* swg = sw + kTile;
   float* qU = swg + kTile;
   float* qnn = qU + kTile;
@@ -167,11 +181,16 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(Params p) {
     row_sums<kTile>(Gt, red, swg);
   }
 
-  // U = dh C^T (64 x dqk), then q_t . U_t
+  // U = dh C^T (64 x dqk), then q_t . U_t, slab by slab (columns d0 + d)
   Acc<DQ> acc;
-  zero<DQ>(acc);
-  mma_tile<DQ, false, true, false>(dv, hd.dhm(t0), mat(Cc, dv, dqk, dv), stage, acc);
-  {
+  auto form_U = [&](int d0) {
+    zero<DQ>(acc);
+    mma_tile<DQ, false, true, false>(dv, hd.dhm(t0), mat(Cc + static_cast<size_t>(d0) * dv, dv,
+                                                        dqk - d0, dv), stage, acc);
+  };
+  for (int sl = 0; sl < nslab; ++sl) {
+    const int d0 = sl * DQ;
+    form_U(d0);
     Acc<DQ> x;
     const WarpPos w;
 #pragma unroll
@@ -182,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(Params p) {
         for (int e = 0; e < 4; ++e) {
           const int r = 32 * w.wm + 16 * i + w.gq + 8 * (e >> 1);
           const int d = (DQ / 4) * w.wn + 8 * j + 2 * w.tq + (e & 1);
-          x[i][j][e] = d < dqk ? rw.Q(t0 + r, d) * acc[i][j][e] : 0.f;
+          x[i][j][e] = d < dqk - d0 ? rw.Q(t0 + r, d0 + d) * acc[i][j][e] : 0.f;
         }
     row_sums<DQ>(x, red, qU);
   }
@@ -211,39 +230,46 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(Params p) {
   }
   __syncthreads();
 
-  // dq = inv sp (U/den + dqn n) + inv Q k
-  each<DQ>(acc, [&](int r, int d, float& x) {
-    const int t = t0 + r;
-    const float sp = t < L ? G.aux0[t] : 0.f;
-    x = d < dqk ? p.inv * sp * (x / den[r] + dqn[r] * nc[d]) : 0.f;
-  });
-  // sweep 2: inv Q = inv E (G/den + dqn), from sweep 1's G (or G again), tile by
-  // tile into dq
-  for (int s0 = 0; s0 <= t0 && s0 < L; s0 += kTile) {
-    float* Qk = Gs + (s0 / kTile) % kKeptG * kTile * kQP;
-    if (s0 < kKeptG * kTile) {
-      for (int e = tid; e < kTile * kTile; e += kThreads) {
-        const int r = e / kTile, sc = e % kTile;
-        Qk[r * kQP + sc] = p.inv * E(t0 + r, s0 + sc) * (Qk[r * kQP + sc] / den[r] + dqn[r]);
-      }
-    } else {
-      Acc<kTile> Gt;
-      zero<kTile>(Gt);
-      mma_tile<kTile, kBf, true, false>(dv, hd.dhm(t0), hd.vm(s0), stage, Gt);
-      each<kTile>(Gt, [&](int r, int sc, float& x) {
-        Qk[r * kQP + sc] = p.inv * E(t0 + r, s0 + sc) * (x / den[r] + dqn[r]);
-      });
-    }
-    __syncthreads();
-    mma_tile<DQ, false, true, true>(min(kTile, L - s0), mat<float>(Qk, kQP, kTile, kTile),
-                                    hd.km(s0), stage, acc);
-  }
   Tin* dq = static_cast<Tin*>(p.dq) + (hd.bh / p.H) * p.lay.qk_b + (hd.bh % p.H) * p.lay.qk_h;
-  each<DQ>(acc, [&](int r, int d, float& x) {
-    const int t = t0 + r;
-    if (t < L && d < dqk)
-      st(dq + static_cast<size_t>(rw.t0 + t) * p.lay.qk_r + d, rw.valid(t) ? x : 0.f);
-  });
+  for (int sl = 0; sl < nslab; ++sl) {
+    const int d0 = sl * DQ, nd = dqk - d0;
+    if (nslab > 1) form_U(d0);                 // (one slab: U is still in acc)
+    // dq = inv sp (U/den + dqn n) + inv Q k
+    each<DQ>(acc, [&](int r, int d, float& x) {
+      const int t = t0 + r;
+      const float sp = t < L ? G.aux0[t] : 0.f;
+      x = d < nd ? p.inv * sp * (x / den[r] + dqn[r] * nc[d0 + d]) : 0.f;
+    });
+    // sweep 2: inv Q = inv E (G/den + dqn), from sweep 1's G (or G again), tile
+    // by tile into dq; the kept tiles turn into Q once, in the first slab
+    for (int s0 = 0; s0 <= t0 && s0 < L; s0 += kTile) {
+      const bool kept = s0 < kKeptG * kTile;
+      float* Qk = Gs + (kept || nslab == 1 ? (s0 / kTile) % kKeptG : kKeptG) * kTile * kQP;
+      if (kept) {
+        if (sl == 0)
+          for (int e = tid; e < kTile * kTile; e += kThreads) {
+            const int r = e / kTile, sc = e % kTile;
+            Qk[r * kQP + sc] = p.inv * E(t0 + r, s0 + sc) * (Qk[r * kQP + sc] / den[r] + dqn[r]);
+          }
+      } else {
+        Acc<kTile> Gt;
+        zero<kTile>(Gt);
+        mma_tile<kTile, kBf, true, false>(dv, hd.dhm(t0), hd.vm(s0), stage, Gt);
+        each<kTile>(Gt, [&](int r, int sc, float& x) {
+          Qk[r * kQP + sc] = p.inv * E(t0 + r, s0 + sc) * (x / den[r] + dqn[r]);
+        });
+      }
+      __syncthreads();
+      const Mat<Tin> K = hd.km(s0);
+      mma_tile<DQ, false, true, true>(min(kTile, L - s0), mat<float>(Qk, kQP, kTile, kTile),
+                                      mat(K.p + d0, K.ld, K.nrow, nd), stage, acc);
+    }
+    each<DQ>(acc, [&](int r, int d, float& x) {
+      const int t = t0 + r;
+      if (t < L && d < nd)
+        st(dq + static_cast<size_t>(rw.t0 + t) * p.lay.qk_r + d0 + d, rw.valid(t) ? x : 0.f);
+    });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -284,9 +310,10 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dk_kernel(Params p) {
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
   float* Qs = stage + stage_floats(DQ);        // inv Q^T of one t-tile
-  const ChunkGates G{Qs + kTile * kQP, Qs + kTile * kQP + 256, Qs + kTile * kQP + 512,
-                     Qs + kTile * kQP + 768, Qs + kTile * kQP + 1024};   // den, dqn
-  float* wv = G.aux1 + 256;                    // w of the tile's rows (64)
+  const int R_ = rows_floats(p.L);
+  float* gr = Qs + kTile * kQP;
+  const ChunkGates G{gr, gr + R_, gr + 2 * R_, gr + 3 * R_, gr + 4 * R_};   // den, dqn
+  float* wv = G.aux1 + R_;                     // w of the tile's rows (64)
   float* colD = wv + kTile;
   float* dZ = colD + kTile;
   float* red = dZ + 2 * kTile;
@@ -310,60 +337,69 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dk_kernel(Params p) {
   }
   __syncthreads();
 
-  Acc<DQ> acc;
-  zero<DQ>(acc);
-  mma_tile<DQ, false, true, false>(dv, hd.vm(s0, wv), mat(lam, dv, dqk, dv), stage, acc);
-  {
-    Acc<DQ> x;
-    const WarpPos w;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < DQ / 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 32 * w.wm + 16 * i + w.gq + 8 * (e >> 1);
-          const int d = (DQ / 4) * w.wn + 8 * j + 2 * w.tq + (e & 1);
-          const float y = d < dqk ? acc[i][j][e] + wv[r] * lamn[d] : 0.f;
-          acc[i][j][e] = y;
-          x[i][j][e] = d < dqk ? rw.K(s0 + r, d) * y : 0.f;
-        }
-    row_sums<DQ>(x, red, dZ);
-  }
-
   auto E = [&](int t, int s) {
     return s <= t && t < L ? expf(G.b[t] + G.a[s] - G.mu[t]) : 0.f;
   };
-  for (int t0 = s0; t0 < L; t0 += kTile) {
-    Acc<kTile> S, Gt;
-    zero<kTile>(S);
-    zero<kTile>(Gt);
-    mma_tile<kTile, kBf, true, false>(dqk, hd.km(s0), hd.qm(t0), stage, S);
-    mma_tile<kTile, kBf, true, false>(dv, hd.vm(s0), hd.dhm(t0), stage, Gt);
-    const WarpPos w;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 32 * w.wm + 16 * i + w.gq + 8 * (e >> 1);
-          const int cl = 16 * w.wn + 8 * j + 2 * w.tq + (e & 1);
-          const int t = t0 + cl;
-          const float q = t < L ? E(t, s0 + r) * (Gt[i][j][e] / G.aux0[t] + G.aux1[t]) : 0.f;
-          Qs[r * kQP + cl] = p.inv * q;
-          S[i][j][e] *= p.inv * q;
-        }
-    row_sums<kTile>(S, red, colD);             // (syncs: Qs is complete after it)
-    mma_tile<DQ, false, true, true>(min(kTile, L - t0), mat<float>(Qs, kQP, kTile, kTile),
-                                    hd.qm(t0), stage, acc);
-  }
   Tin* dk = static_cast<Tin*>(p.dk) + (hd.bh / p.H) * p.lay.qk_b + (hd.bh % p.H) * p.lay.qk_h;
-  each<DQ>(acc, [&](int r, int d, float& x) {
-    const int s = s0 + r;
-    if (s < L && d < dqk)
-      st(dk + static_cast<size_t>(rw.t0 + s) * p.lay.qk_r + d, rw.valid(s) ? x : 0.f);
-  });
+  const int nslab = dq_slabs<DQ>(dqk);
+  for (int sl = 0; sl < nslab; ++sl) {         // dk's columns d0 + d
+    const int d0 = sl * DQ, nd = dqk - d0;
+    Acc<DQ> acc;
+    zero<DQ>(acc);
+    mma_tile<DQ, false, true, false>(dv, hd.vm(s0, wv), mat(lam + static_cast<size_t>(d0) * dv,
+                                                            dv, nd, dv), stage, acc);
+    {
+      Acc<DQ> x;
+      const WarpPos w;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < DQ / 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * w.wm + 16 * i + w.gq + 8 * (e >> 1);
+            const int d = (DQ / 4) * w.wn + 8 * j + 2 * w.tq + (e & 1);
+            const float y = d < nd ? acc[i][j][e] + wv[r] * lamn[d0 + d] : 0.f;
+            acc[i][j][e] = y;
+            x[i][j][e] = d < nd ? rw.K(s0 + r, d0 + d) * y : 0.f;
+          }
+      row_sums<DQ>(x, red, dZ);
+    }
+
+    for (int t0 = s0; t0 < L; t0 += kTile) {
+      Acc<kTile> S, Gt;
+      zero<kTile>(S);
+      zero<kTile>(Gt);
+      if (sl == 0) mma_tile<kTile, kBf, true, false>(dqk, hd.km(s0), hd.qm(t0), stage, S);
+      mma_tile<kTile, kBf, true, false>(dv, hd.vm(s0), hd.dhm(t0), stage, Gt);
+      const WarpPos w;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * w.wm + 16 * i + w.gq + 8 * (e >> 1);
+            const int cl = 16 * w.wn + 8 * j + 2 * w.tq + (e & 1);
+            const int t = t0 + cl;
+            const float q = t < L ? E(t, s0 + r) * (Gt[i][j][e] / G.aux0[t] + G.aux1[t]) : 0.f;
+            Qs[r * kQP + cl] = p.inv * q;
+            S[i][j][e] *= p.inv * q;
+          }
+      if (sl == 0)
+        row_sums<kTile>(S, red, colD);         // (syncs: Qs is complete after it)
+      else
+        __syncthreads();
+      const Mat<Tin> Qm = hd.qm(t0);
+      mma_tile<DQ, false, true, true>(min(kTile, L - t0), mat<float>(Qs, kQP, kTile, kTile),
+                                      mat(Qm.p + d0, Qm.ld, Qm.nrow, nd), stage, acc);
+    }
+    each<DQ>(acc, [&](int r, int d, float& x) {
+      const int s = s0 + r;
+      if (s < L && d < nd)
+        st(dk + static_cast<size_t>(rw.t0 + s) * p.lay.qk_r + d0 + d, rw.valid(s) ? x : 0.f);
+    });
+  }
   if (tid < kTile && s0 + tid < L) {
     hd.field(RCOLD)[c * L + s0 + tid] = colD[tid];
     hd.field(RDZ)[c * L + s0 + tid] = dZ[tid];
@@ -380,9 +416,10 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dv_kernel(Params p) {
   constexpr bool kBf = std::is_same<Tin, __nv_bfloat16>::value;
   float* stage = sm;
   float* Ws = stage + stage_floats(NV);        // (S E/den)^T of one t-tile
-  const ChunkGates G{Ws + kTile * kQP, Ws + kTile * kQP + 256, Ws + kTile * kQP + 512,
-                     Ws + kTile * kQP + 768, nullptr};             // aux0 = den
-  float* wv = G.aux0 + 256;
+  const int R_ = rows_floats(p.L);
+  float* gr = Ws + kTile * kQP;
+  const ChunkGates G{gr, gr + R_, gr + 2 * R_, gr + 3 * R_, nullptr};   // aux0 = den
+  float* wv = G.aux0 + R_;
   const int c = blockIdx.y, L = p.L, dqk = p.dqk, dv = p.dv_, tid = threadIdx.x;
   const int nrt = (L + kTile - 1) / kTile;
   const int s0 = (blockIdx.x % nrt) * kTile, v0 = (blockIdx.x / nrt) * NV;
@@ -426,62 +463,67 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dv_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// 9. The gate chain of each chunk with dm' = 0 (thread t = row t)
+// 9. The gate chain of each chunk with dm' = 0: thread t takes rows t, t + 256,
+// ...; the rows' terms in dynamic shared memory (7 x rows_floats(L))
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) bwd_chain_kernel(Params p) {
-  __shared__ float sh[kThreads / 32], sa[256], sR[256], sdR[256], scnt[256], sx[256];
-  const int c = blockIdx.x, L = p.L, t = threadIdx.x;
+  extern __shared__ float sm[];
+  __shared__ float sh[kThreads / 32];
+  const int c = blockIdx.x, L = p.L, t = threadIdx.x, R_ = rows_floats(L);
+  float *sa = sm, *sR = sa + R_, *sdR = sR + R_, *scnt = sdR + R_, *sx = scnt + R_;
+  float *sdb = sx + R_, *sda = sdb + R_;
   const Head<float> hd(p, blockIdx.y, c);
-  const int g = c * L + t;
-  const bool in = t < L;
   const float m = hd.cfield(CM)[c], gc = hd.cfield(CG)[c], bL = hd.cfield(CBL)[c],
               A = hd.cfield(CA)[c];
   float dg = 0.f;
   for (int i = 0; i < p.wk.nscan; ++i) dg += hd.dgp[c * p.wk.nscan + i];
-  float db = 0.f, da = 0.f, dR = 0.f, dmc_t = 0.f, dz = 0.f;
-  if (in) {
+  float dz_t = 0.f, dmc_t = 0.f;                     // the thread's rows' partial sums
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
     const float sp = hd.field(RSP)[g], R = hd.field(RR)[g], rowD = hd.field(RROWD)[g];
     const float dX = hd.field(RDSP)[g] * sp;
     const float dmu = hd.field(RDMU)[g] - rowD - dX;
     const float tom = to_first(m, R);
-    db = rowD + dX + dmu;
-    dmc_t = dX + dmu * tom;
-    dR = dmu * (1.f - tom);
-    dz = hd.field(RDZ)[g];
-    da = hd.field(RCOLD)[g] + dz;
-    sa[t] = hd.field(RA)[g];
-    sR[t] = R;
+    const float dz = hd.field(RDZ)[g], dmc_r = dX + dmu * tom;
+    sdb[r] = rowD + dX + dmu;
+    sdR[r] = dmu * (1.f - tom);
+    sda[r] = hd.field(RCOLD)[g] + dz;
+    sa[r] = hd.field(RA)[g];
+    sR[r] = R;
+    dz_t = r == t ? dz : dz_t + dz;
+    dmc_t = r == t ? dmc_r : dmc_t + dmc_r;
   }
-  const float sum_dz = block_sum(dz, sh);
+  const float sum_dz = block_sum(dz_t, sh);
   const float dY = dg * gc;
   const float dm_tot = -sum_dz - dY;                 // dm' = 0 here; see the fixup
   const float to1 = to_first(m + bL, bL + A);
   const float dmc = block_sum(dmc_t, sh) + dY + dm_tot * to1;
-  if (t == L - 1) {
-    dR += dm_tot * (1.f - to1);
-    db += sum_dz + dY + dm_tot;                      // dbL
+  if (t == (L - 1) % kThreads) {
+    sdR[L - 1] += dm_tot * (1.f - to1);
+    sdb[L - 1] += sum_dz + dY + dm_tot;              // dbL
   }
-  if (in) sdR[t] = dR;
   __syncthreads();
   // R_t = max_{s<=t} a_s: a tie's share goes to every s <= t with a_s = R_t,
   // all of them in the run of equal R ending at t (R does not decrease)
-  if (in) {
+  for (int r = t; r < L; r += kThreads) {
     float cnt = 0.f;
-    for (int s = t; s >= 0 && sR[s] == sR[t]; --s) cnt += sa[s] == sR[t] ? 1.f : 0.f;
-    scnt[t] = cnt;
+    for (int s = r; s >= 0 && sR[s] == sR[r]; --s) cnt += sa[s] == sR[r] ? 1.f : 0.f;
+    scnt[r] = cnt;
   }
   __syncthreads();
-  if (in && sa[t] == sR[t])
-    for (int u = t; u < L && sR[u] == sa[t]; ++u) da += sdR[u] / scnt[u];
-  if (in) sx[t] = db - da;
-  __syncthreads();
-  // dlogf_t = sum_{u >= t} (db_u - da_u): thread i scans row L-1-i
-  const int r = L - 1 - t;
-  const float run = block_scan(t < L ? sx[r] : 0.f, sh, Add());
-  if (in) {
-    p.dic[static_cast<size_t>(hd.bh) * p.Tp + g] = g < p.T ? da : 0.f;
-    const int gr = c * L + r;
-    p.dlf[static_cast<size_t>(hd.bh) * p.Tp + gr] = gr < p.T ? run : 0.f;
+  // dlogf_t = sum_{u >= t} (db_u - da_u): sx holds the rows reversed for the scan
+  for (int r = t; r < L; r += kThreads) {
+    float da = sda[r];
+    if (sa[r] == sR[r])
+      for (int u = r; u < L && sR[u] == sa[r]; ++u) da += sdR[u] / scnt[u];
+    sda[r] = da;
+    sx[L - 1 - r] = sdb[r] - da;
+  }
+  rows_scan(sx, L, 0.f, sh, Add());
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
+    p.dic[static_cast<size_t>(hd.bh) * p.Tp + g] = g < p.T ? sda[r] : 0.f;
+    p.dlf[static_cast<size_t>(hd.bh) * p.Tp + g] = g < p.T ? sx[L - 1 - r] : 0.f;
   }
   if (t == 0) {
     hd.cfield(CDMC)[c] = dmc;
@@ -496,7 +538,8 @@ __global__ void __launch_bounds__(kThreads) bwd_chain_kernel(Params p) {
 // share of R_{L-1}
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) bwd_fixup_kernel(Params p) {
-  __shared__ float sh[kThreads / 32], sx[256];
+  extern __shared__ float sx[];                      // the rows' hits, reversed
+  __shared__ float sh[kThreads / 32];
   const int c = blockIdx.x, L = p.L, t = threadIdx.x;
   const Head<float> hd(p, blockIdx.y, c);
   float x = p.dmT[hd.bh];
@@ -504,17 +547,13 @@ __global__ void __launch_bounds__(kThreads) bwd_fixup_kernel(Params p) {
   if (c == 0 && t == 0) p.dm0[hd.bh] = hd.cfield(CDMC)[0] + hd.cfield(CTO1)[0] * x;
   const float share = x * (1.f - hd.cfield(CTO1)[c]) / hd.cfield(CCNT)[c];
   const float A = hd.cfield(CA)[c];
-  const int g = c * L + t;
-  const bool hit = t < L && hd.field(RA)[g] == A;
-  if (t < L) sx[t] = hit ? 1.f : 0.f;
-  __syncthreads();
-  const int r = L - 1 - t;
-  const float after = block_scan(t < L ? sx[r] : 0.f, sh, Add());     // hits at rows >= r
-  if (t < L) {
-    const size_t o = static_cast<size_t>(hd.bh) * p.Tp;
-    if (g < p.T && hit) p.dic[o + g] += share;
-    const int gr = c * L + r;
-    if (gr < p.T) p.dlf[o + gr] += x - share * after;
+  for (int r = t; r < L; r += kThreads) sx[L - 1 - r] = hd.field(RA)[c * L + r] == A ? 1.f : 0.f;
+  rows_scan(sx, L, 0.f, sh, Add());                  // sx[L-1-r]: hits at rows >= r
+  const size_t o = static_cast<size_t>(hd.bh) * p.Tp;
+  for (int r = t; r < L; r += kThreads) {
+    const int g = c * L + r;
+    if (g < p.T && hd.field(RA)[g] == A) p.dic[o + g] += share;
+    if (g < p.T) p.dlf[o + g] += x - share * sx[L - 1 - r];
   }
 }
 
@@ -533,31 +572,35 @@ int launch_bwd(const Params& p, int B, cudaStream_t s) {
   const int BH = B * p.H, NC = p.Tp / p.L, nrt = (p.L + kTile - 1) / kTile;
   const int ndt = (p.dqk + kTile - 1) / kTile;
   const int nst = ndt * ((p.dv_ + kTile - 1) / kTile);
-  const size_t state_smem = sizeof(float) * (stage_floats(kTile) + 256);
+  const size_t rows_smem = sizeof(float) * rows_floats(p.L), gate_smem = sizeof(float) * 2 * p.L;
+  const size_t state_smem = sizeof(float) * stage_floats(kTile) + rows_smem;
+  const int nslab = dq_slabs<DQ>(p.dqk);
   const unsigned nscan = static_cast<unsigned>(p.wk.nscan);
-  int err = launch(gates_kernel, dim3(NC, BH), 0, p, s);
+  int err = launch(gates_kernel, dim3(NC, BH), gate_smem, p, s);
   if (err == 0) err = launch(gates_m_kernel, dim3(NC, BH), 0, p, s);
   if (err == 0 && NC > 1)
     err = launch(state_kernel<Tin, false>, dim3(nst, NC - 1, BH), state_smem, p, s);
   if (err == 0 && NC > 1)
-    err = launch(nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), 0, p, s);
+    err = launch(nterm_kernel<Tin, false>, dim3(NC - 1, BH, ndt), rows_smem, p, s);
   if (err == 0) err = launch(scan_fwd_kernel, dim3(nscan, BH), 0, p, s);
   if (err == 0)
     err = launch(bwd_rows_kernel<Tin, DQ>, dim3(nrt, NC, BH),
-                 tiles_smem_bytes(DQ, kKeptG * kTile), p, s);
+                 tiles_smem_bytes(DQ, kKeptG + (nslab > 1), p.L), p, s);
   if (err == 0) err = launch(state_kernel<Tin, true>, dim3(nst, NC, BH), state_smem, p, s);
-  if (err == 0) err = launch(nterm_kernel<Tin, true>, dim3(NC, BH, ndt), 0, p, s);
+  if (err == 0) err = launch(nterm_kernel<Tin, true>, dim3(NC, BH, ndt), rows_smem, p, s);
   if (err == 0) err = launch(bwd_scan_bwd_kernel, dim3(nscan, BH), 0, p, s);
   if (err == 0)
-    err = launch(bwd_dk_kernel<Tin, DQ>, dim3(nrt, NC, BH), tiles_smem_bytes(DQ, kTile), p, s);
+    err = launch(bwd_dk_kernel<Tin, DQ>, dim3(nrt, NC, BH), tiles_smem_bytes(DQ, 1, p.L), p, s);
   if (err == 0)
     err = launch(bwd_dv_kernel<Tin, NV>, dim3(nrt * ((p.dv_ + NV - 1) / NV), NC, BH),
-                 tiles_smem_bytes(NV, kTile), p, s);
-  if (err == 0) err = launch(bwd_chain_kernel, dim3(NC, BH), 0, p, s);
-  if (err == 0) err = launch(bwd_fixup_kernel, dim3(NC, BH), 0, p, s);
+                 tiles_smem_bytes(NV, 1, p.L), p, s);
+  if (err == 0) err = launch(bwd_chain_kernel, dim3(NC, BH), 7 * rows_smem, p, s);
+  if (err == 0) err = launch(bwd_fixup_kernel, dim3(NC, BH), rows_smem, p, s);
   return err;
 }
 
+// The instances by shape: dq and dk 64, 128 or 256 columns a block (above
+// 256 in slabs of 256), dv 64 or 128
 template <typename Tin>
 int launch_bwd_for(const Params& p, int B, cudaStream_t s) {
   const bool wide_v = p.dv_ > kTile;
@@ -574,8 +617,10 @@ int launch_bwd_for(const Params& p, int B, cudaStream_t s) {
 using namespace mlstm;
 
 // Each returns the first cudaError_t of its launches (0 on success).  dtype 0
-// is float32, 1 bfloat16 (q, k, v, h, dh, dq, dk, dv).  L must divide Tp,
-// T > Tp - L, and L and dqk be at most 256 (the wrapper checks).
+// is float32, 1 bfloat16 (q, k, v, h, dh, dq, dk, dv).  L must divide Tp and
+// T > Tp - L; B*H and Tp/L at most 65535, the grids' y and z limit, and each
+// launch's dynamic shared memory (it grows with L) within the block's limit
+// (the wrapper checks both: check_launch, max_chunk).
 // The floats of K9a's and K9b's workspaces (the work argument) for these shapes.
 extern "C" long long mlstm_fused_fwd_work(int B, int H, int Tp, int dqk, int dv, int L) {
   return static_cast<long long>(B) * H * work_layout(Tp, dqk, dv, L, false).stride;

@@ -23,8 +23,9 @@ extern "C" long long mlstm_pallas_fwd_work(int BH, int Tp, int dqk, int dv, int 
 }
 
 // Returns the first cudaError_t of its launches (0 on success).  L must
-// divide Tp, Tp - L < T <= Tp, and L and dqk be at most 256 (the wrapper
-// checks).
+// divide Tp, Tp - L < T <= Tp, BH and Tp/L be at most 65535, the grids' y
+// and z limit, and L small enough for the forward's shared memory (the
+// wrapper checks both).
 extern "C" int mlstm_pallas_fwd(const float* q, const float* k, const float* v, const float* ic,
                                 const float* lf, const float* C0, const float* n0,
                                 const float* m0, float* h, float* CT, float* nT, float* mT,

@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from statecatcher_tpu_torch.ops._kernels import MAX_GRID_YZ
+
 NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -266,9 +268,57 @@ def mlstm_fused_bwd_ref(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T,
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
-def _check(q, k, v, i_c, logf, C0, n0, m0, chunk: int, T: int):
-    """Shapes (B, Tp, H, dqk, dv, L) of a K9 call; raises on what the
-    kernels do not take."""
+# The kernels take any chunk and width within three limits of the card.  Their
+# grids put the B·H heads and the chunks on the y and z axes (MAX_GRID_YZ
+# blocks), and they take their sizes as int32 arguments.  Each block keeps its
+# chunk's gate rows, fields of max(L, 256) floats, in shared memory beside fixed
+# tiles, as the launchers of ops/csrc/mlstm_chunk.cuh (launch_fwd) and
+# mlstm_fused.cu (launch_bwd) size them; an H100 block takes 227 KB, of which
+# 2 KB are left to the kernels' static arrays.
+SMEM_FLOATS = (227 * 1024 - 2048) // 4
+_STAGE = {64: 9216, 128: 13824, 256: 23040}    # stage_floats(N) of mlstm_chunk.cuh
+_TILE = 64 * 68                                 # a 64 x 64 operand tile (kTile * kQP)
+
+
+def _smem_terms(dqk: int, dv: int, bwd: bool):
+    """(floats a row of the chunk, fixed floats) of the dynamic shared memory
+    of each launch that could be the largest."""
+    nv = 64 if dv <= 64 else 128                 # fwd_out's and bwd_dv's columns a block
+    terms = [(2, _STAGE[nv] + _TILE + 9 * 64),   # fwd_out (out_smem_bytes)
+             (1, _STAGE[64] + 256)]              # state, fwd_exit
+    if bwd:
+        dq = 64 if dqk <= 64 else 128 if dqk <= 128 else 256
+        kept = 2 + (dqk > 256)                   # kKeptG, and a third tile over slabs
+        terms += [(5, _STAGE[dq] + kept * _TILE + 12 * 64),   # bwd_rows (tiles_smem_bytes)
+                  (5, _STAGE[nv] + _TILE + 12 * 64),          # bwd_dv
+                  (7, 0)]                                     # bwd_chain
+    return terms
+
+
+def max_chunk(dqk: int, dv: int, bwd: bool) -> int:
+    """The largest chunk whose blocks fit an H100's shared memory: the
+    forward's launches, and with ``bwd`` K9b's too."""
+    return min((SMEM_FLOATS - fixed) // per for per, fixed in _smem_terms(dqk, dv, bwd))
+
+
+def check_launch(BH: int, NC: int, L: int, dqk: int, dv: int, bwd: bool, *sizes: int) -> None:
+    """Raise ValueError where the mLSTM kernels cannot launch a call: more
+    than ``MAX_GRID_YZ`` heads (B·H) or chunks, a size at or above 2³¹, or a
+    chunk of L rows above ``max_chunk``."""
+    if BH > MAX_GRID_YZ or NC > MAX_GRID_YZ or max(BH, *sizes) >= 2 ** 31:
+        raise ValueError(f"the mLSTM kernels' grids take at most {MAX_GRID_YZ} heads (B·H) and "
+                         f"{MAX_GRID_YZ} chunks, and int32 sizes (below 2^31); got B·H = {BH}, "
+                         f"{NC} chunks, sizes {sizes}")
+    most = max_chunk(dqk, dv, bwd)
+    if L > most:
+        raise ValueError(f"the mLSTM {'backward' if bwd else 'forward'} at dqk {dqk}, dv {dv} "
+                         f"takes a chunk of at most {most} rows: its blocks keep the chunk's "
+                         f"gate rows in shared memory, 227 KB a block on the H100; got {L}")
+
+
+def _check(q, k, v, i_c, logf, C0, n0, m0, chunk: int, T: int, bwd: bool = False):
+    """Shapes (B, Tp, H, dqk, dv, L) of a K9a call (K9b's with ``bwd``);
+    raises on what the kernels do not take."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -286,8 +336,7 @@ def _check(q, k, v, i_c, logf, C0, n0, m0, chunk: int, T: int):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if Gq != H * dqk or Tp % L or not 0 < T <= Tp or Tp - T >= L:
         raise ValueError(f"bad geometry: q {tuple(q.shape)}, H={H}, chunk {L}, T={T}")
-    if L > 256 or dqk > 256:
-        raise ValueError(f"the kernels take a chunk and dqk of at most 256, got {L}, {dqk}")
+    check_launch(B * H, Tp // L, L, dqk, dv, bwd, Tp, dqk, dv)
     return B, Tp, H, dqk, dv, L
 
 
@@ -341,7 +390,7 @@ def mlstm_fused_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk:
     if not q.is_cuda:
         return mlstm_fused_bwd_ref(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T,
                                    chunk, T)
-    B, Tp, H, dqk, dv, L = _check(q, k, v, i_c, logf, C0, n0, m0, chunk, T)
+    B, Tp, H, dqk, dv, L = _check(q, k, v, i_c, logf, C0, n0, m0, chunk, T, bwd=True)
     if dh.shape != (B, Tp, H * dv) or dh.dtype != q.dtype:
         raise ValueError(f"dh {tuple(dh.shape)} {dh.dtype} must be {(B, Tp, H * dv)} {q.dtype}")
     from statecatcher_tpu_torch.ops._kernels import library

@@ -24,7 +24,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from statecatcher_tpu_torch.ops.mlstm_fused import NEG, soft_cap
+from statecatcher_tpu_torch.ops.mlstm_fused import NEG, check_launch, soft_cap
+
+
+def _check(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size: int):
+    """Shapes (B, H, T, dqk, dv) of a K10 call; raises on what the kernel does
+    not take."""
+    B, H, T, dqk = q.shape
+    dv = v.shape[-1]
+    for name, t, shape in (("k", k, (B, H, T, dqk)), ("v", v, (B, H, T, dv)),
+                           ("i_raw", i_raw, (B, H, T)), ("f_raw", f_raw, (B, H, T)),
+                           ("C0", C0, (B, H, dqk, dv)), ("n0", n0, (B, H, dqk)),
+                           ("m0", m0, (B, H))):
+        if tuple(t.shape) != shape or t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} must be {shape} "
+                             f"float32 on {q.device}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"K10 takes float32 inputs; got {q.dtype}")
+    check_launch(B * H, -(-T // chunk_size), chunk_size, dqk, dv, False, T + chunk_size, dqk, dv)
+    return B, H, T, dqk, dv
 
 
 def mlstm_pallas_fwd(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size: int,
@@ -37,19 +55,8 @@ def mlstm_pallas_fwd(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size: int,
         from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
 
         return mlstm_chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size, gate_soft_cap)
-    B, H, T, dqk = q.shape
-    dv = v.shape[-1]
+    B, H, T, dqk, dv = _check(q, k, v, i_raw, f_raw, C0, n0, m0, chunk_size)
     L = chunk_size
-    for name, t, shape in (("k", k, (B, H, T, dqk)), ("v", v, (B, H, T, dv)),
-                           ("i_raw", i_raw, (B, H, T)), ("f_raw", f_raw, (B, H, T)),
-                           ("C0", C0, (B, H, dqk, dv)), ("n0", n0, (B, H, dqk)),
-                           ("m0", m0, (B, H))):
-        if tuple(t.shape) != shape or t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} must be {shape} "
-                             f"float32 on {q.device}")
-    if q.dtype != torch.float32 or L > 256 or dqk > 256:
-        raise ValueError(f"K10 takes float32 inputs, a chunk and dqk of at most 256; got "
-                         f"{q.dtype}, chunk {L}, dqk {dqk}")
     pad = (-T) % L
     if pad:
         i_raw = F.pad(i_raw, (0, pad), value=NEG)

@@ -46,6 +46,7 @@ import functools
 
 import torch
 
+from statecatcher_tpu_torch.ops._kernels import MAX_GRID_YZ
 from statecatcher_tpu_torch.ops.rnnt_lattice import rnnt_nll_dp_pallas
 
 _NARROW_J = 128         # rnnt_joint_core.cuh's J ≤ 64 and J ≤ 128 instances; above, tiled products
@@ -54,7 +55,6 @@ _PLAIN_CHUNK = 16       # frames per chunk of the plain versions
 _PATCH_ROWS = 128       # rnnt_joint_core.cuh's kRT: rows of a backward patch
 _DK_ROWS = 64           # its kDR: rows per tile of the d_K kernel
 _DK_COLS = 128          # its kVS: vocab columns per block of the d_K kernel
-_MAX_GRID_YZ = 65535    # CUDA's limit on a grid's y and z
 
 
 def _plain_inputs(enc_p, pred_p, join_kernel, join_bias):
@@ -276,9 +276,9 @@ def bwd_plan(lib_name: str, dev: torch.device, B: int, TT: int, W: int, J: int, 
     per_sm, kop_words = _joint_sizes(lib_name, dev.index, J, V, bf)
     lay = bwd_layout(B, TT, W, V, patch_frames,
                      torch.cuda.get_device_properties(dev).multi_processor_count, per_sm, J)
-    if max(lay["rows_grid"][1:]) > _MAX_GRID_YZ:
+    if max(lay["rows_grid"][1:]) > MAX_GRID_YZ:
         raise ValueError(f"B={B} or {TT} frames too large for the patch grid "
-                         f"{lay['rows_grid']} (y and z at most {_MAX_GRID_YZ})")
+                         f"{lay['rows_grid']} (y and z at most {MAX_GRID_YZ})")
     return {"kop_words": kop_words, **lay}             # above J = 128 the layout's own
 
 

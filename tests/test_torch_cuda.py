@@ -1206,8 +1206,12 @@ def assert_scaled_close(got, want, names, tol):
         assert err <= tol * scale, f"{name}: max |Δ| {err:.3e} > {tol:g}·{scale:.3e}"
 
 
+# (B, T, H, dqk, dv, chunk); the last three above 256: chunk 512
+# (two threads' rows a gate scan, ragged T), E=2048's heads (dqk 512: dq and
+# dk in two slabs), dqk 300 (a slab of 44 columns) at chunk 384
 MLSTM_SHAPES = [(2, 45, 2, 16, 16, 16), (1, 300, 2, 128, 256, 128), (2, 70, 1, 32, 80, 32),
-                (1, 600, 2, 128, 256, 256)]
+                (1, 600, 2, 128, 256, 256), (1, 1100, 2, 128, 256, 512),
+                (1, 600, 1, 512, 1024, 128), (1, 700, 1, 300, 80, 384)]
 
 
 @pytest.mark.cuda
@@ -1240,6 +1244,123 @@ def test_mlstm_fused_kernels_match_plain_f32(cuda_device, B, T, H, dqk, dv, chun
     assert (mlstm_fused_fwd.launches, mlstm_fused_bwd.launches) == (n[0] + 1, n[1] + 1)
     for name, a, c in zip(("dq", "dk", "dv", "dic", "dlogf", "dC0", "dn0", "dm0"), gb, gr):
         assert_grad_close(a.cpu().numpy(), c.cpu().numpy(), name, rtol=1e-3, scale_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", MLSTM_SHAPES)
+def test_mlstm_kernels_at_any_shape_bf16_deterministic_and_k10(cuda_device, B, T, H, dqk, dv,
+                                                                chunk):
+    """At each shape of MLSTM_SHAPES: K9a/K9b in bf16 against their plain
+    versions (h 2e-2 of its scale, dq, dk, dv 2e-2 relative plus 1e-3, the
+    f32 outputs as in f32); two calls of K9a and K9b give the same bits in
+    f32 and in bf16; K10 against mlstm_chunkwise in f32 within 1e-4 of each
+    output's scale, two calls the same bits."""
+    from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
+    from statecatcher_tpu_torch.ops.mlstm_fused import (
+        mlstm_fused_bwd,
+        mlstm_fused_bwd_ref,
+        mlstm_fused_fwd,
+        mlstm_fused_fwd_ref,
+    )
+    from statecatcher_tpu_torch.ops.mlstm_pallas import mlstm_pallas_fwd
+
+    fwd_names = ("h", "C_T", "n_T", "m_T")
+    for dtype in (torch.float32, torch.bfloat16):
+        ins, L, Tp = mlstm_kernel_data(B * T + dqk + 1, B, T, H, dqk, dv, chunk, dtype)
+        ins = [x.to(cuda_device) for x in ins]
+        gen = torch.Generator(device=cuda_device).manual_seed(T + 1)
+        cots = [torch.randn(x.shape, generator=gen, device=cuda_device).to(x.dtype)
+                for x in (ins[2], ins[5], ins[6], ins[7])]
+        cots[0][:, T:] = 0
+        got = [x.clone() for x in mlstm_fused_fwd(*ins, L, T)]
+        gb = [x.clone() for x in mlstm_fused_bwd(*ins, *cots, L, T)]
+        for name, a, c in zip(fwd_names + K9B_NAMES, got + gb,
+                              list(mlstm_fused_fwd(*ins, L, T)) +
+                              list(mlstm_fused_bwd(*ins, *cots, L, T))):
+            assert torch.equal(a, c), f"{name} ({dtype}): two calls differ"
+        if dtype == torch.bfloat16:
+            want = mlstm_fused_fwd_ref(*ins, L, T)
+            assert_scaled_close([got[0][:, :T]], [want[0][:, :T]], fwd_names[:1], 2e-2)
+            assert_scaled_close(got[1:], want[1:], fwd_names[1:], 1e-4)
+            _assert_k9b_close(gb, mlstm_fused_bwd_ref(*ins, *cots, L, T), dtype)
+    rng = np.random.default_rng(T + dqk)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5)
+    ins = [r(B, H, T, dqk), r(B, H, T, dqk), r(B, H, T, dv), 2.0 * r(B, H, T),
+           2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(), 0.1 * r(B, H)]
+    ins = [x.to(cuda_device) for x in ins]
+    n = mlstm_pallas_fwd.launches
+    got = [x.clone() for x in mlstm_pallas_fwd(*ins, chunk)]
+    again = mlstm_pallas_fwd(*ins, chunk)
+    torch.cuda.synchronize()
+    assert mlstm_pallas_fwd.launches == n + 2
+    for name, a, c in zip(fwd_names, got, again):
+        assert torch.equal(a, c), f"K10 {name}: two calls differ"
+    assert_scaled_close(got, mlstm_chunkwise(*ins, chunk), fwd_names, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (512, 1024)])
+def test_mlstm_kernels_launch_at_their_largest_chunk(cuda_device, dqk, dv):
+    """At ``max_chunk``, the largest chunk whose blocks fit the card's shared
+    memory, K9a and K9b (at the backward's limit) and K10 (at the forward's,
+    T = 200) launch and match their plain versions.  The gates' exponents
+    are differences of sums of logf over the chunk's rows (``sums``, the
+    largest |Σ logf| of a head: ~3000 at 7782 rows), each known to a step
+    of f32 of such a sum, 6e-8 of it: m_T is held to 1e-6·sums (16 steps),
+    every other output to the f32 tolerances of the tests above plus that
+    much of its scale.  A chunk one row larger raises ValueError naming the
+    largest."""
+    from statecatcher_tpu_torch.models.xlstm import mlstm_chunkwise
+    from statecatcher_tpu_torch.ops import mlstm_pallas as mp
+    from statecatcher_tpu_torch.ops.mlstm_fused import (
+        _check,
+        max_chunk,
+        mlstm_fused_bwd,
+        mlstm_fused_bwd_ref,
+        mlstm_fused_fwd,
+        mlstm_fused_fwd_ref,
+        soft_cap,
+    )
+
+    def close(got, want, logf, names, rtol, scale_tol):
+        sums = logf.sum(-1).abs().max().item()
+        for name, a, c in zip(names, got, want):
+            if name == "m_T":
+                err = (a - c).abs().max().item()
+                assert err <= 1e-6 * sums, f"m_T: max |Δ| {err:.3e} > 1e-6·{sums:.3e}"
+            else:
+                assert_grad_close(a.float().cpu().numpy(), c.float().cpu().numpy(), name,
+                                  rtol=rtol, scale_tol=scale_tol + 1e-6 * sums)
+
+    L = max_chunk(dqk, dv, True)
+    ins, _, _ = mlstm_kernel_data(L + dqk, 1, L, 1, dqk, dv, L)
+    ins = [x.to(cuda_device) for x in ins]
+    got = mlstm_fused_fwd(*ins, L, L)
+    want = mlstm_fused_fwd_ref(*ins, L, L)
+    close(got, want, ins[4], ("h", "C_T", "n_T", "m_T"), 0.0, 1e-4)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda_device) for x in want]
+    close(mlstm_fused_bwd(*ins, *cots, L, L), mlstm_fused_bwd_ref(*ins, *cots, L, L), ins[4],
+          K9B_NAMES, 1e-3, 1e-4)
+    big = [torch.zeros(1, L + 1, x.shape[-1]) if x.ndim == 3 and i < 3 else
+           torch.zeros(*x.shape[:-1], L + 1) if i in (3, 4) else x.cpu()
+           for i, x in enumerate(ins)]
+    with pytest.raises(ValueError, match=f"at most {L} rows"):
+        _check(*big, L + 1, L + 1, bwd=True)
+
+    Lf = max_chunk(dqk, dv, False)
+    rng = np.random.default_rng(dqk)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5)
+    T = 200
+    ins = [r(1, 1, T, dqk), r(1, 1, T, dqk), r(1, 1, T, dv), 2.0 * r(1, 1, T),
+           2.0 * r(1, 1, T) + 1.0, 0.1 * r(1, 1, dqk, dv), (0.1 * r(1, 1, dqk)).abs(),
+           0.1 * r(1, 1)]
+    with pytest.raises(ValueError, match=f"at most {Lf} rows"):
+        mp._check(*ins, Lf + 1)
+    ins = [x.to(cuda_device) for x in ins]
+    close(mp.mlstm_pallas_fwd(*ins, Lf), mlstm_chunkwise(*ins, Lf),
+          torch.nn.functional.logsigmoid(soft_cap(ins[4], 15.0)), ("h", "C_T", "n_T", "m_T"),
+          0.0, 1e-4)
 
 
 @pytest.mark.cuda

@@ -7,13 +7,18 @@ chunk-parallel local pass (den, dqn, dmu, dsp, rowD = swg/den + dqn·sw, dq,
 the chunk's own dC_c and dn_c), the reverse scans of dC' and dn' (and dg),
 a chunk-parallel pass for dk and dv (w·Y, w·Z, colD), the gate chain with
 dm' = 0 and the fix-up that adds dm''s terms once every chunk's (dmc, to1) is
-known.  ``split_bwd`` below follows those passes; it is not on any path of
-the port.  Held:
+known.  Above dqk = 256 the rows' and dk's passes take dq and dk in slabs of
+256 columns, q·U and k·(Y + dn') summed over the slabs in order; the gate
+passes scan a chunk's rows as ``rows_scan`` (test_torch_mlstm_fwd_split.py)
+does, and the chain counts each tie by walking its run of equal R, which at
+L > 256 crosses the threads' rows.  ``split_bwd`` below follows those passes;
+it is not on any path of the port.  Held:
 
   * against ``mlstm_fused_bwd_ref`` in float64: rtol 1e-9, atol 1e-11 (the
     same function, summed in another order), at T not a multiple of L, a
-    single chunk, L = 256 with narrow widths, and tied input gates (every a_s
-    equal, so the running max and both maxima tie);
+    single chunk, L = 256, 384 and 512 with narrow widths, dqk = 300, 320 and
+    512 at short T, and tied input gates (every a_s equal, so the running max
+    and both maxima tie);
   * against ``jax.vjp`` of the JAX package's pure-XLA ``mlstm_chunkwise``
     through the layer (``mlstm_fused`` with ``split_bwd`` as its backward),
     in float32 at the tolerances of tests/test_torch_mlstm_fused.py (rtol
@@ -37,11 +42,40 @@ from statecatcher_tpu.models.xlstm import mlstm_chunkwise as j_chunkwise
 from statecatcher_tpu_torch.ops import mlstm_fused as mf
 from test_torch_cuda import assert_grad_close, mlstm_kernel_data
 from test_torch_cuda import single_torch_thread  # noqa: F401
+from test_torch_mlstm_fwd_split import rows_scan
 from test_torch_rnnt_joint_tc import bf16, matmul_3xtf32
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
 
 NAMES = ("dq", "dk", "dv", "dic", "dlogf", "dC0", "dn0", "dm0")
+SLAB = 256
+
+
+def slabs(dqk):
+    """The column slabs of dq and dk: one below 256 columns, else 256 each."""
+    return [slice(d0, min(dqk, d0 + SLAB)) for d0 in range(0, dqk, SLAB)]
+
+
+def rev_scan(x):
+    """sum_{u >= t} x_u over a chunk's rows, as the kernels take it: the rows
+    reversed, ``rows_scan``, reversed back."""
+    return torch.flip(rows_scan(torch.flip(x, (-1,)), True), (-1,))
+
+
+def run_ties(a, R, dR):
+    """The chain's tie terms as its walk takes them: each row r counts the
+    rows s <= r of its run of equal R with a_s = R_r (cnt), and a row s with
+    a_s = R_s adds dR_u / cnt_u over the rows u >= s of its run.  R does not
+    decrease, so a run is a segment of rows."""
+    new = torch.ones_like(R, dtype=torch.bool)
+    new[..., 1:] = R[..., 1:] != R[..., :-1]
+    seg = torch.cumsum(new.long(), -1)                         # run index of each row
+    hit = (a == R).to(a.dtype)
+    same = seg[..., :, None] == seg[..., None, :]              # (r, s) in one run
+    tri = torch.ones(R.shape[-1], R.shape[-1], dtype=torch.bool).tril()
+    cnt = (same & tri).to(a.dtype) @ hit[..., None]            # rows s <= r of r's run
+    share = (same & tri.T).to(a.dtype) @ (dR / cnt[..., 0])[..., None]   # rows u >= s
+    return cnt[..., 0], hit * share[..., 0]
 
 
 def _tie(x, y):
@@ -66,9 +100,9 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
 
     # 1. gates: block scans local to each chunk, then the scalar m walks the
     # chunks' (bL, A)
-    b = torch.cumsum(lf_, -1)
+    b = rows_scan(lf_, True)
     a = ic_ - b
-    R = torch.cummax(a, -1).values
+    R = rows_scan(a, False)
     bL, A = b[..., -1], R[..., -1]
     ms = [m0]
     for c in range(NC - 1):
@@ -88,14 +122,18 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
         ns.append(g[..., c, None] * ns[-1] + nD[:, :, c])
     C, n = torch.stack(Cs, 2), torch.stack(ns, 2)
 
-    # 4. the local pass: row sums of W = S E and W G, then dq
+    # 4. the local pass: row sums of W = S E and W G, U = dh Cᵀ and q·U slab by
+    # slab, then dq
     E = torch.where(tri, torch.exp(b[..., :, None] + a[..., None, :] - mu[..., :, None]), 0.0)
     S = inv * mm_in(q_, T_(k_))
     G = mm_in(dh_, T_(v_))
-    U = mm(dh_, T_(C))
+    U = torch.cat([mm(dh_, T_(C[..., sl, :])) for sl in slabs(dqk)], -1)
     W = S * E
     sw, swg = W.sum(-1), (W * G).sum(-1)
-    qnn, qU = (q_ * n[..., None, :]).sum(-1), (q_ * U).sum(-1)
+    qnn = (q_ * n[..., None, :]).sum(-1)
+    qU = 0.0
+    for sl in slabs(dqk):
+        qU = qU + (q_[..., sl] * U[..., sl]).sum(-1)
     qn = sw + sp * inv * qnn
     emu = torch.exp(-mu)
     den = torch.maximum(qn.abs(), emu)
@@ -107,7 +145,7 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
     rowD = swg / den + dqn * sw
     Q = E * (G / den[..., None] + dqn[..., None])
     dq = inv * sp[..., None] * (U / den[..., None] + dqn[..., None] * n[..., None, :])
-    dq = dq + mm(inv * Q, k_)
+    dq = dq + torch.cat([mm(inv * Q, k_[..., sl]) for sl in slabs(dqk)], -1)
     # 5. each chunk's own entry adjoints
     dCc = mm(T_(q_ * (inv * sp / den)[..., None]), dh_)
     dnc = (q_ * (inv * sp * dqn)[..., None]).sum(-2)
@@ -121,10 +159,14 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
     dC0, dn0 = x, xn
     lam, lamn = torch.stack(lam, 2), torch.stack(lamn, 2)
     dg = (lam * C).sum((-1, -2)) + (lamn * n).sum(-1)
-    # 7./8. dk, dv, colD and w·dw
-    wY = mm(v_ * w[..., None], T_(lam)) + w[..., None] * lamn[..., None, :]
-    dZ = (k_ * wY).sum(-1)
-    dk = wY + mm(T_(inv * Q), q_)
+    # 7./8. dk (slab by slab, k·wY summed over the slabs in order), dv, colD and
+    # w·dw
+    wY = torch.cat([mm(v_ * w[..., None], T_(lam[..., sl, :])) for sl in slabs(dqk)], -1)
+    wY = wY + w[..., None] * lamn[..., None, :]
+    dZ = 0.0
+    for sl in slabs(dqk):
+        dZ = dZ + (k_[..., sl] * wY[..., sl]).sum(-1)
+    dk = wY + torch.cat([mm(T_(inv * Q), q_[..., sl]) for sl in slabs(dqk)], -1)
     colD = (S * Q).sum(-2)
     dv = mm(k_ * w[..., None], lam) + mm(T_(W / den[..., None]), dh_)
     # 9. the gate chain with dm' = 0
@@ -140,10 +182,9 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
     dR = dmu * (1.0 - tom)
     dR = torch.cat([dR[..., :-1], (dR[..., -1] + dm_tot * (1.0 - to1))[..., None]], -1)
     db = torch.cat([db[..., :-1], (db[..., -1] + sum_dz + dY + dm_tot)[..., None]], -1)
-    hit = (tri & (a[..., None, :] == R[..., :, None])).to(a.dtype)        # (t, s)
-    cnt = hit.sum(-1)
-    da = colD + dZ + ((dR / cnt)[..., :, None] * hit).sum(-2)
-    dlf = torch.flip(torch.cumsum(torch.flip(db - da, (-1,)), -1), (-1,))
+    cnt, ties = run_ties(a, R, dR)
+    da = colD + dZ + ties
+    dlf = rev_scan(db - da)
     # 10. the fix-up: dm' of each chunk from the later chunks' (dmc, to1)
     dms = [None] * NC
     x = dm_T
@@ -155,7 +196,7 @@ def split_bwd(q, k, v, i_c, logf, C0, n0, m0, dh, dC_T, dn_T, dm_T, chunk, T,
     last = (a == A[..., None]).to(a.dtype)                     # the ties of R_{L-1}
     share = dmx * (1.0 - to1) / cnt[..., -1]
     dic = da + share[..., None] * last
-    after = torch.flip(torch.cumsum(torch.flip(last, (-1,)), -1), (-1,))
+    after = rev_scan(last)
     dlf = dlf + dmx[..., None] - share[..., None] * after
 
     lanes = lambda x, dt: mf._lanes(torch.where(valid[:, None], x.reshape(B, H, Tp, -1), 0.0), dt)
@@ -178,9 +219,13 @@ def _case(seed, B, T, H, dqk, dv, chunk, dtype=torch.float64, ties=False):
     return ins, [dh, cot(B, H, dqk, dv), cot(B, H, dqk), cot(B, H)], L
 
 
-# (B, T, H, dqk, dv, chunk): T a multiple of L and not, one chunk, L = 256
+# (B, T, H, dqk, dv, chunk): T a multiple of L and not, one chunk, L = 256;
+# then above 256: L = 384 and 512 (two rows a thread in the gate passes),
+# dqk = 320 and 512 (two slabs) and 300 (a slab of 44 columns) at short T
 SHAPES = [(2, 45, 2, 16, 16, 16), (2, 64, 1, 16, 24, 16), (1, 20, 2, 16, 16, 32),
-          (1, 300, 1, 8, 8, 256), (2, 70, 2, 12, 20, 32)]
+          (1, 300, 1, 8, 8, 256), (2, 70, 2, 12, 20, 32), (1, 700, 1, 8, 8, 384),
+          (1, 1100, 1, 8, 12, 512), (1, 40, 1, 320, 16, 16), (1, 45, 2, 512, 8, 32),
+          (1, 50, 1, 300, 20, 32)]
 
 
 @pytest.mark.parametrize("B,T,H,dqk,dv,chunk", SHAPES)
@@ -234,7 +279,10 @@ def _mm_bf16_inputs(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,dqk,dv,chunk,ties", [(2, 200, 2, 64, 128, 128, False),
                                                       (1, 300, 2, 32, 48, 256, False),
-                                                      (2, 70, 1, 32, 80, 32, True)])
+                                                      (2, 70, 1, 32, 80, 32, True),
+                                                      (1, 1100, 1, 16, 16, 512, True),
+                                                      (1, 70, 1, 512, 64, 32, False),
+                                                      (1, 50, 1, 300, 20, 32, False)])
 def test_split_on_emulated_tensor_cores_within_card_tolerance(dtype, B, T, H, dqk, dv, chunk,
                                                               ties):
     ins, cots, L = _case(7 + T, B, T, H, dqk, dv, chunk, torch.float32, ties=ties)

@@ -116,3 +116,95 @@ def test_gradients_match_jax_vjp_of_chunkwise(T):
     for name, x, g in zip(NAMES, xs, jgrads):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), rtol=5e-3, atol=5e-4,
                                    err_msg=f"d_{name}")
+
+
+# (B, T, H, dqk, dv, chunk) above 256: chunk 512
+# over two chunks with T ragged, and dqk 512 at one head and short T
+WIDE = [(1, 600, 2, 8, 8, 512), (1, 40, 1, 512, 16, 16)]
+
+
+@pytest.mark.parametrize("B,T,H,dqk,dv,chunk", WIDE)
+def test_wide_shapes_match_jax(B, T, H, dqk, dv, chunk, monkeypatch):
+    """The port's forward against JAX's K9a in interpret mode (rtol 2e-4, atol
+    2e-5), and its gradients against ``jax.vjp`` of JAX's XLA
+    ``mlstm_chunkwise`` (rtol 5e-3, atol 5e-4), at chunk 512 and at dqk 512."""
+    rng = np.random.default_rng(T + dqk)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32) * 0.5
+    d = [r(B, T, H * dqk), r(B, T, H * dqk), r(B, T, H * dv), r(B, T, H) * 2.0,
+         r(B, T, H) * 2.0 + 1.0, r(B, H, dqk, dv) * 0.1, np.abs(r(B, H, dqk)) * 0.1,
+         r(B, H) * 0.1]
+    cots = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, T, H * dv), (B, H, dqk, dv), (B, H, dqk), (B, H))]
+    monkeypatch.setattr(jmf, "_fused_fwd_impl",
+                        functools.partial(jmf._fused_fwd_impl.__wrapped__, interpret=True))
+    want = jmf.mlstm_fused(*map(jnp.asarray, d), chunk)
+    tr = lambda x, dd: x.reshape(B, T, H, dd).transpose(0, 2, 1, 3)
+
+    def chunkwise(q, k, v, i_raw, f_raw, C0, n0, m0):
+        h, C_T, n_T, m_T = j_chunkwise(tr(q, dqk), tr(k, dqk), tr(v, dv),
+                                       i_raw.transpose(0, 2, 1), f_raw.transpose(0, 2, 1), C0,
+                                       n0, m0, chunk)
+        return h.transpose(0, 2, 1, 3).reshape(B, T, H * dv), C_T, n_T, m_T
+
+    _, vjp = jax.vjp(chunkwise, *map(jnp.asarray, d))
+    jgrads = vjp(tuple(map(jnp.asarray, cots)))
+    xs = [torch.from_numpy(x).requires_grad_() for x in d]
+    got = mf.mlstm_fused(*xs, chunk)
+    for name, a, b in zip(("h", "C_T", "n_T", "m_T"), got, want):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+    torch.autograd.backward(got, [torch.from_numpy(c) for c in cots])
+    for name, x, g in zip(NAMES, xs, jgrads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), rtol=5e-3, atol=5e-4,
+                                   err_msg=f"d_{name}")
+
+
+@pytest.mark.parametrize("B,H,T,dqk,dv,chunk", [(1, 2, 600, 8, 8, 512), (1, 1, 40, 512, 1024, 16),
+                                                (2, 1, 1100, 512, 16, 512)])
+def test_kernel_checks_take_any_chunk_and_width(B, H, T, dqk, dv, chunk):
+    """K9's ``_check`` and K10's take chunk 512 and dqk 512; B·H above the
+    grids' 65535 still raises, naming the limit."""
+    from statecatcher_tpu_torch.ops import mlstm_pallas as mp
+
+    L = min(chunk, max(8, T))
+    Tp = -(-T // L) * L
+    z = lambda *s: torch.zeros(s)
+    lane = [z(B, Tp, H * dqk), z(B, Tp, H * dqk), z(B, Tp, H * dv), z(B, H, Tp), z(B, H, Tp),
+            z(B, H, dqk, dv), z(B, H, dqk), z(B, H)]
+    assert mf._check(*lane, L, T) == (B, Tp, H, dqk, dv, L)
+    head = [z(B, H, T, dqk), z(B, H, T, dqk), z(B, H, T, dv), z(B, H, T), z(B, H, T),
+            z(B, H, dqk, dv), z(B, H, dqk), z(B, H)]
+    assert mp._check(*head, chunk) == (B, H, T, dqk, dv)
+    n = mf.MAX_GRID_YZ + 1
+    with pytest.raises(ValueError, match="65535 heads"):
+        mf._check(z(n, 8, 1), z(n, 8, 1), z(n, 8, 1), z(n, 1, 8), z(n, 1, 8), z(n, 1, 1, 1),
+                  z(n, 1, 1), z(n, 1), 8, 8)
+    with pytest.raises(ValueError, match="65535 heads"):
+        mp._check(z(n, 1, 8, 1), z(n, 1, 8, 1), z(n, 1, 8, 1), z(n, 1, 8), z(n, 1, 8),
+                  z(n, 1, 1, 1), z(n, 1, 1), z(n, 1), 8)
+
+
+@pytest.mark.parametrize("dqk,dv,bwd,most", [(512, 1024, True, 4147), (128, 256, True, 6860),
+                                             (64, 64, True, 7782), (512, 1024, False, 19424)])
+def test_kernel_checks_name_the_largest_chunk(dqk, dv, bwd, most):
+    """A chunk whose blocks would not fit an H100's 227 KB of shared memory
+    raises ValueError naming the largest that fits (the launchers' sizes:
+    K9b's row kernel at dqk 512 and 128, its dv kernel at dv 64, fwd_out in
+    the forward); that chunk passes K9's ``_check`` (K10's for the forward)."""
+    from statecatcher_tpu_torch.ops import mlstm_pallas as mp
+
+    assert mf.max_chunk(dqk, dv, bwd) == most
+    z = lambda *s: torch.zeros(s)
+    carry = [z(1, 1, dqk, dv), z(1, 1, dqk), z(1, 1)]
+    for L in (most, most + 1):
+        if bwd:
+            call = lambda: mf._check(z(1, L, dqk), z(1, L, dqk), z(1, L, dv), z(1, 1, L),
+                                     z(1, 1, L), *carry, L, L, bwd=True)
+        else:
+            call = lambda: mp._check(z(1, 1, 8, dqk), z(1, 1, 8, dqk), z(1, 1, 8, dv), z(1, 1, 8),
+                                     z(1, 1, 8), *carry, L)
+        if L == most:
+            call()
+        else:
+            with pytest.raises(ValueError, match=f"at most {most} rows.*227 KB"):
+                call()

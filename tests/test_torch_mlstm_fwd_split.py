@@ -3,7 +3,8 @@ written out as plain torch here and held against the plain forward and
 against JAX.
 
 The kernels split the chunk step along its data dependencies: the gates of
-each chunk (b, a, R by scans local to the chunk, then m at each chunk's
+each chunk (b, a, R by scans local to the chunk, ``rows_scan``: above 256
+rows a thread takes ceil(L/256) consecutive rows, then m at each chunk's
 entry by a scalar walk over the earlier chunks' (bL, A), then mu, sp, w, g),
 each chunk's state term (Σ w k vᵀ and Σ w k), the elementwise scan of the
 entry states, the exit state from the last chunk's term, and the outputs of
@@ -14,9 +15,10 @@ below follows those passes; it is not on any path of the port.  Held:
 
   * against ``mlstm_fused_fwd_ref`` in float64: rtol 1e-9, atol 1e-12 (the
     same function, summed in another order), at T not a multiple of L, a
-    single chunk (T = 32), L = 256 with narrow widths, dv not a multiple of
-    64, and tied input gates (every a_s equal, so the running max and both
-    maxima tie);
+    single chunk (T = 32), L = 256, 384 and 512 with narrow widths, dqk =
+    300, 320 and 512 at short T, dv not a multiple of 64, and tied input
+    gates (every a_s equal, so the running max and both maxima tie; at L =
+    512 a run of equal R crosses the threads' rows);
   * in K10's layout (head-major; the gates padded as the wrapper pads them,
     q, k, v zero past T; q pre-scaled and inv = 1) against the port's
     ``mlstm_chunkwise`` in float64 (the same tolerances) and the JAX
@@ -52,7 +54,28 @@ from test_torch_rnnt_joint_tc import bf16, matmul_3xtf32
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
 
 TILE = 64
+THREADS = 256
 FWD = ("h", "C_T", "n_T", "m_T")
+
+
+def rows_scan(x, add: bool):
+    """The gate passes' inclusive scan over a chunk's rows (the last axis),
+    ``rows_scan`` of mlstm_chunk.cuh: a sum (``add``) or a running max.
+    Thread t takes the P = ceil(L/256) consecutive rows from t·P and forms
+    their prefix, the threads' partials are scanned, each row but a thread's
+    last adds the partial of the threads before its own, and the last takes
+    the scan of the partials (at L <= 256, P = 1: the scan of the rows)."""
+    scan = (lambda y, d: torch.cumsum(y, d)) if add else (lambda y, d: torch.cummax(y, d).values)
+    L = x.shape[-1]
+    P = -(-L // THREADS)
+    n = -(-L // P)                                             # threads holding rows
+    local = scan(F.pad(x, (0, n * P - L), value=0.0 if add else -float("inf"))
+                 .reshape(*x.shape[:-1], n, P), -1)
+    inc = scan(local[..., -1], -1)                             # the partials' scan
+    pre = inc[..., :-1, None]                                  # the threads before each
+    rest = local[..., 1:, :-1] + pre if add else torch.maximum(local[..., 1:, :-1], pre)
+    head = torch.cat([local[..., :1, :-1], rest], -2)
+    return torch.cat([head, inc[..., None]], -1).reshape(*x.shape[:-1], n * P)[..., :L]
 
 
 def split_core(qh, kh, vh, ic, lf, C0, n0, m0, L, inv, mm=torch.matmul, mm_in=torch.matmul):
@@ -69,9 +92,9 @@ def split_core(qh, kh, vh, ic, lf, C0, n0, m0, L, inv, mm=torch.matmul, mm_in=to
 
     # 1. gates: scans local to each chunk, then the scalar m walks the
     # chunks' (bL, A)
-    b = torch.cumsum(lf_, -1)
+    b = rows_scan(lf_, True)
     a = ic_ - b
-    R = torch.cummax(a, -1).values
+    R = rows_scan(a, False)
     bL, A = b[..., -1], R[..., -1]
     ms = [m0]
     for c in range(NC):
@@ -161,9 +184,13 @@ def _assert_f64(got, want):
 
 
 # (B, T, H, dqk, dv, chunk): T not a multiple of L, one chunk, two row tiles,
-# L = 256 (four row tiles) at narrow widths, dv not a multiple of 64
+# L = 256 (four row tiles) at narrow widths, dv not a multiple of 64; then
+# above 256: L = 384 and 512 (two rows a thread in the gate scans), dqk = 320,
+# 512 and 300 (not a multiple of 64) at short T
 SHAPES = [(2, 45, 2, 16, 16, 16), (1, 32, 2, 16, 24, 32), (1, 200, 2, 32, 48, 128),
-          (1, 300, 1, 8, 8, 256), (2, 70, 2, 12, 80, 32)]
+          (1, 300, 1, 8, 8, 256), (2, 70, 2, 12, 80, 32), (1, 700, 1, 8, 8, 384),
+          (1, 1100, 1, 8, 12, 512), (1, 40, 1, 320, 16, 16), (1, 45, 2, 512, 8, 32),
+          (1, 50, 1, 300, 20, 32)]
 
 
 @pytest.mark.parametrize("B,T,H,dqk,dv,chunk", SHAPES)
@@ -225,7 +252,10 @@ def _mm_bf16_inputs(a, b):
 @pytest.mark.parametrize("B,T,H,dqk,dv,chunk,ties", [(2, 200, 2, 64, 128, 128, False),
                                                       (1, 300, 2, 32, 48, 256, False),
                                                       (2, 70, 1, 32, 80, 32, True),
-                                                      (1, 32, 2, 64, 128, 32, False)])
+                                                      (1, 32, 2, 64, 128, 32, False),
+                                                      (1, 1100, 1, 16, 16, 512, True),
+                                                      (1, 70, 1, 512, 64, 32, False),
+                                                      (1, 50, 1, 300, 20, 32, False)])
 def test_split_on_emulated_tensor_cores_within_card_tolerance(dtype, B, T, H, dqk, dv, chunk,
                                                               ties):
     ins, L = _case(11 + T, B, T, H, dqk, dv, chunk, torch.float32, ties=ties)

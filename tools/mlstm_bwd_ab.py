@@ -22,8 +22,11 @@ difference; then the kernel path alone twice, the second run's ms per
 segment and peak memory) and ``bench.py``'s xLSTM row (phase 21: B=64,
 bf16, chunk 256, K=4: audio-s/s, peak memory).  With ``--profile`` it also
 prints the device time of each CUDA kernel of one K9a and one K9b call at
-each shape (``torch.profiler``).  It prints the card's name and power limit,
-the phases' own log lines, and one JSON line of kernel times.
+each shape (``torch.profiler``).  With ``--save DIR`` it keeps the outputs of
+one call of each kernel at each shape in ``DIR/<tag>.pt`` and holds them
+bit for bit against every other tag's file already there.  It prints the
+card's name and power limit, the phases' own log lines, and one JSON line of
+kernel times.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true", help="time the kernels, no training")
     ap.add_argument("--profile", action="store_true", help="K9b's device time by CUDA kernel")
+    ap.add_argument("--save", metavar="DIR", help="keep the outputs; compare with other tags'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mlstm_bwd_ab needs a CUDA card")
@@ -95,7 +99,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 17)
     H, dqk, dv, T = 2, 128, 256, 1598
-    out = {}
+    out, saved = {}, {}
+    keep = lambda key, xs: saved.update({f"{key} {i}": x.cpu() for i, x in enumerate(xs)})
     with torch.inference_mode():
         for label, B, L, dtype in (("f32", 32, 128, torch.float32),
                                    ("bf16", 32, 128, torch.bfloat16),
@@ -115,12 +120,15 @@ def main() -> int:
                 out[f"{name} {label} MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
             out["K9b " + label] = cs.cuda_ms(lambda: mlstm_fused_bwd(*ins, *cots, L, T),
                                              args.reps)
+            keep("K9a " + label, mlstm_fused_fwd(*ins, L, T))
+            keep("K9b " + label, mlstm_fused_bwd(*ins, *cots, L, T))
             if args.profile:
                 cs.log_by_kernel(f"[{args.tag}] K9a {label}", lambda: mlstm_fused_fwd(*ins, L, T))
                 cs.log_by_kernel(f"[{args.tag}] K9b {label}",
                                  lambda: mlstm_fused_bwd(*ins, *cots, L, T))
         ins, _ = cs.mlstm_inputs(gen, 1, 32, H, dqk, dv, 32, torch.float32, dev)
         out["K9a streaming f32"] = cs.cuda_ms(lambda: mlstm_fused_fwd(*ins, 128, 32), 20)
+        keep("K9a streaming f32", mlstm_fused_fwd(*ins, 128, 32))
         if args.profile:
             cs.log_by_kernel(f"[{args.tag}] K9a streaming f32",
                              lambda: mlstm_fused_fwd(*ins, 128, 32))
@@ -130,7 +138,18 @@ def main() -> int:
                2.0 * r(B, H, T) + 1.0, 0.1 * r(B, H, dqk, dv), (0.1 * r(B, H, dqk)).abs(),
                0.1 * r(B, H)]
         out["K10 f32"] = cs.cuda_ms(lambda: mlstm_pallas_fwd(*ins, L), args.reps)
+        keep("K10 f32", mlstm_pallas_fwd(*ins, L))
     print(f"[{args.tag}] kernels " + json.dumps(out), flush=True)
+    if args.save:
+        os.makedirs(args.save, exist_ok=True)
+        torch.save(saved, os.path.join(args.save, f"{args.tag}.pt"))
+        for name in sorted(os.listdir(args.save)):
+            if name.endswith(".pt") and name != f"{args.tag}.pt":
+                other = torch.load(os.path.join(args.save, name))
+                off = [k for k in saved if not torch.equal(saved[k], other[k])]
+                print(f"[{args.tag}] outputs bit for bit against {name[:-3]}: "
+                      + (f"{len(off)} of {len(saved)} differ: {off}" if off
+                         else f"all {len(saved)} equal"), flush=True)
     if args.kernels_only:
         return 0
 
